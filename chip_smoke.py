@@ -3,17 +3,28 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero at once without
-a card, and on any failed check.  It builds the four kernels from
+a card, and on any failed check.  It builds the six kernels from
 tpuzlib_torch/kernels/csrc, then:
 
   A  holds each kernel against its plain torch version (exact equality)
-     at the main path's shapes: level 6, 256 KiB chunks, batch 8;
+     at the main path's shapes: the encoder's four at level 6, 256 KiB
+     chunks, batch 8; the checksums' three (CRC-32 per-block forms, CRC-32
+     span forms, Adler-32 block sums) on 256 MiB, the size from which
+     tpuzlib's checksums take the device;
   B  runs one full-shape make_encode_batch_v3 batch on the card and on
      the CPU (plain versions) and requires equal words, bits and ok;
-  C  compresses 32 MiB of mixed corpus at level 6, and 8 MiB at levels 1
-     and 9, with tpuzlib_torch.deflate (zlib container) and decodes each
-     with python's zlib; the kernels' launch counts are taken over C;
-  D  streams 16 MiB through DeviceDeflater in uneven appends.
+  C  compresses 32 MiB of mixed corpus at level 6 in the zlib and the gzip
+     container, and 8 MiB at levels 1 and 9 (zlib), with
+     tpuzlib_torch.deflate and decodes each with python's zlib; the
+     launch counts of the encoder's kernels and of the two trailers'
+     checksum kernels (adler32, crc32_spans) are taken over C;
+  D  streams 16 MiB through DeviceDeflater in uneven appends;
+  E  holds tpuzlib_torch.crc32 / adler32 to zlib: 256 MiB as a host array
+     and as a card tensor, ragged sizes with seeds, a chain of seven
+     pieces and the combines; crc32_forms' launch count (inputs below one
+     span) is taken over E;
+  F  runs tpuzlib_torch.entry's forward step on the card and on the CPU
+     and requires equal outputs.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -21,6 +32,7 @@ Each phase prints one JSON line; then the per-kernel table
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -114,13 +126,51 @@ def phase_a(args) -> dict:
         "tpuzlib_torch/kernels/csrc/pack_fields.cu",
         "tpuzlib/kernels/deflate_device3.py:338",
     )
+    return check_kernels(cases)
+
+
+def phase_a_checksums(big) -> dict:
+    """The checksum kernels against their plain versions on `big` (a card
+    tensor of whole spans)."""
+    from tpuzlib_torch.kernels import adler32_cuda, crc32_cuda
+
+    crc_src, adler_src = "tpuzlib_torch/kernels/csrc/crc32.cu", "tpuzlib_torch/kernels/csrc/adler32.cu"
+    return check_kernels({
+        "crc32_forms": (
+            lambda: crc32_cuda.crc32_forms(big, 0, 1),
+            lambda: crc32_cuda.crc32_forms_plain(big, 0, 1),
+            crc_src, "tpuzlib/kernels/crc32_pallas.py:24",
+        ),
+        "crc32_spans": (
+            lambda: crc32_cuda.crc32_forms(big, 0, 256),
+            lambda: crc32_cuda.crc32_forms_plain(big, 0, 256),
+            crc_src, "tpuzlib/kernels/crc32_pallas.py:99",
+        ),
+        "adler32": (
+            lambda: adler32_cuda.adler32_blocks(big, 0),
+            lambda: adler32_cuda.adler32_blocks_plain(big, 0),
+            adler_src, "tpuzlib/kernels/adler32_pallas.py:42",
+        ),
+    })
+
+
+def check_kernels(cases) -> dict:
+    """One row per kernel: its error against its plain version and both
+    times; exits when a kernel differs.  The phase line adds the card
+    memory the plain version takes at its peak."""
     rows = {}
     for name, (kern, plain, src, replaces) in cases.items():
-        err = max_abs_err(kern(), plain())
+        got = kern()
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want = plain()
+        plain_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        err = max_abs_err(got, want)
+        del got, want
         rows[name] = dict(name=name, route="cuda", source=src, replaces=replaces, launches=None,
                           max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain))
-        emit({"phase": "A", **rows[name]})
+        emit({"phase": "A", **rows[name], "plain_peak_MiB": plain_peak_mib})
         if err != 0:
             raise SystemExit("phase A: %s differs from its plain version" % name)
     return rows
@@ -149,21 +199,25 @@ def phase_c(corpus) -> None:
     """tpuzlib_torch.deflate round trips through zlib; warm MB/s."""
     import tpuzlib_torch
 
-    for level, size in ((6, 32 << 20), (1, 8 << 20), (9, 8 << 20)):
+    for level, size, fmt in ((6, 32 << 20, "deflate"), (6, 32 << 20, "gzip"),
+                             (1, 8 << 20, "deflate"), (9, 8 << 20, "deflate")):
         data = corpus[:size]
         runs = []
         for _ in range(2):  # the second run is the warm one
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = tpuzlib_torch.deflate(data, level=level, format="deflate", device=DEVICE)
+            out = tpuzlib_torch.deflate(data, level=level, format=fmt, device=DEVICE,
+                                        fileName="mixed.bin" if fmt == "gzip" else None)
             runs.append(time.perf_counter() - t0)
-        ok = zlib.decompress(out.tobytes()) == data.tobytes()
-        emit({"phase": "C", "level": level, "bytes_in": size, "bytes_out": len(out),
-              "zlib_bytes_out": len(zlib.compress(data.tobytes(), level)),
+        # wbits 15: a zlib stream; 31: a gzip member
+        ok = zlib.decompress(out.tobytes(), 31 if fmt == "gzip" else 15) == data.tobytes()
+        emit({"phase": "C", "level": level, "format": fmt, "bytes_in": size,
+              "bytes_out": len(out), "zlib_bytes_out": len(zlib.compress(data.tobytes(), level)),
               "roundtrip": ok, "cold_s": runs[0], "warm_s": runs[1],
               "warm_MBps": size / runs[1] / 1e6})
         if not ok:
-            raise SystemExit("phase C: level %d output does not decode to the input" % level)
+            raise SystemExit("phase C: level %d %s output does not decode to the input"
+                             % (level, fmt))
 
 
 def phase_d(corpus) -> None:
@@ -190,6 +244,80 @@ def phase_d(corpus) -> None:
         raise SystemExit("phase D: stream does not decode, or the window left the card")
 
 
+def timed(fn):
+    """(fn(), host ms) with the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_e(big_host, big) -> None:
+    """The public checksums against zlib: 256 MiB from the host and on the
+    card, ragged sizes with seeds, a chain and the combines."""
+    import tpuzlib_torch
+    from tpuzlib_torch.kernels.adler32 import adler32_combine
+    from tpuzlib_torch.kernels.crc32 import crc32_combine
+
+    crc32 = functools.partial(tpuzlib_torch.crc32, device=DEVICE)
+    adler32 = functools.partial(tpuzlib_torch.adler32, device=DEVICE)
+
+    _, h2d_ms = timed(lambda: torch.from_numpy(big_host).to(DEVICE))
+    bad = []
+    for name, fn, ref in (("crc32", crc32, zlib.crc32),
+                          ("adler32", adler32, zlib.adler32)):
+        want = ref(big_host)
+        for source, x in (("host", big_host), ("cuda", big)):
+            (first, first_ms), (warm, warm_ms) = timed(lambda: fn(x)), timed(lambda: fn(x))
+            ok = first == warm == want
+            emit({"phase": "E", "checksum": name, "source": source, "bytes": len(big_host),
+                  "equal": ok, "first_ms": first_ms, "warm_ms": warm_ms, "h2d_ms": h2d_ms})
+            bad += [] if ok else ["%s of 256 MiB from %s" % (name, source)]
+
+    rng = np.random.default_rng(5)
+    span = 1 << 18
+    for n in (0, 1, 1023, 1025, 2047, 2049, span - 1, span + 1, 3 * span + 12345):
+        lo = 2 * int(rng.integers(0, 1 << 20)) + 1  # an odd offset into the card tensor
+        data = big_host[lo : lo + n]
+        for seed in (0, 1, 0xDEADBEEF):
+            for name, fn, ref in (("crc32", crc32, zlib.crc32),
+                                  ("adler32", adler32, zlib.adler32)):
+                if not fn(data, seed) == fn(big[lo : lo + n], seed) == ref(data, seed):
+                    bad.append("%s n=%d seed=%#x" % (name, n, seed))
+    cuts = np.sort(rng.integers(0, 3 * span, 6))
+    pieces = np.split(big_host[: 3 * span], cuts)
+    crc, adl = 0, 1
+    for p in pieces:
+        crc, adl = crc32(p, crc), adler32(p, adl)
+    whole = big_host[: 3 * span]
+    a, b = whole[:span + 777], whole[span + 777:]
+    checks = {
+        "chain of 7": (crc, adl) == (zlib.crc32(whole), zlib.adler32(whole)),
+        "crc32_combine": crc32_combine(crc32(a), crc32(b), len(b))
+        == zlib.crc32(whole),
+        "adler32_combine": adler32_combine(adler32(a), adler32(b),
+                                           len(b)) == zlib.adler32(whole),
+    }
+    bad += [k for k, v in checks.items() if not v]
+    emit({"phase": "E", "ragged_and_chains_equal": not bad, "failed": bad[:10]})
+    if bad:
+        raise SystemExit("phase E: checksums differ from zlib: %s" % ", ".join(bad[:10]))
+
+
+def phase_f() -> None:
+    """tpuzlib_torch.entry's forward step on the card against the CPU."""
+    from tpuzlib_torch import entry
+
+    fn, args = entry.entry(device=DEVICE)
+    got = [t.cpu() for t in fn(*args)]
+    want = fn(*(a.cpu() for a in args))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    emit({"phase": "F", "equal": same, "ok": want[2].tolist(), "total_bits": want[1].tolist()})
+    if not same:
+        raise SystemExit("phase F: entry()'s step on the card differs from the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -208,15 +336,28 @@ def main() -> int:
     emit({"build_s": time.perf_counter() - t0})
 
     corpus = testing.mixed(32 << 20, seed=1)
+    # 256 MiB for the checksums: the corpus eight times (its 32 MiB period
+    # is 128 spans, so no two spans of a period are alike)
+    big_host = np.tile(corpus, 8)
+    big, h2d_ms = timed(lambda: torch.from_numpy(big_host).to(DEVICE))
+    emit({"big_bytes": len(big_host), "h2d_ms": h2d_ms})
     args = first_batch(corpus, DEVICE)
     rows = phase_a(args)
+    rows.update(phase_a_checksums(big))
     phase_b(args)
 
+    # each kernel's launches are read on the path that runs it: C for the
+    # encoder and the trailers' checksums, E for the per-block CRC forms
     _build.reset_launches()
     phase_c(corpus)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     phase_d(corpus)
+    _build.reset_launches()
+    phase_e(big_host, big)
+    torch.cuda.synchronize()
+    launches["crc32_forms"] = _build.LAUNCHES["crc32_forms"]
+    phase_f()
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

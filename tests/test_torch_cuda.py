@@ -19,13 +19,17 @@ import torch
 
 import tpuzlib_torch
 from tpuzlib_torch import testing
-from tpuzlib_torch.kernels import _build, parse, screen
+from tpuzlib_torch.kernels import _build, adler32_cuda, crc32_cuda, parse, screen
 from tpuzlib_torch.kernels import deflate_device3 as d3
 from tpuzlib_torch.kernels.deflate_device import segment_parse_xla
 
 pytestmark = pytest.mark.cuda
 
 KB = 1 << 10
+SPAN = 256 * KB
+# byte lengths around the CRC block (1 KiB), the Adler block (2 KiB) and
+# the CRC span (256 KiB)
+RAGGED = [0, 1, 1023, 1025, 2047, 2049, SPAN - 1, SPAN, SPAN + 1, 3 * SPAN + 12345]
 
 
 @pytest.fixture
@@ -35,12 +39,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _launched(kernel, fn):
-    """fn()'s result, checking that it launched `kernel` exactly once."""
+def _launched(kernel, fn, times=1):
+    """fn()'s result, checking that it launched `kernel` `times` times."""
     before = _build.LAUNCHES[kernel]
     out = fn()
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[kernel] == before + 1
+    assert _build.LAUNCHES[kernel] == before + times
     return out
 
 
@@ -125,7 +129,7 @@ def test_encode_batch_on_card_matches_cpu(dev, level):
     cw, cb, cok = enc(*(torch.from_numpy(a) for a in args))
     _build.reset_launches()
     gw, gb, gok = (t.cpu() for t in enc(*(torch.from_numpy(a).to(dev) for a in args)))
-    assert all(_build.LAUNCHES.values())
+    assert all(_build.LAUNCHES[k] for k in ("near_screen", "far_screen", "segment_parse", "pack_fields"))
     assert torch.equal(gb, cb) and torch.equal(gok, cok)
     ok = cok.bool()
     assert ok.any() and torch.equal(gw[ok], cw[ok])
@@ -167,3 +171,62 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         parse.segment_parse(x, 300, seg=parse.MAX_SEG + 1)
     with pytest.raises(ValueError):
         d3.pack_fields(x.reshape(3, 100), x[:286], x[:286], x[:30], x[:30])
+    b = torch.zeros(4096, dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError):
+        crc32_cuda.crc32_forms(x, 0, 1)
+    with pytest.raises(ValueError):
+        crc32_cuda.crc32_forms(b[::2], 0, 1)
+    with pytest.raises(ValueError):
+        crc32_cuda.crc32_forms(b, 0, 256)
+    with pytest.raises(ValueError):
+        adler32_cuda.adler32_blocks(b[1:], 0)
+
+
+def _bytes_at(n, offset, dev):
+    """n seeded bytes on the card, as a view starting `offset` bytes into
+    its allocation (offset 3: no load of the kernel is aligned)."""
+    data = testing.mixed(n + 1, n)[:n]
+    buf = torch.zeros(n + offset, dtype=torch.uint8, device=dev)
+    buf[offset:] = torch.from_numpy(data).to(dev)
+    return buf[offset:], data
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("tile", [1, 256])
+@pytest.mark.parametrize("n", RAGGED)
+def test_crc32_forms_kernel_matches_plain(dev, n, tile, offset):
+    x, _ = _bytes_at(n, offset, dev)
+    pad = (-n) % (KB * tile)
+    name = "crc32_spans" if tile == 256 else "crc32_forms"
+    got = _launched(name, lambda: crc32_cuda.crc32_forms(x, pad, tile), int(n > 0))
+    assert got.dtype == torch.int32 and got.shape == ((n + pad) // (KB * tile),)
+    assert torch.equal(got, crc32_cuda.crc32_forms_plain(x, pad, tile))
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("n", RAGGED)
+def test_adler32_blocks_kernel_matches_plain(dev, n, offset):
+    x, _ = _bytes_at(n, offset, dev)
+    pad = (-n) % adler32_cuda.BLOCK
+    got = _launched("adler32", lambda: adler32_cuda.adler32_blocks(x, pad), int(n > 0))
+    assert got.dtype == torch.int32 and got.shape == ((n + pad) // adler32_cuda.BLOCK, 2)
+    assert torch.equal(got, adler32_cuda.adler32_blocks_plain(x, pad))
+
+
+def test_public_checksums_on_card(dev):
+    """crc32 / adler32 of card tensors (at an odd offset) and of host
+    buffers uploaded to the card, seeded and chained, against zlib."""
+    for n in RAGGED:
+        x, data = _bytes_at(n, 5, dev)
+        b = data.tobytes()
+        for seed in (0, 1, 0xDEADBEEF):
+            assert tpuzlib_torch.crc32(x, seed) == zlib.crc32(b, seed)
+            assert tpuzlib_torch.crc32(b, seed, device=dev) == zlib.crc32(b, seed)
+            assert tpuzlib_torch.adler32(x, seed or 1) == zlib.adler32(b, seed or 1)
+            assert tpuzlib_torch.adler32(data, seed or 1, device=dev) == zlib.adler32(b, seed or 1)
+    x, data = _bytes_at(SPAN + 777, 1, dev)
+    crc, adl = 0, 1
+    for lo, hi in ((0, 1), (1, 1000), (1000, 1000), (1000, 5000), (5000, SPAN), (SPAN, SPAN + 700),
+                   (SPAN + 700, SPAN + 777)):
+        crc, adl = tpuzlib_torch.crc32(x[lo:hi], crc), tpuzlib_torch.adler32(x[lo:hi], adl)
+    assert (crc, adl) == (zlib.crc32(data.tobytes()), zlib.adler32(data.tobytes()))

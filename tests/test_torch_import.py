@@ -62,7 +62,8 @@ def test_no_source_imports_jax_or_tpuzlib():
 
 def test_public_surface():
     assert sorted(tpuzlib_torch.__all__) == sorted(
-        ["deflate", "DeflaterOptions", "DeviceDeflater", "mergeBuffers", "u8_view"])
+        ["deflate", "DeflaterOptions", "DeviceDeflater", "adler32", "crc32", "mergeBuffers",
+         "u8_view"])
     data = np.arange(10, dtype=np.uint16)
     for x in (b"abc", bytearray(b"xy"), memoryview(b"q"), data, np.zeros((2, 3), np.int32)):
         assert np.array_equal(tpuzlib_torch.u8_view(x), j_u8_view(x))
@@ -126,7 +127,7 @@ def test_deflate_options_validation():
         (dict(level=6.0), ValueError), (dict(format="lz4"), ValueError),
         (dict(fileName=3), TypeError), (dict(format="raw", dictionary=b"ab"), TypeError),
         (dict(dictionary=3.5), TypeError),
-        (dict(dictionary=b"abc"), NotImplementedError), (dict(format="gzip"), NotImplementedError),
+        (dict(dictionary=b"abc"), NotImplementedError), (dict(format="gzip", fileName=3), TypeError),
     ):
         with pytest.raises(exc):
             tpuzlib_torch.deflate(data, device="cpu", **kw)
@@ -157,5 +158,6 @@ def test_wrappers_refuse_other_devices():
         parse.segment_parse(m, 16)
     with pytest.raises(ValueError):
         td3.pack_fields(m.reshape(2, 8), m, m, m, m)
-    assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_fields"}
-    assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 4
+    assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_fields",
+                                    "crc32_forms", "crc32_spans", "adler32"}
+    assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 6

@@ -1,4 +1,4 @@
-"""tpuzlib_torch — tpuzlib's batched device DEFLATE encoder in PyTorch and CUDA.
+"""tpuzlib_torch — tpuzlib's batched device DEFLATE encoder and checksums in PyTorch and CUDA.
 
 The port of tpuzlib (JAX on a TPU) to PyTorch on an NVIDIA Hopper GPU.
 It mirrors tpuzlib's layout; its kernels are CUDA C++ under
@@ -7,13 +7,16 @@ kernels/csrc/, built on first use.  Every entry point takes `device=`
 torch versions run.
 
 Public API:
-    deflate, DeflaterOptions   one-shot raw / zlib compression
+    deflate, DeflaterOptions   one-shot raw / zlib / gzip compression
     DeviceDeflater             streaming compression, window on the device
+    adler32, crc32             checksums on the device, chained by seed
     mergeBuffers, u8_view      buffer helpers
 """
 
+from .api.checksums import adler32, crc32
 from .api.deflate_api import DeflaterOptions, deflate
 from .common import mergeBuffers, u8_view
 from .kernels.deflate_device3 import DeviceDeflater
 
-__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "mergeBuffers", "u8_view"]
+__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "adler32", "crc32",
+           "mergeBuffers", "u8_view"]

@@ -2,8 +2,9 @@
 
 Counterpart of tpuzlib/api/deflate_api.py's option validation and its
 device route.  The port has no host engine: deflate() always runs the
-batched device encoder on the given device, for the raw and zlib
-("deflate") containers.  An error in the encoder propagates.
+batched device encoder on the given device, and the container's checksum
+(Adler-32 for zlib, CRC-32 for gzip) on the same device.  An error in
+the encoder or a checksum propagates.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from typing import Optional
 import numpy as np
 
 from ..common import mergeBuffers, u8_view
-from ..containers.headers import make_zlib_header, make_zlib_trailer
-from ..kernels.adler32 import adler32_host
+from ..containers.headers import (make_gzip_header, make_gzip_trailer, make_zlib_header,
+                                  make_zlib_trailer)
 from ..kernels.deflate_device3 import deflate_device_v3
+from .checksums import adler32, crc32
 
 FORMATS = ("raw", "deflate", "gzip")
 
@@ -45,11 +47,8 @@ def _validate(options: DeflaterOptions) -> None:
         except TypeError:
             raise TypeError("dictionary must be an ArrayBuffer or buffer view") from None
         raise NotImplementedError(
-            "preset dictionaries are not ported to tpuzlib_torch yet (ROADMAP.md, queue 1)"
-        )
-    if options.format == "gzip":
-        raise NotImplementedError(
-            "gzip needs the CRC-32 port, which tpuzlib_torch does not have yet (ROADMAP.md, queue 1)"
+            "preset dictionaries are not supported: tpuzlib's device route declines them,"
+            " and the host engine that serves them is not ported to tpuzlib_torch"
         )
 
 
@@ -70,6 +69,11 @@ def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kw
     body = deflate_device_v3(np.ascontiguousarray(view), level=options.level, device=device)
     if options.format == "raw":
         return body
+    if options.format == "gzip":
+        return mergeBuffers([
+            make_gzip_header(options.fileName, level=options.level), body,
+            make_gzip_trailer(crc32(view, device=device), len(view)),
+        ])
     return mergeBuffers([
-        make_zlib_header(options.level), body, make_zlib_trailer(adler32_host(view))
+        make_zlib_header(options.level), body, make_zlib_trailer(adler32(view, device=device))
     ])

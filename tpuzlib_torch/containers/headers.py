@@ -1,13 +1,13 @@
-"""zlib (RFC 1950) header and trailer writers.
+"""zlib (RFC 1950) and gzip (RFC 1952) header and trailer writers.
 
-Counterpart of the zlib half of tpuzlib/containers/headers.py; the gzip
-writers come with the CRC-32 port, the preset-dictionary id with the
-dictionary port.
+Counterpart of tpuzlib/containers/headers.py; the preset-dictionary id
+comes with the dictionary port.
 """
 
 from __future__ import annotations
 
 import struct
+import time
 
 
 def make_zlib_header(level: int) -> bytes:
@@ -34,3 +34,21 @@ def make_zlib_header(level: int) -> bytes:
 
 def make_zlib_trailer(adler: int) -> bytes:
     return struct.pack(">I", adler & 0xFFFFFFFF)
+
+
+def make_gzip_header(file_name: str | None = None, mtime: int | None = None,
+                     level: int = 6) -> bytes:
+    """RFC 1952 header with MTIME (now, unless given) and, when a name is
+    given, FNAME."""
+    flg = 0x08 if file_name else 0
+    if mtime is None:
+        mtime = int(time.time())
+    xfl = 2 if level >= 9 else (4 if level <= 2 else 0)
+    out = struct.pack("<BBBBIBB", 0x1F, 0x8B, 8, flg, mtime & 0xFFFFFFFF, xfl, 255)
+    if file_name:
+        out += file_name.encode("utf-8") + b"\0"
+    return out
+
+
+def make_gzip_trailer(crc: int, total_in: int) -> bytes:
+    return struct.pack("<II", crc & 0xFFFFFFFF, total_in & 0xFFFFFFFF)

@@ -32,15 +32,20 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream are c_void_p)
 _SIGNATURES = {
     "tz_near_screen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tz_far_screen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tz_segment_parse": [_P, _P, _I, _I, _I, _P],
     "tz_pack_fields": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
+    "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
 }
 
-LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_fields": 0}
+# the CRC kernel counts its two modes apart: per-block forms, span forms
+LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_fields": 0,
+            "crc32_forms": 0, "crc32_spans": 0, "adler32": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -135,3 +140,12 @@ def check_inputs(name: str, shape: tuple, *tensors: torch.Tensor) -> None:
             raise TypeError("%s: expected int32 tensors, got %s" % (name, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: tensors must be contiguous" % name)
+
+
+def check_bytes(name: str, t: torch.Tensor) -> None:
+    """Raise unless `t` is a 1-D contiguous uint8 tensor."""
+    if t.dtype != torch.uint8:
+        raise TypeError("%s: expected a uint8 tensor, got %s" % (name, t.dtype))
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError("%s: expected a 1-D contiguous tensor, got shape %s"
+                         % (name, tuple(t.shape)))

@@ -1,14 +1,15 @@
-"""Adler-32 on the host (numpy), for the zlib trailer.
+"""Adler-32 as data-parallel modular arithmetic.
 
-Counterpart of the numpy path of tpuzlib/kernels/adler32.py:adler32_host.
-For bytes x_0..x_{n-1} and seed (s1_0, s2_0):
+Counterpart of tpuzlib/kernels/adler32.py.  For bytes x_0..x_{n-1} and
+seed (s1_0, s2_0):
 
   s1 = (s1_0 + S) mod 65521,           S = sum x_i
   s2 = (s2_0 + n*s1_0 + W) mod 65521,  W = sum (n - i) * x_i
 
-computed per 1 MiB block with float64 dot products, which are exact
-because every partial sum stays below 2^53.  The device checksums are
-not ported yet.
+`adler32_host` computes S and W per 1 MiB block with float64 dot
+products, which are exact because every partial sum stays below 2^53.
+`adler32_device` takes them from the per-2 KiB-block sums of
+adler32_cuda.py on the input tensor's device.
 """
 
 from __future__ import annotations
@@ -20,9 +21,13 @@ _MASK32 = 0xFFFFFFFF
 _HOST_BLOCK = 1 << 20
 
 
-def adler32_host(data: np.ndarray, seed: int = 1) -> int:
+def _split(seed: int):
     seed = int(seed) & _MASK32
-    s1_0, s2_0 = seed & 0xFFFF, (seed >> 16) & 0xFFFF
+    return seed & 0xFFFF, (seed >> 16) & 0xFFFF
+
+
+def adler32_host(data: np.ndarray, seed: int = 1) -> int:
+    s1_0, s2_0 = _split(seed)
     n = len(data)
     if n == 0:
         return ((s2_0 << 16) | s1_0) & _MASK32
@@ -42,4 +47,29 @@ def adler32_host(data: np.ndarray, seed: int = 1) -> int:
         w_total = (w_total + w_c) % MOD
     s1 = (s1_0 + s_total) % MOD
     s2 = (s2_0 + (n % MOD) * s1_0 + w_total) % MOD
+    return ((s2 << 16) | s1) & _MASK32
+
+
+def adler32_device(data, seed: int = 1) -> int:
+    """Adler-32 of a 1-D uint8 tensor, with the block sums and their
+    combine on the tensor's device."""
+    from .adler32_cuda import BLOCK, adler32_blocks, adler32_totals
+
+    n = data.numel()
+    s1_0, s2_0 = _split(seed)
+    if n == 0:
+        return ((s2_0 << 16) | s1_0) & _MASK32
+    s_total, w_total = adler32_totals(adler32_blocks(data, (-n) % BLOCK))
+    s1 = (s1_0 + s_total) % MOD
+    s2 = (s2_0 + (n % MOD) * s1_0 + w_total) % MOD
+    return ((s2 << 16) | s1) & _MASK32
+
+
+def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
+    """Adler of concat(A, B) from adler(A), adler(B), len(B)."""
+    s1a, s2a = _split(adler1)
+    s1b, s2b = _split(adler2)
+    len2 %= MOD
+    s1 = (s1a + s1b - 1) % MOD
+    s2 = (s2a + s2b + len2 * (s1a - 1 + MOD)) % MOD
     return ((s2 << 16) | s1) & _MASK32

@@ -1,0 +1,153 @@
+"""CRC-32 (poly 0xEDB88320) as data-parallel GF(2) linear algebra.
+
+Counterpart of tpuzlib/kernels/crc32.py: its numpy constants, the host
+combine tree and finish, `crc32_combine`, and `crc32_device`, which runs
+the forms kernel of crc32_cuda.py on the input tensor's device.
+
+The form L(data) of a run of bytes is the raw CRC register after folding
+them from register 0, with no pre- or post-XOR:
+r = T[(r ^ b) & 0xFF] ^ (r >> 8).  It is GF(2)-linear in the bytes, and
+with A the raw-register propagation through one zero byte:
+
+  fold_raw(r, data) = L(data) ^ A^n r        (n = len(data))
+  L(a | b) = A^len(b) L(a) ^ L(b)            (blocks combine in a tree)
+  L(zeros_k | data) = L(data)                (front padding is free)
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from . import gf2
+
+POLY = np.uint32(0xEDB88320)
+_MASK32 = 0xFFFFFFFF
+
+DEVICE_BLOCK = 1024  # bytes per per-block form
+TILE = 256  # blocks per span form
+SPAN = DEVICE_BLOCK * TILE
+
+
+@functools.lru_cache()
+def _table8() -> np.ndarray:
+    """Standard 256-entry CRC table (the table itself is a linear map on
+    byte bits)."""
+    t = np.arange(256, dtype=np.uint32)
+    for _ in range(8):
+        t = np.where(t & 1, (t >> np.uint32(1)) ^ POLY, t >> np.uint32(1))
+    return t
+
+
+@functools.lru_cache()
+def byte_shift_matrix() -> np.ndarray:
+    """A: raw-register propagation through one zero data byte.
+
+    r' = table[r & 0xFF] ^ (r >> 8)  — linear in r.
+    """
+    t = _table8()
+    cols = np.zeros(32, dtype=np.uint32)
+    for i in range(32):
+        v = np.uint32(1) << np.uint32(i)
+        cols[i] = t[int(v) & 0xFF] ^ np.uint32(int(v) >> 8)
+    return cols
+
+
+@functools.lru_cache(maxsize=256)
+def shift_matrix(n_bytes: int) -> np.ndarray:
+    """A^n: raw-register propagation through n zero data bytes."""
+    return gf2.matpow(byte_shift_matrix(), n_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def _combine_tables(block: int, level: int) -> np.ndarray:
+    """Byte-decomposed lookup tables for A^(block * 2^level)."""
+    if level == 0:
+        mat = shift_matrix(block)
+    else:
+        prev_mat = _combine_mat(block, level - 1)
+        mat = gf2.matmul(prev_mat, prev_mat)
+    return gf2.lookup_tables(mat)
+
+
+@functools.lru_cache(maxsize=64)
+def _combine_mat(block: int, level: int) -> np.ndarray:
+    """A^(block * 2^level) as 32 packed columns."""
+    if level == 0:
+        return shift_matrix(block)
+    prev = _combine_mat(block, level - 1)
+    return gf2.matmul(prev, prev)
+
+
+@functools.lru_cache()
+def block_matrix_bits(block: int) -> np.ndarray:
+    """M_B as an (8*B, 32) int8 bit matrix: L(block) = bits(block) @ M_B
+    mod 2, the contract every forms kernel meets.
+
+    Row (j*8 + i) is L(e) for the block with byte value (1 << i) at
+    position j: equal to A^(B-1-j) applied to table[1 << i].
+    """
+    t = _table8()
+    a = byte_shift_matrix()
+    rows = np.zeros((block, 8), dtype=np.uint32)
+    cur = t[(np.uint32(1) << np.arange(8, dtype=np.uint32)).astype(np.int64)]
+    for k in range(block):
+        rows[block - 1 - k] = cur
+        if k + 1 < block:
+            cur = gf2.apply_many(a, cur)
+    packed = rows.reshape(block * 8)
+    bits = ((packed[:, None] >> np.arange(32, dtype=np.uint32)[None, :]) & 1).astype(
+        np.int8
+    )
+    return bits
+
+
+def _combine_blocks(g: np.ndarray, block: int) -> int:
+    """Fold per-block linear forms into L(data) via a log-depth tree.
+
+    g[0] is the earliest block.  Pads at the FRONT with zeros (free in the
+    raw domain)."""
+    nb = len(g)
+    if nb == 0:
+        return 0
+    size = 1 << max(0, (nb - 1).bit_length())
+    if size != nb:
+        g = np.concatenate([np.zeros(size - nb, dtype=np.uint32), g])
+    level = 0
+    while len(g) > 1:
+        tables = _combine_tables(block, level)
+        g = gf2.apply_tables(tables, g[0::2]) ^ g[1::2]
+        level += 1
+    return int(g[0])
+
+
+def _finish(l_data: int, n: int, seed: int) -> int:
+    raw_seed = (int(seed) & _MASK32) ^ _MASK32
+    raw = l_data ^ gf2.apply(shift_matrix(n), raw_seed)
+    return (raw ^ _MASK32) & _MASK32
+
+
+def crc32_device(data, seed: int = 0) -> int:
+    """CRC-32 of a 1-D uint8 tensor, with the forms on the tensor's device.
+
+    From one span (256 KiB) up, the kernel gives one form per span;
+    below it, one per 1 KiB block.  The input is front-padded (virtually)
+    to whole spans or blocks; the tree over the few forms and the seed
+    finish run on the host, as tpuzlib's crc32_device_pallas does."""
+    from .crc32_cuda import crc32_forms
+
+    n = data.numel()
+    if n == 0:
+        return int(seed) & _MASK32
+    tile = TILE if n >= SPAN else 1
+    block = DEVICE_BLOCK * tile
+    g = crc32_forms(data, (-n) % block, tile).cpu().numpy().view(np.uint32)
+    return _finish(_combine_blocks(g, block), n, seed)
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """CRC of concat(A, B) from crc(A), crc(B), len(B)."""
+    raw2 = (int(crc2) & _MASK32) ^ _MASK32
+    shifted = gf2.apply(shift_matrix(len2), int(crc1) & _MASK32)
+    return (shifted ^ raw2 ^ _MASK32) & _MASK32
