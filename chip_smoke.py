@@ -24,7 +24,20 @@ tpuzlib_torch/kernels/csrc, then:
      pieces and the combines; crc32_forms' launch count (inputs below one
      span) is taken over E;
   F  runs tpuzlib_torch.entry's forward step on the card and on the CPU
-     and requires equal outputs.
+     and requires equal outputs;
+  G  decompresses on the card: G1 holds the cursor-decode kernel to its
+     plain version (exact, all six outputs) at the shapes of the 32 MiB
+     corpus compressed by python zlib at level 6; G2 runs
+     tpuzlib_torch.inflate on zlib levels 6 (32 MiB), 1 and 9 (8 MiB),
+     C's 32 MiB gzip, fixed blocks, sync-flush markers, a raw stream and
+     8 MiB of text, whose splice must validate with no repair, then
+     inflate_device_v2 with device or host expansion, and a forced splice
+     repair of the text stream, and requires every output to equal its
+     input (the decode kernel's launch count is taken over G2); the census
+     lines say, per stream, whether its splice validates under the port's
+     rule (any kept flagged EOB declines), under tpuzlib's (only each
+     cursor's first flag) and with no flag at all; G3 times the level-6
+     decode's pieces apart, both expansions included.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -154,12 +167,15 @@ def phase_a_checksums(big) -> dict:
     })
 
 
-def check_kernels(cases) -> dict:
+def check_kernels(cases, phase="A") -> dict:
     """One row per kernel: its error against its plain version and both
-    times; exits when a kernel differs.  The phase line adds the card
-    memory the plain version takes at its peak."""
+    times; exits when a kernel differs.  A case may end with the number
+    of timed runs of its plain version (default 10 after 3 warm-ups; a
+    plain version run fewer times is timed with no warm-up, after the
+    comparison's run).  The phase line adds the card memory the plain
+    version takes at its peak."""
     rows = {}
-    for name, (kern, plain, src, replaces) in cases.items():
+    for name, (kern, plain, src, replaces, *plain_reps) in cases.items():
         got = kern()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -169,10 +185,14 @@ def check_kernels(cases) -> dict:
         err = max_abs_err(got, want)
         del got, want
         rows[name] = dict(name=name, route="cuda", source=src, replaces=replaces, launches=None,
-                          max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain))
-        emit({"phase": "A", **rows[name], "plain_peak_MiB": plain_peak_mib})
+                          max_abs_err=err, ms=cuda_ms(kern),
+                          plain_ms=cuda_ms(plain, *plain_reps, 0) if plain_reps
+                          else cuda_ms(plain))
+        if plain_reps:
+            rows[name]["plain_reps"] = plain_reps[0]
+        emit({"phase": phase, **rows[name], "plain_peak_MiB": plain_peak_mib})
         if err != 0:
-            raise SystemExit("phase A: %s differs from its plain version" % name)
+            raise SystemExit("phase %s: %s differs from its plain version" % (phase, name))
     return rows
 
 
@@ -195,8 +215,9 @@ def phase_b(args) -> None:
         raise SystemExit("phase B: the CUDA batch differs from the CPU batch")
 
 
-def phase_c(corpus) -> None:
-    """tpuzlib_torch.deflate round trips through zlib; warm MB/s."""
+def phase_c(corpus) -> np.ndarray:
+    """tpuzlib_torch.deflate round trips through zlib; warm MB/s.  Returns
+    the 32 MiB gzip member."""
     import tpuzlib_torch
 
     for level, size, fmt in ((6, 32 << 20, "deflate"), (6, 32 << 20, "gzip"),
@@ -218,6 +239,9 @@ def phase_c(corpus) -> None:
         if not ok:
             raise SystemExit("phase C: level %d %s output does not decode to the input"
                              % (level, fmt))
+        if fmt == "gzip":
+            gzip32 = out
+    return gzip32
 
 
 def phase_d(corpus) -> None:
@@ -318,6 +342,203 @@ def phase_f() -> None:
         raise SystemExit("phase F: entry()'s step on the card differs from the CPU")
 
 
+def phase_g1(raw6: np.ndarray) -> dict:
+    """The cursor-decode kernel against its plain version at the shapes of
+    the level-6 32 MiB stream's payload."""
+    from tpuzlib_torch.kernels import inflate_cuda, inflate_device2 as d2
+
+    lay = d2.plan_cursors(raw6)
+    args = lay.decode_args(raw6, DEVICE)
+    emit({"phase": "G1", "compressed_bytes": len(raw6), "K": lay.K, "Kpad": lay.Kpad,
+          "cap": lay.cap, "nwp": args.nwp, "stride_bits": lay.stride_bits,
+          "blocks": len(lay.plan)})
+    return check_kernels({"inflate_decode": (
+        lambda: inflate_cuda.cursor_decode(args), lambda: inflate_cuda.cursor_tokenize_plain(args),
+        "tpuzlib_torch/kernels/csrc/inflate_decode.cu", "tpuzlib/kernels/inflate_pallas.py:155",
+        2,
+    )}, phase="G1")
+
+
+def flag_census(raw: np.ndarray, device=DEVICE) -> dict:
+    """Why a raw stream's splice validates or declines: its ok under the
+    port's rule (any kept flagged EOB declines), under tpuzlib's (only
+    each cursor's first flag, eob_idx, counts: the same splice on a tape
+    with every later flag cleared) and with every flag cleared (what else
+    declines: an unlinked boundary, a bad status), and how many cursors
+    keep their first flag, or any flag."""
+    from tpuzlib_torch.kernels import inflate_cuda, inflate_device2 as d2
+
+    lay = d2.plan_cursors(raw)
+    toks = inflate_cuda.cursor_decode(lay.decode_args(raw, device))
+    vecs = (lay.stops, lay.bstart, lay.first, lay.last, lay.expect_eob, lay.active)
+    tok2 = toks[0].view(lay.Kpad, lay.cap)
+    flag = ((tok2 >> 26) & 1).bool()
+    col = torch.arange(lay.cap, device=tok2.device)[None, :]
+    first_only = torch.where(flag & (col != toks[5][:, None]), 0, tok2).reshape(-1)
+    no_flags = torch.where(flag, 0, tok2).reshape(-1)
+    ok = {name: int(d2.splice_compact((t, *toks[1:]), *vecs)[0][0])
+          for name, t in (("port", toks[0]), ("tpuzlib_first_flag", first_only),
+                          ("no_flags", no_flags))}
+    meta = d2.splice_compact(toks, *vecs)[0].cpu().numpy()
+    jentry, kcnt, eob = (d2._meta_vec(meta, lay.Kpad, i)
+                         for i in (d2.META_JENTRY, d2.META_KCNT, d2.META_EOB))
+    # the kept rows [lo, lo + kcnt): from row 0 at a block's first cursor,
+    # else from the row where the previous cursor's chain enters
+    lo = np.where(lay.first, 0, np.concatenate([[0], jentry[:-1]]))
+    first_kept = (eob >= 0) & (eob >= lo) & (eob < lo + kcnt)
+    flagged = d2.flagged_rows(toks[0], lay.Kpad)
+    any_kept = sum(bool(np.any((r >= lo[k]) & (r < lo[k] + kcnt[k]))) for k, r in flagged.items())
+    return {"K": lay.K, "blocks": len(lay.plan), "splice_ok": ok,
+            "flagged_cursors": len(flagged), "first_flag_kept": int(first_kept.sum()),
+            "any_flag_kept": any_kept}
+
+
+def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
+    """tpuzlib_torch.inflate on every container and block kind, then
+    inflate_device_v2's pass-3 variants and the forced repair, each equal
+    to its input; cold and warm times.  The text stream's splice must
+    validate (no repair) unless the repair is forced.  Returns each
+    stream's raw DEFLATE payload by name."""
+    import tpuzlib_torch
+    from tpuzlib_torch.kernels import inflate_device2 as d2
+    from tpuzlib_torch.testing import corpus as make_corpus, zlib_stream
+
+    small = corpus[: 8 << 20]
+    text = make_corpus("text", 8 << 20, seed=2)
+    streams = {  # name -> (wire, its bytes)
+        "zlib L6": (z6, corpus),
+        "zlib L1": (zlib_stream(small, 1), small),
+        "zlib L9": (zlib_stream(small, 9), small),
+        "zlib Z_FIXED": (zlib_stream(small, 6, strategy=zlib.Z_FIXED), small),
+        "zlib sync flush / 64 KiB": (zlib_stream(small, 6, flush_every=1 << 16), small),
+        "raw L6": (zlib_stream(small, 6, wbits=-15), small),
+        "zlib L6 text": (zlib_stream(text, 6), text),
+    }
+    # each stream's raw DEFLATE payload: a zlib stream's less its 2-byte
+    # header and 4-byte trailer
+    payload = {}
+    for name, (wire, _) in streams.items():
+        a = np.frombuffer(wire, np.uint8)
+        payload[name] = a if name.startswith("raw") else a[2:-4]
+
+    inflate = tpuzlib_torch.inflate
+    v2 = d2.inflate_device_v2
+    w = lambda k: streams[k][0]  # noqa: E731
+    raw6, text_raw = payload["zlib L6"], payload["zlib L6 text"]
+    # (name, input, expected bytes, function, keywords, splice repairs
+    # required per call: None where the stream decides)
+    runs = [
+        ("inflate zlib L6", w("zlib L6"), corpus, inflate, {}, None),
+        ("inflate gzip (port's deflate, L6)", gzip32.tobytes(), corpus, inflate, {}, None),
+        ("inflate zlib L1", w("zlib L1"), small, inflate, {}, None),
+        ("inflate zlib L9", w("zlib L9"), small, inflate, {}, None),
+        ("inflate zlib Z_FIXED", w("zlib Z_FIXED"), small, inflate, {}, None),
+        ("inflate zlib sync flush / 64 KiB", w("zlib sync flush / 64 KiB"), small, inflate, {},
+         None),
+        ("inflate raw L6", w("raw L6"), small, inflate, {}, None),
+        ("inflate zlib L6 text", w("zlib L6 text"), text, inflate, {}, 0),
+        ("v2 host expand", raw6, corpus, v2, {"device_expand": False}, None),
+        ("v2 device expand", raw6, corpus, v2, {"device_expand": True}, None),
+        ("v2 device expand, sync flush / 64 KiB", payload["zlib sync flush / 64 KiB"], small,
+         v2, {"device_expand": True}, None),
+        ("v2 host expand, text", text_raw, text, v2, {"device_expand": False}, 0),
+        ("v2 device expand, text", text_raw, text, v2, {"device_expand": True}, 0),
+        ("v2 forced repair, text", text_raw, text, v2, {"force_repair": True}, 1),
+        ("v2 device expand, forced repair, text", text_raw, text, v2,
+         {"device_expand": True, "force_repair": True}, 1),
+    ]
+    bad = []
+    for name, wire, want, fn, kw, repairs in runs:
+        before = dict(d2.COUNTS)
+        times, out, declined = [], None, False
+        for _ in range(2):  # the second run is the warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(wire, device=DEVICE, **kw)
+            except tpuzlib_torch.DeviceDeclined as e:
+                declined = str(e)
+            if torch.is_tensor(out):
+                out = out.cpu().numpy()
+            times.append(time.perf_counter() - t0)
+            if out is None:
+                declined = declined or "returned None"
+        equal = not declined and out.tobytes() == want.tobytes()
+        counts = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS}
+        emit({"phase": "G2", "run": name, "bytes_in": len(wire), "bytes_out": len(want),
+              "equal": equal, "declined": declined, "cold_s": times[0], "warm_s": times[1],
+              "warm_MBps": len(want) / times[1] / 1e6, "counts": counts})
+        if not equal:
+            bad.append(name)
+        elif repairs is not None and counts["splice_repair"] != 2 * repairs:
+            bad.append("%s (%d splice repairs in two calls, want %d)"
+                       % (name, counts["splice_repair"], 2 * repairs))
+    if bad:
+        raise SystemExit("phase G2: %s" % ", ".join(bad))
+    return payload
+
+
+def phase_g3(corpus, raw6: np.ndarray, reps: int = 3) -> None:
+    """The level-6 32 MiB decode's pieces, in the order decode() runs them
+    (the splice repair where the splice declines), timed apart on the host
+    clock with the card idle between them; medians over `reps` runs."""
+    from tpuzlib_torch import adler32
+    from tpuzlib_torch.codec.expand import expand_host
+    from tpuzlib_torch.kernels import inflate_cuda, inflate_device2 as d2
+
+    want = zlib.adler32(corpus)
+    pieces: dict = {}
+    repaired = []
+
+    def piece(name, fn):
+        out, ms = timed(fn)
+        pieces.setdefault(name, []).append(ms)
+        return out
+
+    for _ in range(reps):
+        lay = piece("plan (header scan + block loop)", lambda: d2.plan_cursors(raw6))
+        args = piece("tables + H2D", lambda: lay.decode_args(raw6, DEVICE))
+        toks = piece("decode kernel", lambda: inflate_cuda.cursor_decode(args))
+        meta, comp, _ = piece("splice", lambda: d2.splice_compact(
+            toks, lay.stops, lay.bstart, lay.first, lay.last, lay.expect_eob, lay.active))
+        meta_np = piece("meta pull", lambda: meta.cpu().numpy())
+        M = int(meta_np[1])
+        kcnt = d2._meta_vec(meta_np, lay.Kpad, d2.META_KCNT)[: lay.K]
+        bridges = None
+        repaired.append(int(meta_np[0]) != 1)
+        if repaired[-1]:
+            flagged = piece("repair: flagged-row pull", lambda: d2.flagged_rows(toks[0], lay.Kpad))
+            keep_lo, keep_hi, bridges, ends = piece(
+                "repair: walk and bridges",
+                lambda: d2._repair_splice(raw6, lay, meta_np, toks[1], flagged))
+            M_r, comp, kcnt_t = piece("repair: compaction", lambda: d2.compact_bounds(
+                toks[0], torch.from_numpy(keep_lo).to(DEVICE),
+                torch.from_numpy(keep_hi).to(DEVICE)))
+            M, kcnt = int(M_r), kcnt_t.cpu().numpy()[: lay.K]
+        else:
+            ends = d2.fast_block_ends(lay, meta_np)
+        ins, tail = piece("gap walk", lambda: d2.walk_blocks(raw6, lay, ends))
+        parts = d2.token_pieces(lay, M, kcnt, ins, tail, bridges)
+        comph = piece("compacted-tape pull", lambda: comp[:M].cpu().numpy().view(np.uint32))
+        host = piece("host expansion (token assembly + native expand)",
+                     lambda: expand_host(*d2.host_tokens(comph, parts), np.empty(0, np.uint8)))
+        win = torch.zeros(d2.WINDOW, dtype=torch.uint8, device=DEVICE)
+        dev_out = piece("device expansion (tape assembly + pointer doubling)",
+                        lambda: d2.device_expand_all(*d2.device_tape(comp, M, parts), win,
+                                                     8 * len(raw6) + (1 << 16)))
+        ok = piece("checksum (host output: H2D + adler32)",
+                   lambda: adler32(host, device=DEVICE)) == want
+        ok &= piece("checksum (device output: adler32)",
+                    lambda: adler32(dev_out, device=DEVICE)) == want
+        if not (ok and host.tobytes() == corpus.tobytes()
+                and dev_out.cpu().numpy().tobytes() == corpus.tobytes()):
+            raise SystemExit("phase G3: the timed pieces do not give the input")
+        del toks, comp, dev_out
+    emit({"phase": "G3", "bytes_in": len(raw6), "bytes_out": len(corpus), "reps": reps,
+          "repaired": repaired, "median_ms": {k: float(np.median(v)) for k, v in pieces.items()},
+          "ms": pieces})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -349,7 +570,7 @@ def main() -> int:
     # each kernel's launches are read on the path that runs it: C for the
     # encoder and the trailers' checksums, E for the per-block CRC forms
     _build.reset_launches()
-    phase_c(corpus)
+    gzip32 = phase_c(corpus)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     phase_d(corpus)
@@ -358,6 +579,16 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["crc32_forms"] = _build.LAUNCHES["crc32_forms"]
     phase_f()
+    z6 = testing.zlib_stream(corpus, 6)
+    raw6 = np.frombuffer(z6, np.uint8)[2:-4]
+    rows.update(phase_g1(raw6))
+    _build.reset_launches()
+    payload = phase_g2(corpus, z6, gzip32)
+    torch.cuda.synchronize()
+    launches["inflate_decode"] = _build.LAUNCHES["inflate_decode"]
+    for name, raw in payload.items():
+        emit({"phase": "G2 census", "stream": name, **flag_census(raw)})
+    phase_g3(corpus, raw6)
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

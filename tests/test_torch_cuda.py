@@ -19,8 +19,9 @@ import torch
 
 import tpuzlib_torch
 from tpuzlib_torch import testing
-from tpuzlib_torch.kernels import _build, adler32_cuda, crc32_cuda, parse, screen
+from tpuzlib_torch.kernels import _build, adler32_cuda, crc32_cuda, inflate_cuda, parse, screen
 from tpuzlib_torch.kernels import deflate_device3 as d3
+from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.kernels.deflate_device import segment_parse_xla
 
 pytestmark = pytest.mark.cuda
@@ -230,3 +231,70 @@ def test_public_checksums_on_card(dev):
                    (SPAN + 700, SPAN + 777)):
         crc, adl = tpuzlib_torch.crc32(x[lo:hi], crc), tpuzlib_torch.adler32(x[lo:hi], adl)
     assert (crc, adl) == (zlib.crc32(data.tobytes()), zlib.adler32(data.tobytes()))
+
+
+def _zlib_raw(data, level=6, strategy=zlib.Z_DEFAULT_STRATEGY):
+    return np.frombuffer(testing.zlib_stream(data, level, -15, strategy), np.uint8)
+
+
+def _decode_args(stream, dev, k=None, cap=None, keep=None, stride=1 << 12):
+    """The decode's inputs on the card for the first k cursors (padded
+    with inactive ones past the plan) of `stream`, planned whole; the
+    stream's first `keep` bytes are what the cursors may read."""
+    lay = d2.plan_cursors(stream, stride)
+    k = lay.K if k is None else k
+    pad = lambda a, fill: np.concatenate([a, np.full(max(0, k - len(a)), fill, a.dtype)])[:k]  # noqa: E731
+    return inflate_cuda.prepare(
+        stream[:keep], pad(lay.starts, -1), pad(lay.stops_dec, 0), pad(lay.block, 0), lay.plan,
+        lay.stride_bits, 2 * d2.OVERLAP, cap or lay.cap, pad(lay.expect_eob, True), dev)
+
+
+DECODE_CASES = {
+    "one cursor": lambda dev: _decode_args(_zlib_raw(testing.corpus("text", 1 << 16, 1)), dev, k=1),
+    "129 cursors": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 19, 2)), dev, k=129),
+    "stored only": lambda dev: _decode_args(_zlib_raw(testing.corpus("random", 1 << 16, 3)), dev),
+    "fixed only": lambda dev: _decode_args(
+        _zlib_raw(testing.mixed(1 << 17, 4), strategy=zlib.Z_FIXED), dev),
+    "tape overflow": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 17, 5)), dev, cap=40),
+    "ends mid-symbol": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 17, 6)), dev,
+                                                keep=20001),
+    "odd available bits": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 17, 7), 9), dev,
+                                                   keep=33333),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_inflate_decode_kernel_matches_plain(dev, case):
+    args = DECODE_CASES[case](dev)
+    got = _launched("inflate_decode", lambda: inflate_cuda.cursor_decode(args))
+    want = inflate_cuda.cursor_tokenize_plain(args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    statuses = set(want[4].tolist())
+    if case == "tape overflow":
+        assert inflate_cuda.ST_ERR in statuses
+    if case == "ends mid-symbol":
+        assert inflate_cuda.ST_OOB in statuses
+
+
+def test_inflate_on_card_matches_cpu(dev):
+    """inflate() of zlib, gzip and raw streams, and inflate_device_v2's
+    pass-3 variants and forced repair, on the card and on the CPU."""
+    data = testing.mixed(3 << 18, 8)
+    streams = [zlib.compress(data.tobytes(), 6),
+               tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes(),
+               _zlib_raw(data, 1).tobytes()]
+    for wire in streams:
+        _build.reset_launches()
+        got = tpuzlib_torch.inflate(wire, device=dev)
+        assert _build.LAUNCHES["inflate_decode"] == 1
+        assert got.tobytes() == data.tobytes()
+        assert np.array_equal(got, tpuzlib_torch.inflate(wire, device="cpu"))
+    raw = _zlib_raw(data, 6)
+    for kw in ({"device_expand": True}, {"device_expand": False}, {"force_repair": True}):
+        out = d2.inflate_device_v2(raw, device=dev, **kw)
+        assert torch.is_tensor(out) == kw.get("device_expand", False)
+        out = out.cpu().numpy() if torch.is_tensor(out) else out
+        assert out.tobytes() == data.tobytes()
+    with pytest.raises(tpuzlib_torch.DeviceDeclined):
+        tpuzlib_torch.inflate(streams[0][:-1] + bytes([streams[0][-1] ^ 1]), device=dev)

@@ -13,8 +13,10 @@ import torch
 
 import tpuzlib_torch
 from tpuzlib.codec import bitsink as jbitsink
+from tpuzlib.codec import huffman as jhuffman
 from tpuzlib.codec import lz77 as jlz77
 from tpuzlib.codec import tables as jtables
+from tpuzlib.codec import tokenize as jtk
 from tpuzlib.common import mergeBuffers as j_merge
 from tpuzlib.common import u8_view as j_u8_view
 from tpuzlib.containers import headers as jheaders
@@ -22,11 +24,13 @@ from tpuzlib.kernels import adler32 as jadler
 from tpuzlib.kernels import deflate_device as jdd
 from tpuzlib.kernels import deflate_device3 as jd3
 from tpuzlib_torch import DeflaterOptions
-from tpuzlib_torch.codec import bitsink, tables
+from tpuzlib_torch.codec import bitsink, huffman, tables
+from tpuzlib_torch.codec import tokenize as tk
 from tpuzlib_torch.containers import headers
 from tpuzlib_torch.kernels import _build, adler32, deflate_device as tdd
 from tpuzlib_torch.kernels import deflate_device3 as td3
-from tpuzlib_torch.kernels import parse, screen
+from tpuzlib_torch.kernels import inflate_cuda, parse, screen
+from tpuzlib_torch.native import bindings
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and their OpenMP threads, one per core each, spin against one another.
@@ -62,8 +66,9 @@ def test_no_source_imports_jax_or_tpuzlib():
 
 def test_public_surface():
     assert sorted(tpuzlib_torch.__all__) == sorted(
-        ["deflate", "DeflaterOptions", "DeviceDeflater", "adler32", "crc32", "mergeBuffers",
-         "u8_view"])
+        ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "DeviceDeclined", "adler32",
+         "crc32", "mergeBuffers", "u8_view"])
+    assert issubclass(tpuzlib_torch.DeviceDeclined, RuntimeError)
     data = np.arange(10, dtype=np.uint16)
     for x in (b"abc", bytearray(b"xy"), memoryview(b"q"), data, np.zeros((2, 3), np.int32)):
         assert np.array_equal(tpuzlib_torch.u8_view(x), j_u8_view(x))
@@ -83,6 +88,9 @@ def test_level_tables_match():
     assert (tables.MIN_MATCH, tables.MAX_MATCH, tables.WINDOW_SIZE) == (
         jtables.MIN_MATCH, jtables.MAX_MATCH, jtables.WINDOW_SIZE)
     assert np.array_equal(tables.CLC_ORDER, jtables.CLC_ORDER)
+    for name in ("LENGTH_BASE", "LENGTH_EXTRA", "DIST_BASE", "DIST_EXTRA",
+                 "FIXED_LITLEN_LENGTHS", "FIXED_DIST_LENGTHS"):
+        assert np.array_equal(getattr(tables, name), getattr(jtables, name)), name
     assert (tdd.CTX, tdd.SEG) == (jdd.CTX, jdd.SEG)
     for chunk in (1 << 14, 1 << 16, 1 << 18):
         # tpuzlib's token cap and output window for the chunk
@@ -158,6 +166,67 @@ def test_wrappers_refuse_other_devices():
         parse.segment_parse(m, 16)
     with pytest.raises(ValueError):
         td3.pack_fields(m.reshape(2, 8), m, m, m, m)
+    meta = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="meta")  # noqa: E731
+    with pytest.raises(ValueError):
+        inflate_cuda.cursor_decode(inflate_cuda.DecodeArgs(
+            meta(64), meta(inflate_cuda.NCUR, 4), meta(1, inflate_cuda.TB),
+            meta(1, inflate_cuda.LE), meta(1, inflate_cuda.DE), 8, 8))
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_fields",
-                                    "crc32_forms", "crc32_spans", "adler32"}
+                                    "crc32_forms", "crc32_spans", "adler32", "inflate_decode"}
     assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 6
+
+
+def test_huffman_and_tokenize_match():
+    for name in ("MAX_BITS", "VAL_MASK", "NB_SHIFT", "EB_SHIFT", "NB_MASK", "F_LEN", "F_EOB",
+                 "INVALID"):
+        assert getattr(huffman, name) == getattr(jhuffman, name), name
+    rng = np.random.default_rng(2)
+    for kind, n in (("litlen", 288), ("dist", 32), ("codelen", 19)):
+        fixed = tables.FIXED_LITLEN_LENGTHS if kind == "litlen" else tables.FIXED_DIST_LENGTHS
+        sets = [fixed[:n], np.array([1, 1] + [0] * (n - 2)), np.array([1] + [0] * (n - 1)),
+                np.array([1, 2, 2, 2] + [0] * (n - 4)), rng.integers(0, 8, n)]
+        for lengths in sets:
+            lengths = np.asarray(lengths, np.int32)
+            try:
+                want = jhuffman.build_lut(lengths, kind)
+            except jhuffman.TreeError as e:
+                with pytest.raises(huffman.TreeError, match=str(e)):
+                    huffman.build_lut(lengths, kind)
+                continue
+            assert np.array_equal(huffman.build_lut(lengths, kind), want)
+    # dynamic headers: the code lengths parsed from zlib streams, and the
+    # errors of truncated headers
+    data = np.frombuffer(b"tpuzlib_torch inflate " * 400 + bytes(range(256)), np.uint8)
+    for level in (1, 6, 9):
+        buf = np.frombuffer(zlib.compress(data.tobytes(), level)[2:-4], np.uint8)
+        for cut in (len(buf), 40, 9):
+            reader, jreader = tk.BitReader(buf[:cut], 3, cut * 8), jtk.BitReader(buf[:cut], 3, cut * 8)
+            try:
+                want = jtk.parse_dynamic_lengths(jreader)
+            except (jtk.DataError, jtk.NeedMoreInput) as e:
+                with pytest.raises((tk.DataError, tk.NeedMoreInput), match=str(e)):
+                    tk.parse_dynamic_lengths(reader)
+                continue
+            got = tk.parse_dynamic_lengths(reader)
+            assert all(np.array_equal(g, w) for g, w in zip(got, want)) and reader.pos == jreader.pos
+
+
+def test_native_library_builds_and_loads():
+    lib = bindings.lib()
+    for name in ("tz_find_headers", "tz_tokenize_midblock", "tz_inflate_tokenize",
+                 "tz_expand_tokens"):
+        assert callable(getattr(lib, name))
+    so = bindings.build()
+    assert os.path.dirname(so) == os.path.join(PKG, "native", "_build") and os.path.exists(so)
+    assert "-march=native" not in bindings.FLAGS and bindings.lib() is lib
+    with pytest.raises(ValueError):
+        bindings.ptr(np.zeros((4, 4), np.int32)[:, 1])
+
+
+def test_reads_no_environment():
+    pat = re.compile(r"os\.environ|getenv")
+    for root, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(root, n)) as f:
+                    assert not pat.search(f.read()), n

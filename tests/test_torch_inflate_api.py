@@ -1,0 +1,110 @@
+"""tpuzlib_torch.inflate on the CPU against tpuzlib.inflate and zlib:
+zlib, gzip and raw streams, gzip headers with every optional field, and
+the errors: DeviceDeclined on a bad trailer and on a truncated stream,
+NotImplementedError for preset dictionaries, ValueError on bad input.
+"""
+
+import gzip
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import tpuzlib
+import tpuzlib_torch
+from tpuzlib.containers.inflate_container import ContainerInflater
+from tpuzlib_torch import DeviceDeclined, testing
+from tpuzlib_torch.containers.inflate_container import parse_gzip_header, parse_zlib_header
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and their OpenMP threads, one per core each, spin against one another.
+torch.set_num_threads(1)
+
+DATA = testing.inflate_streams()["hidden stored"][1]
+
+
+def _gzip_with_fields(data: np.ndarray) -> bytes:
+    """A gzip member with FEXTRA, FNAME, FCOMMENT and FHCRC set."""
+    head = bytearray(b"\x1f\x8b\x08\x1e" + struct.pack("<I", 1_700_000_000) + b"\x00\xff")
+    head += struct.pack("<H", 5) + b"extra" + b"name.txt\x00" + b"a comment\x00"
+    head += struct.pack("<H", zlib.crc32(bytes(head)) & 0xFFFF)
+    body = testing.zlib_stream(data, 6, -15)
+    return bytes(head) + body + struct.pack("<II", zlib.crc32(data.tobytes()),
+                                            len(data) & 0xFFFFFFFF)
+
+
+STREAMS = {
+    "zlib": zlib.compress(DATA.tobytes(), 6),
+    "gzip (python)": gzip.compress(DATA.tobytes(), 9, mtime=0),
+    "gzip (port)": tpuzlib_torch.deflate(DATA, format="gzip", device="cpu").tobytes(),
+    "gzip (all header fields)": _gzip_with_fields(DATA),
+    "raw": testing.zlib_stream(DATA, 1, -15),
+    "raw (port)": tpuzlib_torch.deflate(DATA, format="raw", level=9, device="cpu").tobytes(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_inflate_matches_tpuzlib(name):
+    wire = STREAMS[name]
+    got = tpuzlib_torch.inflate(wire, device="cpu")
+    assert isinstance(got, np.ndarray) and got.dtype == np.uint8
+    assert got.tobytes() == DATA.tobytes() == np.asarray(tpuzlib.inflate(wire)).tobytes()
+    for kind in (bytes, bytearray, memoryview):
+        assert tpuzlib_torch.inflate(kind(wire), device="cpu").tobytes() == got.tobytes()
+
+
+def test_headers_match_tpuzlib():
+    for name, wire in STREAMS.items():
+        buf = np.frombuffer(wire, np.uint8)
+        if name.startswith("gzip"):
+            hdr = parse_gzip_header(buf, lambda b: zlib.crc32(b.tobytes()) & 0xFFFF)
+            assert hdr.size == ContainerInflater(raw=False)._try_parse_gzip_header(buf)
+            assert parse_gzip_header(buf[: hdr.size - 1], lambda b: 0) is None
+        elif name == "zlib":
+            assert parse_zlib_header(buf) == (2, None)
+    assert parse_gzip_header(np.frombuffer(STREAMS["gzip (all header fields)"], np.uint8),
+                             lambda b: zlib.crc32(b.tobytes()) & 0xFFFF).file_name == "name.txt"
+    fdict = np.frombuffer(b"\x78\xbb" + struct.pack(">I", 0xDEADBEEF), np.uint8)
+    assert parse_zlib_header(fdict) == (6, 0xDEADBEEF) and parse_zlib_header(fdict[:5]) is None
+
+
+def test_bad_trailers_decline():
+    z, gz = STREAMS["zlib"], STREAMS["gzip (port)"]
+    flip = lambda w, i: w[:i] + bytes([w[i] ^ 1]) + w[i + 1 :]  # noqa: E731
+    for wire, what in ((flip(z, len(z) - 1), "Adler-32"), (flip(gz, len(gz) - 5), "CRC-32"),
+                       (flip(gz, len(gz) - 1), "ISIZE")):
+        with pytest.raises(DeviceDeclined, match=what):
+            tpuzlib_torch.inflate(wire, device="cpu")
+        with pytest.raises(ValueError):
+            tpuzlib.inflate(wire)
+
+
+def test_truncated_stream_declines():
+    z = STREAMS["zlib"]
+    for wire in (z[: len(z) // 2], z[:-4] + b"\x00\x00"):
+        with pytest.raises(DeviceDeclined):
+            tpuzlib_torch.inflate(wire, device="cpu")
+        with pytest.raises(ValueError):
+            tpuzlib.inflate(wire)
+
+
+def test_dictionaries_not_supported():
+    c = zlib.compressobj(6, zlib.DEFLATED, 15, zdict=DATA[:512].tobytes())
+    fdict = c.compress(DATA.tobytes()) + c.flush()
+    with pytest.raises(NotImplementedError, match="dictionar"):
+        tpuzlib_torch.inflate(fdict, device="cpu")
+    with pytest.raises(NotImplementedError, match="dictionar"):
+        tpuzlib_torch.inflate(STREAMS["zlib"], DATA[:512], device="cpu")
+
+
+def test_bad_input():
+    with pytest.raises(ValueError, match="too small"):
+        tpuzlib_torch.inflate(b"\x78", device="cpu")
+    gz = bytearray(STREAMS["gzip (python)"])
+    gz[2] = 7  # compression method
+    with pytest.raises(ValueError, match="unknown compression method"):
+        tpuzlib_torch.inflate(bytes(gz), device="cpu")
+    with pytest.raises(ValueError, match="Unexpected EOF"):
+        tpuzlib_torch.inflate(STREAMS["gzip (python)"][:12], device="cpu")

@@ -1,4 +1,4 @@
-"""tpuzlib_torch — tpuzlib's batched device DEFLATE encoder and checksums in PyTorch and CUDA.
+"""tpuzlib_torch — tpuzlib's device DEFLATE encoder, decoder and checksums in PyTorch and CUDA.
 
 The port of tpuzlib (JAX on a TPU) to PyTorch on an NVIDIA Hopper GPU.
 It mirrors tpuzlib's layout; its kernels are CUDA C++ under
@@ -8,6 +8,8 @@ torch versions run.
 
 Public API:
     deflate, DeflaterOptions   one-shot raw / zlib / gzip compression
+    inflate, DeviceDeclined    one-shot raw / zlib / gzip decompression; the
+                               error for a stream the device path declines
     DeviceDeflater             streaming compression, window on the device
     adler32, crc32             checksums on the device, chained by seed
     mergeBuffers, u8_view      buffer helpers
@@ -15,8 +17,10 @@ Public API:
 
 from .api.checksums import adler32, crc32
 from .api.deflate_api import DeflaterOptions, deflate
+from .api.inflate_api import inflate
 from .common import mergeBuffers, u8_view
 from .kernels.deflate_device3 import DeviceDeflater
+from .kernels.inflate_device2 import DeviceDeclined
 
-__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "adler32", "crc32",
-           "mergeBuffers", "u8_view"]
+__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "DeviceDeclined", "adler32",
+           "crc32", "mergeBuffers", "u8_view"]

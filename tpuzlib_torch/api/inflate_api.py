@@ -1,0 +1,70 @@
+"""Public one-shot decompression: inflate().
+
+Counterpart of tpuzlib/api/inflate_api.py's container detection (lines
+237-307) and its device route `_inflate_device_oneshot` (lines 154-234).
+The port has no host engine, so inflate() always decodes on the device it
+is given: no size floor, raw streams too, and no fallback.  Pass 3 runs
+on the host (decode's default), so the output is a host array.  A stream the
+device path declines, or whose output fails its container's checksum or
+ISIZE, raises DeviceDeclined (tpuzlib re-decodes such streams on its host
+engine, which settles whether the data or the device path is at fault);
+device and build errors propagate.  The trailer's checksum runs on
+`device` through the port's own crc32 / adler32.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from ..codec.tokenize import DataError
+from ..common import u8_view
+from ..containers.inflate_container import parse_gzip_header, parse_zlib_header
+from ..kernels.inflate_device2 import DeviceDeclined, decode
+from .checksums import adler32, crc32
+
+_NO_DICTIONARIES = (
+    "preset dictionaries are not supported: tpuzlib's device route declines them,"
+    " and the host engine that serves them is not ported to tpuzlib_torch"
+)
+_EOF = "Unexpected EOF during decompression"
+
+
+def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
+    """One-shot decompress `data` on `device`, detecting its container: gzip
+    (1F 8B), zlib (first byte exactly 0x78 with a valid header check), else
+    raw DEFLATE.  Returns the bytes as a uint8 array."""
+    input_ = u8_view(data)
+    if len(input_) < 2:
+        raise ValueError("data buffer is too small")
+    if dictionary is not None:
+        raise NotImplementedError(_NO_DICTIONARIES)
+    b0, b1 = int(input_[0]), int(input_[1])
+    try:
+        if b0 == 0x1F and b1 == 0x8B:
+            hdr = parse_gzip_header(
+                input_, lambda b: crc32(np.ascontiguousarray(b), device=device) & 0xFFFF)
+            if hdr is None or len(input_) < hdr.size + 8:
+                raise ValueError(_EOF)
+            stored_crc, isize = struct.unpack("<II", input_[-8:].tobytes())
+            out = decode(input_[hdr.size : -8], device=device)
+            if crc32(out, device=device) != stored_crc:
+                raise DeviceDeclined("the device output fails the gzip CRC-32")
+            if len(out) & 0xFFFFFFFF != isize:
+                raise DeviceDeclined("the device output fails the gzip ISIZE")
+            return out
+        if b0 == 0x78 and ((b0 << 8) + b1) % 31 == 0:
+            hdr = parse_zlib_header(input_)
+            if hdr is None or len(input_) < hdr[0] + 4:
+                raise ValueError(_EOF)
+            if hdr[1] is not None:
+                raise NotImplementedError(_NO_DICTIONARIES)
+            stored_adler = struct.unpack(">I", input_[-4:].tobytes())[0]
+            out = decode(input_[2:-4], device=device)
+            if adler32(out, device=device) != stored_adler:
+                raise DeviceDeclined("the device output fails the zlib Adler-32")
+            return out
+        return decode(input_, device=device)
+    except DataError as e:
+        raise ValueError("inflate error: %s" % e) from None

@@ -1,6 +1,7 @@
-"""RFC 1951 constants and the per-level parse knobs the device encoder reads.
+"""RFC 1951 constants, and the per-level parse knobs the device encoder reads.
 
-Counterpart of the constants of tpuzlib/codec/tables.py and of TOO_FAR /
+Counterpart of the constants of tpuzlib/codec/tables.py (the length and
+distance bases, the fixed trees the decoder reads) and of TOO_FAR /
 LEVELS in tpuzlib/codec/lz77.py.  The host codec's probe lists are not
 needed by the device encoder, so a level here carries only its lazy rule.
 """
@@ -15,11 +16,48 @@ MIN_MATCH = 3
 MAX_MATCH = 258
 WINDOW_SIZE = 1 << 15
 
+# Length codes 257..285 -> (base, extra bits)
+LENGTH_BASE = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51,
+     59, 67, 83, 99, 115, 131, 163, 195, 227, 258],
+    dtype=np.int32,
+)
+LENGTH_EXTRA = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4,
+     4, 5, 5, 5, 5, 0],
+    dtype=np.int32,
+)
+
+# Distance codes 0..29 -> (base, extra bits)
+DIST_BASE = np.array(
+    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
+     513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577],
+    dtype=np.int32,
+)
+DIST_EXTRA = np.array(
+    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
+     10, 11, 11, 12, 12, 13, 13],
+    dtype=np.int32,
+)
+
 # Order in which code-length-code lengths are stored in a dynamic header
 CLC_ORDER = np.array(
     [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15],
     dtype=np.int64,
 )
+
+# Fixed (static) Huffman tree code lengths per RFC 1951 §3.2.6
+FIXED_LITLEN_LENGTHS = np.concatenate(
+    [
+        np.full(144, 8, dtype=np.int32),  # 0..143
+        np.full(112, 9, dtype=np.int32),  # 144..255
+        np.full(24, 7, dtype=np.int32),  # 256..279
+        np.full(8, 8, dtype=np.int32),  # 280..287
+    ]
+)
+# all 32 distance codes take part in the fixed tree; 30-31 are invalid
+# if they ever appear in the stream (RFC 1951 §3.2.6)
+FIXED_DIST_LENGTHS = np.full(32, 5, dtype=np.int32)
 
 # Drop length-3 matches beyond this distance: with dist > ~128 a length-3
 # match usually costs more bits than three literals.

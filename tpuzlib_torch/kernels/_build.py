@@ -3,7 +3,7 @@
 All `csrc/*.cu` files are compiled by one `nvcc` call into a shared
 library with a plain C interface, named by a hash of the sources and kept
 under `_build/` next to this file; it is built on first use and loaded
-with ctypes.  Every C entry point launches on the stream it is given and
+with ctypes (`_clib.Library`).  Every C entry point launches on the stream it is given and
 returns `cudaGetLastError()`; `launch` raises when that is not 0.
 
 `LAUNCHES` counts, per kernel, the launches that reached the card: each
@@ -14,12 +14,11 @@ from __future__ import annotations
 
 import ctypes
 import glob
-import hashlib
 import os
-import subprocess
-import threading
 
 import torch
+
+from .._clib import Library
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -33,69 +32,39 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry point -> argument types (pointers and the stream are c_void_p)
-_SIGNATURES = {
+# C entry point -> argument types (pointers and the stream are c_void_p);
+# each returns a cudaError_t as int
+_ARGTYPES = {
     "tz_near_screen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tz_far_screen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tz_segment_parse": [_P, _P, _I, _I, _I, _P],
     "tz_pack_fields": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
     "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
+    "tz_inflate_decode": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
+_SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
+               "tz_error_string": (ctypes.c_char_p, [_I])}
 
 # the CRC kernel counts its two modes apart: per-block forms, span forms
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_fields": 0,
-            "crc32_forms": 0, "crc32_spans": 0, "adler32": 0}
-
-_lock = threading.Lock()
-_lib = None
-
+            "crc32_forms": 0, "crc32_spans": 0, "adler32": 0, "inflate_decode": 0}
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
-def build() -> str:
-    """Compile the kernels unless a library of these exact sources exists;
-    returns its path.  Raises with nvcc's output when nvcc fails."""
+def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
-    srcs = sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    so_path = os.path.join(_BUILD_DIR, "libtpuzlib_torch_%s.so" % h.hexdigest()[:16])
-    if os.path.exists(so_path):
-        return so_path
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: nvcc is needed to build the kernels")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp.%d" % (so_path, os.getpid())
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s%s" % (res.returncode, res.stdout, res.stderr))
-    os.replace(tmp, so_path)
-    return so_path
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.tz_error_string.argtypes = [ctypes.c_int]
-            handle.tz_error_string.restype = ctypes.c_char_p
-            _lib = handle
-        return _lib
+# lib(): the loaded kernel library, built on first use; lib.build(): its path
+lib = Library("tpuzlib_torch", _nvcc, NVCC_FLAGS, sources, _BUILD_DIR, _SIGNATURES)
+build = lib.build
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

@@ -1,0 +1,59 @@
+"""Build and load the host library of the inflate path (ctypes).
+
+`lib()` compiles tpuzlib_torch_native.cc with g++ on first use into
+`_build/` next to this file, names the library by a hash of its source
+and flags, and loads it (`_clib.Library`).  There is no numpy path to fall back on: a
+failed build raises with the compiler's output.  Counterpart of
+tpuzlib/native/bindings.py, without `-march=native`, so the library loads
+on whichever host runs it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+
+from .._clib import Library
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "tpuzlib_torch_native.cc")
+_BUILD_DIR = os.path.join(_HERE, "_build")
+
+FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # src, src_len, start_bit, stop_bit, litlen, dist, cap, *end_bit,
+    # *finished, *status
+    "tz_inflate_tokenize": (_I64, [_P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _P]),
+    # src, src_len, start_bit, litlens, nlit, distlens, ndist, litlen, dist,
+    # cap, *end_bit, *hit_eob, *status
+    "tz_tokenize_midblock": (_I64, [_P, _I64, _I64, _P, _I32, _P, _I32, _P, _P, _I64, _P, _P,
+                                    _P]),
+    # src, src_len, from_bit, allow_final, out_pos, cap
+    "tz_find_headers": (_I64, [_P, _I64, _I64, _I32, _P, _I64]),
+    # litlen, dist, ntok, dst, dst_cap, dict_len
+    "tz_expand_tokens": (_I64, [_P, _P, _I64, _P, _I64, _I64]),
+}
+
+# lib(): the loaded host library, built on first use; lib.build(): its path
+lib = Library("tpuzlib_torch_native", lambda: "g++", FLAGS, lambda: [_SRC], _BUILD_DIR,
+              _SIGNATURES)
+build = lib.build
+
+
+def ptr(a: np.ndarray) -> int:
+    """Address of a C-contiguous array's first element, for a ctypes call
+    (the caller keeps `a` alive across the call)."""
+    if not a.flags.c_contiguous:
+        raise ValueError("native calls take C-contiguous arrays")
+    return a.ctypes.data
+
+
+def out_scalars(*dtypes):
+    """One-element arrays that a native call writes its scalar outputs to."""
+    return tuple(np.zeros(1, dt) for dt in dtypes)

@@ -9,11 +9,15 @@ cover what the encoder must handle:
   runs      byte runs and periodic patterns (the d-chain and long matches)
   random    uniform random bytes (the stored-block fallback)
 
-`device_deflater_from_numpy` builds a DeviceDeflater from streaming state
+`zlib_stream` compresses with python zlib (levels, strategies, sync
+flushes) and `inflate_streams` makes one raw stream of every block kind
+for the decoder's tests.  `device_deflater_from_numpy` builds a DeviceDeflater from streaming state
 held in numpy, so a stream begun elsewhere can be finished by the port.
 """
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
@@ -111,6 +115,52 @@ def mixed(n: int, seed: int = 0) -> np.ndarray:
         out.append(corpus(kind, size, int(rng.integers(1 << 31))))
         have += size
     return np.concatenate(out)[:n]
+
+
+def zlib_stream(data: np.ndarray, level: int = 6, wbits: int = 15,
+                strategy: int = zlib.Z_DEFAULT_STRATEGY, flush_every: int = 0,
+                mem_level: int = 8) -> bytes:
+    """python zlib's compression of `data` (wbits < 0: a raw stream); with
+    flush_every, a Z_SYNC_FLUSH after every so many bytes (empty stored
+    markers, and the small blocks zlib writes before them).  A block holds
+    at most 2^(mem_level + 6) symbols."""
+    c = zlib.compressobj(level, zlib.DEFLATED, wbits, mem_level, strategy)
+    step = flush_every or max(1, len(data))
+    parts = []
+    for off in range(0, len(data), step):
+        parts.append(c.compress(data[off : off + step].tobytes()))
+        if flush_every:
+            parts.append(c.flush(zlib.Z_SYNC_FLUSH))
+    return b"".join(parts) + c.flush()
+
+
+def inflate_streams(n: int = 1 << 16, seed: int = 0) -> dict:
+    """name -> (raw DEFLATE stream uint8, its bytes uint8) for every kind
+    of block the device inflate meets, about n bytes of input each:
+    python zlib levels 1 / 6 / 9 (dynamic blocks), Z_FIXED (fixed
+    blocks), random bytes (stored blocks), sync flushes, stored runs
+    hidden between Huffman blocks, and the port's own encoder."""
+    from .api.deflate_api import deflate
+
+    rng = np.random.default_rng(seed)
+    sub = lambda: int(rng.integers(1 << 31))  # noqa: E731
+    text = corpus("text", n, sub())
+    blend = np.concatenate([text[: n // 2], corpus("vertices", n // 4, sub()),
+                            corpus("runs", n - n // 2 - n // 4, sub())])
+    hidden = np.concatenate([text[: 3 * n // 8], corpus("random", n // 4, sub()),
+                             np.zeros(n // 8, np.uint8), text[n // 2 : n // 2 + n // 4]])
+    raw = lambda data, level=6, **kw: np.frombuffer(  # noqa: E731
+        zlib_stream(data, level, -15, **kw), np.uint8)
+    return {
+        "L1": (raw(blend, 1, mem_level=5), blend),
+        "L6": (raw(blend, 6), blend),
+        "L9": (raw(blend, 9), blend),
+        "fixed": (raw(blend, strategy=zlib.Z_FIXED), blend),
+        "stored": (raw(hidden[3 * n // 8 : 5 * n // 8]), hidden[3 * n // 8 : 5 * n // 8]),
+        "sync flush": (raw(blend, flush_every=n // 8), blend),
+        "hidden stored": (raw(hidden, mem_level=6), hidden),
+        "port encoder": (deflate(blend, format="raw", device="cpu"), blend),
+    }
 
 
 def device_deflater_from_numpy(level, chunk, batch, ctx, ctx_valid, pending,
