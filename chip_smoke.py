@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero at once without
-a card, and on any failed check.  It builds the six kernels from
+a card, and on any failed check.  It builds the nine kernels from
 tpuzlib_torch/kernels/csrc, then:
 
   A  holds each kernel against its plain torch version (exact equality)
@@ -25,22 +25,31 @@ tpuzlib_torch/kernels/csrc, then:
      span) is taken over E;
   F  runs tpuzlib_torch.entry's forward step on the card and on the CPU
      and requires equal outputs;
-  G  decompresses on the card: G1 holds the cursor-decode kernel to its
-     plain version (exact, all six outputs) at the shapes of the 32 MiB
-     corpus compressed by python zlib at level 6; G2 runs
+  G  decompresses on the card: G1 holds the decode's two kernels to their
+     plain versions (exact: the lookup tables, and all six outputs of the
+     decode) at the shapes of the 32 MiB corpus compressed by python zlib
+     at level 6, times the decode at 32, 64 and 128 threads a block, and
+     counts the tape's symbols whose codes the lookup tables miss; G2 runs
      tpuzlib_torch.inflate on zlib levels 6 (32 MiB), 1 and 9 (8 MiB),
      C's 32 MiB gzip, fixed blocks, sync-flush markers, a raw stream and
      8 MiB of text, whose splice must validate with no repair, then
      inflate_device_v2 with device or host expansion, and a forced splice
      repair of the text stream, and requires every output to equal its
-     input (the decode kernel's launch count is taken over G2); the census
+     input (the decode's two launch counts are taken over G2); the census
      lines say, per stream, whether its splice validates under the port's
      rule (any kept flagged EOB declines), under tpuzlib's (only each
      cursor's first flag) and with no flag at all; G3 times the level-6
      decode's pieces apart, both expansions included.
 
 Each phase prints one JSON line; then the per-kernel table
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+{"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
+row gives its bound: the larger of the bytes it must move (each input
+read once, each output written once) over the card's memory rate, and a
+floor on its operations (one for each elementary step: a window
+compared, a byte folded, a symbol decoded) over the card's float32 rate
+outside the tensor cores (its table has no integer rate; a higher rate
+only lowers the bound).  No single PyTorch call computes any of these
+functions, so library_ms is null throughout.
 """
 
 from __future__ import annotations
@@ -57,6 +66,9 @@ import torch
 
 LEVEL, CHUNK, BATCH = 6, 1 << 18, 8
 DEVICE = "cuda"
+# NVIDIA H100 SXM, published: HBM3 bytes/s, float32 operations/s without
+# the tensor cores
+MEM_RATE, OP_RATE = 3.35e12, 67e12
 
 
 def emit(obj) -> None:
@@ -74,6 +86,13 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(x) -> int:
+    """Bytes of the tensors in x (a tensor, or nested tuples and lists)."""
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    return sum(nbytes(y) for y in x) if isinstance(x, (tuple, list)) else 0
 
 
 def max_abs_err(a, b) -> int:
@@ -98,23 +117,27 @@ def phase_a(args) -> dict:
     p = d3.LEVELS_V3[LEVEL]
     ws = d3.window_words(bufs.reshape(-1))
     lim16, _, mincand, chid = d3.batch_layout(BATCH, CTX, CHUNK, cv, nv)
+    rows = ws[0].numel()
+    # a window compare is four word compares
     cases = {
         "near_screen": (
             lambda: screen.near_screen(*ws, mincand, lim16, p["nd"]),
             lambda: screen.near_screen_plain(*ws, mincand, lim16, p["nd"]),
             "tpuzlib_torch/kernels/csrc/screen.cu",
             "tpuzlib/kernels/screen_pallas.py:142",
+            (ws, mincand, lim16), 4 * rows * p["nd"],
         ),
     }
     far = []
-    for nbytes, bits in d3.PROBES:
-        sh, perm, sws = d3.probe_rows(ws, mincand, chid, nbytes, bits)
-        far.append((sh, perm.to(torch.int32), *sws, p["k%d" % nbytes]))
+    for probe_bytes, bits in d3.PROBES:
+        sh, perm, sws = d3.probe_rows(ws, mincand, chid, probe_bytes, bits)
+        far.append((sh, perm.to(torch.int32), *sws, p["k%d" % probe_bytes]))
     cases["far_screen"] = (
         lambda: [screen.far_screen(*f) for f in far],
         lambda: [screen.far_screen_plain(*f) for f in far],
         "tpuzlib_torch/kernels/csrc/screen.cu",
         "tpuzlib/kernels/screen_pallas.py:222",
+        far, sum(4 * f[0].numel() * f[-1] for f in far),
     )
     # a step tape of the parse's shape: mostly literals, some matches, no
     # step crossing a segment
@@ -128,6 +151,7 @@ def phase_a(args) -> dict:
         lambda: segment_parse_xla(step, n),
         "tpuzlib_torch/kernels/csrc/parse.cu",
         "tpuzlib/kernels/parse_pallas.py:44",
+        (step,), n,
     )
     ow = d3.out_words_for(CHUNK)
     tok, _, _ = d3.make_encode_batch_v3(LEVEL, CHUNK, BATCH, ow, stage="compact")(*args)
@@ -138,6 +162,7 @@ def phase_a(args) -> dict:
         lambda: d3.pack_fields_plain(tok, *tables),
         "tpuzlib_torch/kernels/csrc/pack_fields.cu",
         "tpuzlib/kernels/deflate_device3.py:338",
+        (tok, tables), 2 * tok.numel(),  # two table lookups a token
     )
     return check_kernels(cases)
 
@@ -152,42 +177,52 @@ def phase_a_checksums(big) -> dict:
         "crc32_forms": (
             lambda: crc32_cuda.crc32_forms(big, 0, 1),
             lambda: crc32_cuda.crc32_forms_plain(big, 0, 1),
-            crc_src, "tpuzlib/kernels/crc32_pallas.py:24",
+            crc_src, "tpuzlib/kernels/crc32_pallas.py:24", (big,), big.numel(),
         ),
         "crc32_spans": (
             lambda: crc32_cuda.crc32_forms(big, 0, 256),
             lambda: crc32_cuda.crc32_forms_plain(big, 0, 256),
-            crc_src, "tpuzlib/kernels/crc32_pallas.py:99",
+            crc_src, "tpuzlib/kernels/crc32_pallas.py:99", (big,), big.numel(),
         ),
         "adler32": (
             lambda: adler32_cuda.adler32_blocks(big, 0),
             lambda: adler32_cuda.adler32_blocks_plain(big, 0),
-            adler_src, "tpuzlib/kernels/adler32_pallas.py:42",
+            adler_src, "tpuzlib/kernels/adler32_pallas.py:42", (big,), 2 * big.numel(),
         ),
     })
 
 
 def check_kernels(cases, phase="A") -> dict:
-    """One row per kernel: its error against its plain version and both
-    times; exits when a kernel differs.  A case may end with the number
-    of timed runs of its plain version (default 10 after 3 warm-ups; a
-    plain version run fewer times is timed with no warm-up, after the
-    comparison's run).  The phase line adds the card memory the plain
-    version takes at its peak."""
+    """One row per kernel: its error against its plain version, both
+    times and its bound; exits when a kernel differs.  A case is (kernel,
+    plain version, source, TPU kernel replaced, the kernel's inputs, its
+    operations: a number, or a function of its outputs), and may end with
+    the number of timed runs of its plain version (default 10 after 3
+    warm-ups; a plain version run fewer times is timed with no warm-up,
+    after the comparison's run).  The phase line adds the card memory the
+    plain version takes at its peak."""
     rows = {}
-    for name, (kern, plain, src, replaces, *plain_reps) in cases.items():
+    for name, (kern, plain, src, replaces, inputs, ops, *plain_reps) in cases.items():
         got = kern()
         torch.cuda.synchronize()
+        moved = nbytes(inputs) + nbytes(got)
+        ops = ops(got) if callable(ops) else ops
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         want = plain()
         plain_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
         err = max_abs_err(got, want)
         del got, want
+        bytes_ms, ops_ms = moved / MEM_RATE * 1e3, ops / OP_RATE * 1e3
+        ms = cuda_ms(kern)
         rows[name] = dict(name=name, route="cuda", source=src, replaces=replaces, launches=None,
-                          max_abs_err=err, ms=cuda_ms(kern),
+                          max_abs_err=err, ms=ms,
                           plain_ms=cuda_ms(plain, *plain_reps, 0) if plain_reps
-                          else cuda_ms(plain))
+                          else cuda_ms(plain),
+                          bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          library_ms=None, bytes=moved, ops=ops,
+                          pct_of_bound=100 * max(bytes_ms, ops_ms) / ms)
         if plain_reps:
             rows[name]["plain_reps"] = plain_reps[0]
         emit({"phase": phase, **rows[name], "plain_peak_MiB": plain_peak_mib})
@@ -343,20 +378,80 @@ def phase_f() -> None:
 
 
 def phase_g1(raw6: np.ndarray) -> dict:
-    """The cursor-decode kernel against its plain version at the shapes of
-    the level-6 32 MiB stream's payload."""
-    from tpuzlib_torch.kernels import inflate_cuda, inflate_device2 as d2
+    """The decode's two kernels against their plain versions at the shapes
+    of the level-6 32 MiB stream's payload: the lookup tables, then the
+    decode from them; the decode's time at other block sizes, the length
+    of its cursors' chains, and how often the tables miss."""
+    from tpuzlib_torch.kernels import inflate_cuda as ic, inflate_device2 as d2
 
     lay = d2.plan_cursors(raw6)
     args = lay.decode_args(raw6, DEVICE)
     emit({"phase": "G1", "compressed_bytes": len(raw6), "K": lay.K, "Kpad": lay.Kpad,
           "cap": lay.cap, "nwp": args.nwp, "stride_bits": lay.stride_bits,
-          "blocks": len(lay.plan)})
-    return check_kernels({"inflate_decode": (
-        lambda: inflate_cuda.cursor_decode(args), lambda: inflate_cuda.cursor_tokenize_plain(args),
-        "tpuzlib_torch/kernels/csrc/inflate_decode.cu", "tpuzlib/kernels/inflate_pallas.py:155",
-        2,
-    )}, phase="G1")
+          "blocks": len(lay.plan), "lut_bits": [ic.LUT_BITS, ic.DLUT_BITS],
+          "threads": ic.DECODE_THREADS})
+    src, replaces = "tpuzlib_torch/kernels/csrc/inflate_decode.cu", "tpuzlib/kernels/inflate_pallas.py:155"
+    tables = (args.tabs, args.lents, args.dents)
+    luts = ic.decode_luts(args)
+    rows = check_kernels({
+        # each row counts the lengths up to the table's bits
+        "inflate_lut": (lambda: ic.decode_luts(args), lambda: ic.decode_luts_plain(*tables),
+                        src, replaces, tables,
+                        len(lay.plan) * ((1 << ic.LUT_BITS) * ic.LUT_BITS
+                                         + (1 << ic.DLUT_BITS) * ic.DLUT_BITS)),
+        # one table lookup a symbol decoded
+        "inflate_decode": (lambda: ic.cursor_decode(args, luts), lambda: ic.cursor_tokenize_plain(args),
+                           src, replaces, (args, luts), lambda got: int(got[2].long().sum()), 2),
+    }, phase="G1")
+    ref = ic.cursor_decode(args, luts)
+    for threads in (32, 64, 128):
+        got = ic.cursor_decode(args, luts, threads)
+        emit({"phase": "G1 block size", "threads": threads,
+              "equal": all(torch.equal(g, r) for g, r in zip(got, ref)),
+              "ms": cuda_ms(lambda: ic.cursor_decode(args, luts, threads))})
+    cnt = ref[2][: lay.K].long()
+    longest = int(cnt.max())
+    emit({"phase": "G1 chains", "symbols": int(cnt.sum()), "longest": longest,
+          "mean": float(cnt.float().mean()),
+          "ns_per_symbol_of_longest": rows["inflate_decode"]["ms"] * 1e6 / longest,
+          **lut_misses(args, luts, ref)})
+    return rows
+
+
+def lut_misses(args, luts, toks) -> dict:
+    """Shares of the tape's symbols whose code a primary table of W bits
+    does not hold, for W = 9, 10 (lit/len) and 6, 7, 8 (distance, after a
+    length whose code the lit/len table holds), and for W = 10 and 8 the
+    share of warp steps (32 neighbouring cursors, one row each) in which
+    some lane misses, which the whole warp then waits for."""
+    from tpuzlib_torch.kernels import inflate_cuda as ic
+
+    K, cap = args.cur.shape[1], args.cap
+    tok, bp = toks[0].view(K, cap).long(), toks[1].view(K, cap).long()
+    valid = torch.arange(cap, device=bp.device)[None, :] < toks[2].long()[:, None]
+    sw = args.cur[ic.C_SWSTART].long()[:, None]
+    rel = torch.where(valid, bp - (sw << 5), 0)
+    words = args.words.long() & 0xFFFFFFFF
+    j = sw + (rel >> 5)
+    hi = words[(j + 1).clamp(max=words.numel() - 1)]
+    win = ((words[j] | (hi << 32)) >> (rel & 31)) & 0xFFFFFFFF
+    blk = args.cur[ic.C_BLOCK].long()[:, None]
+    lit = luts[blk, win & ((1 << ic.LUT_BITS) - 1), 1].long()
+    llen = lit & 0xFF
+    after = (win >> (lit >> 8)) & ((1 << ic.DLUT_BITS) - 1)  # past the code and its extra bits
+    dlen = luts[blk, (1 << ic.LUT_BITS) + after, 1].long() & 0xFF
+    has_dist = valid & ((tok >> 25) & 1).bool() & (llen > 0)
+    out = {}
+    for W in (9, 10):
+        miss = valid & ((llen == 0) | (llen > W))
+        out["lit_miss_share_W%d" % W] = float(miss.sum() / valid.sum())
+    for Wd in (6, 7, 8):
+        miss = has_dist & ((dlen == 0) | (dlen > Wd))
+        out["dist_miss_share_Wd%d" % Wd] = float(miss.sum() / has_dist.sum())
+    miss = (valid & (llen == 0)) | (has_dist & (dlen == 0))
+    warps = lambda m: m[: K // 32 * 32].view(-1, 32, cap).any(1)  # noqa: E731
+    out["warp_steps_with_a_miss"] = float(warps(miss).sum() / warps(valid).sum())
+    return out
 
 
 def flag_census(raw: np.ndarray, device=DEVICE) -> dict:
@@ -585,7 +680,8 @@ def main() -> int:
     _build.reset_launches()
     payload = phase_g2(corpus, z6, gzip32)
     torch.cuda.synchronize()
-    launches["inflate_decode"] = _build.LAUNCHES["inflate_decode"]
+    for k in ("inflate_lut", "inflate_decode"):
+        launches[k] = _build.LAUNCHES[k]
     for name, raw in payload.items():
         emit({"phase": "G2 census", "stream": name, **flag_census(raw)})
     phase_g3(corpus, raw6)

@@ -181,6 +181,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         crc32_cuda.crc32_forms(b, 0, 256)
     with pytest.raises(ValueError):
         adler32_cuda.adler32_blocks(b[1:], 0)
+    args = DECODE_CASES["one cursor"](dev)
+    luts = inflate_cuda.decode_luts(args)
+    for threads in (0, 48, 256):
+        with pytest.raises(ValueError):
+            inflate_cuda.cursor_decode(args, luts, threads)
+    with pytest.raises(ValueError):
+        inflate_cuda.cursor_decode(args, luts[:, :-1].contiguous())
+    with pytest.raises(TypeError):
+        inflate_cuda.cursor_decode(args, luts.long())
 
 
 def _bytes_at(n, offset, dev):
@@ -249,6 +258,27 @@ def _decode_args(stream, dev, k=None, cap=None, keep=None, stride=1 << 12):
         lay.stride_bits, 2 * d2.OVERLAP, cap or lay.cap, pad(lay.expect_eob, True), dev)
 
 
+def _clamp_args(n, dev):
+    """n cursors in block 0 of a level-6 stream, each allowed to decode to
+    the end of its slice of nwp = 200 words: their last symbols are read
+    from the word index clamped into the slice's last three words."""
+    raw = _zlib_raw(testing.mixed(1 << 17, 9))
+    plan = d2._plan_blocks(raw)
+    starts = np.minimum(plan[0].data_start + 997 * np.arange(n), plan[0].stop_bit - 1)
+    return inflate_cuda.prepare(raw, starts, np.full(n, 8 * len(raw)), np.zeros(n, np.int64),
+                                plan, 1 << 12, 1 << 11, 2048, np.ones(n, bool), dev)
+
+
+def _corrupted_fixed(dev):
+    """Fixed blocks with 600 random bytes a third of the way in: the
+    reserved codes (lit/len 286-287, distance 30-31) are soon reached."""
+    buf = testing.inflate_streams()["fixed"][0]
+    lay = d2.plan_cursors(buf, 1 << 13, 256)
+    bad = buf.copy()
+    bad[len(bad) // 3 : len(bad) // 3 + 600] = np.random.default_rng(2).integers(0, 256, 600)
+    return lay.decode_args(bad, dev)
+
+
 DECODE_CASES = {
     "one cursor": lambda dev: _decode_args(_zlib_raw(testing.corpus("text", 1 << 16, 1)), dev, k=1),
     "129 cursors": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 19, 2)), dev, k=129),
@@ -260,21 +290,64 @@ DECODE_CASES = {
                                                 keep=20001),
     "odd available bits": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 17, 7), 9), dev,
                                                    keep=33333),
+    "15-bit codes, zlib": lambda dev: _decode_args(np.frombuffer(testing.zlib_stream(
+        testing.fibonacci_bytes(), 9, -15, zlib.Z_HUFFMAN_ONLY), np.uint8), dev),
+    "15-bit codes, hand-made": lambda dev: _decode_args(
+        testing.hand_made_blocks()["15-bit codes"], dev),
+    "one-bit distance code": lambda dev: _decode_args(
+        testing.hand_made_blocks()["one-bit distance code"], dev),
+    "corrupted": _corrupted_fixed,
+    # an odd row length: every other cursor's rows are not 16-byte aligned
+    "rows not aligned": lambda dev: _decode_args(_zlib_raw(testing.mixed(1 << 17, 11)), dev,
+                                                 cap=1001),
+    "word clamp, one cursor": lambda dev: _clamp_args(1, dev),
+    "word clamp, 64 cursors": lambda dev: _clamp_args(64, dev),
 }
+
+
+def _check_decode(args, got):
+    """got (the kernel's outputs) equal the plain version's; returns them."""
+    want = inflate_cuda.cursor_tokenize_plain(args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    return want
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_inflate_lut_kernel_matches_plain(dev, case):
+    args = DECODE_CASES[case](dev)
+    got = _launched("inflate_lut", lambda: inflate_cuda.decode_luts(args))
+    assert got.dtype == torch.int32 and got.shape == (args.tabs.shape[0], inflate_cuda.LUT_ROWS, 2)
+    assert torch.equal(got, inflate_cuda.decode_luts_plain(args.tabs, args.lents, args.dents))
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 def test_inflate_decode_kernel_matches_plain(dev, case):
     args = DECODE_CASES[case](dev)
+    lut_before = _build.LAUNCHES["inflate_lut"]
     got = _launched("inflate_decode", lambda: inflate_cuda.cursor_decode(args))
-    want = inflate_cuda.cursor_tokenize_plain(args)
-    for g, w in zip(got, want):
-        assert g.dtype == torch.int32 and torch.equal(g, w)
+    assert _build.LAUNCHES["inflate_lut"] == lut_before + 1
+    want = _check_decode(args, got)
     statuses = set(want[4].tolist())
-    if case == "tape overflow":
+    if case in ("tape overflow", "corrupted"):
         assert inflate_cuda.ST_ERR in statuses
     if case == "ends mid-symbol":
         assert inflate_cuda.ST_OOB in statuses
+    if case.startswith("word clamp"):
+        # a row decoded from past the slice's third-last word
+        swstart, cnt = args.cur[inflate_cuda.C_SWSTART, 0], int(want[2][0])
+        assert int(want[1][cnt - 1]) - 32 * int(swstart) >= 32 * (args.nwp - 2)
+
+
+@pytest.mark.parametrize("threads", [32, 64, 96, 128])
+@pytest.mark.parametrize("case", ["129 cursors", "word clamp, 64 cursors", "stored only",
+                                  "rows not aligned"])
+def test_inflate_decode_block_sizes(dev, case, threads):
+    """Every block size gives the same tapes, from tables built once."""
+    args = DECODE_CASES[case](dev)
+    luts = inflate_cuda.decode_luts(args)
+    got = _launched("inflate_decode", lambda: inflate_cuda.cursor_decode(args, luts, threads))
+    _check_decode(args, got)
 
 
 def test_inflate_on_card_matches_cpu(dev):
@@ -287,7 +360,7 @@ def test_inflate_on_card_matches_cpu(dev):
     for wire in streams:
         _build.reset_launches()
         got = tpuzlib_torch.inflate(wire, device=dev)
-        assert _build.LAUNCHES["inflate_decode"] == 1
+        assert _build.LAUNCHES["inflate_decode"] == _build.LAUNCHES["inflate_lut"] == 1
         assert got.tobytes() == data.tobytes()
         assert np.array_equal(got, tpuzlib_torch.inflate(wire, device="cpu"))
     raw = _zlib_raw(data, 6)

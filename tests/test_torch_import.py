@@ -171,8 +171,13 @@ def test_wrappers_refuse_other_devices():
         inflate_cuda.cursor_decode(inflate_cuda.DecodeArgs(
             meta(64), meta(inflate_cuda.NCUR, 4), meta(1, inflate_cuda.TB),
             meta(1, inflate_cuda.LE), meta(1, inflate_cuda.DE), 8, 8))
+    with pytest.raises(ValueError):
+        inflate_cuda.decode_luts(inflate_cuda.DecodeArgs(
+            meta(64), meta(inflate_cuda.NCUR, 4), meta(1, inflate_cuda.TB),
+            meta(1, inflate_cuda.LE), meta(1, inflate_cuda.DE), 8, 8))
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_fields",
-                                    "crc32_forms", "crc32_spans", "adler32", "inflate_decode"}
+                                    "crc32_forms", "crc32_spans", "adler32", "inflate_lut",
+                                    "inflate_decode"}
     assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 6
 
 

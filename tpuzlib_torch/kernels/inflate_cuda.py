@@ -14,11 +14,13 @@ not stop at; tok_bp the token's ABSOLUTE bit position, `SENT_BP` in
 unused rows (so a stream must stay below 2^29 bits, as in tpuzlib).
 eob_idx is the row of the cursor's first flagged EOB, or -1.
 
-It runs in two steps: `prepare` builds the per-block tables on the host
-and moves them and the stream words to `device`; `cursor_decode` runs the
-decode.  On a CUDA tensor that launches csrc/inflate_decode.cu (counted
-as `inflate_decode`); on a CPU tensor it runs the plain torch version,
-cursor_tokenize_plain.
+It runs in two steps: `prepare` builds the per-block count tables on the
+host and moves them and the stream words to `device`; `cursor_decode`
+runs the decode.  On CUDA tensors that launches the two kernels of
+csrc/inflate_decode.cu: `inflate_lut` (decode_luts) builds each block's
+primary lookup tables on the card, then `inflate_decode` decodes; on CPU
+tensors it runs the plain torch version, cursor_tokenize_plain.  The
+lookup tables' plain version is decode_luts_plain.
 """
 
 from __future__ import annotations
@@ -47,6 +49,14 @@ TB = 96
 # per-cursor fields, rows of `cur`
 C_SWSTART, C_START, C_STOP, C_AVAIL, C_ACTIVE, C_EXPECT, C_BLOCK = range(7)
 NCUR = 7
+
+# primary lookup tables: a window's first LUT_BITS (lit/len) or DLUT_BITS
+# (distance) bits index them.  10 and 8 bits take nearly every symbol of
+# zlib's dynamic blocks; a miss sends the whole warp through the counting
+# loop, so fewer misses beat smaller tables (10 KiB a block, in L1 and L2)
+LUT_BITS, DLUT_BITS = 10, 8
+LUT_ROWS = (1 << LUT_BITS) + (1 << DLUT_BITS)
+DECODE_THREADS = 64  # threads a block of the decode kernel (a multiple of 32)
 
 _M32 = 0xFFFFFFFF
 
@@ -217,8 +227,8 @@ def cursor_tokenize(buf, starts, stops_dec, block_of, plan, stride_bits, overlap
 # ---------------------------------------------------------------------------
 
 
-def _check(a: DecodeArgs) -> int:
-    """Raise unless the inputs are what the kernel takes; returns K."""
+def _check_tables(a: DecodeArgs) -> int:
+    """Raise unless the inputs have the kernels' types and shapes; returns K."""
     ncur, K = a.cur.shape
     nblk = a.tabs.shape[0]
     _build.check_inputs("inflate_decode", (ncur, K), a.cur)
@@ -229,25 +239,63 @@ def _check(a: DecodeArgs) -> int:
             raise ValueError("inflate_decode: all inputs must lie on one device")
     if ncur != NCUR or a.words.dim() != 1 or nblk < 1 or a.nwp < 8 or a.cap < 1:
         raise ValueError("inflate_decode: malformed inputs")
-    if K and int(a.cur[C_SWSTART].max()) + a.nwp > a.words.numel():
-        raise ValueError("inflate_decode: a cursor's slice runs past the stream words")
     return K
 
 
-def cursor_decode(a: DecodeArgs):
+def _check_slices(a: DecodeArgs) -> None:
+    """Raise unless every cursor's slice lies inside the stream words (a
+    reduction read back to the host: it waits for the card)."""
+    if a.cur.shape[1] and int(a.cur[C_SWSTART].max()) + a.nwp > a.words.numel():
+        raise ValueError("inflate_decode: a cursor's slice runs past the stream words")
+
+
+def _check(a: DecodeArgs) -> int:
+    """_check_tables and _check_slices; returns K."""
+    K = _check_tables(a)
+    _check_slices(a)
+    return K
+
+
+def decode_luts(a: DecodeArgs) -> torch.Tensor:
+    """The primary lookup tables of every block of `a` (decode_luts_plain's
+    result): on CUDA tensors from the `inflate_lut` kernel, on CPU tensors
+    from decode_luts_plain."""
+    if _build.on_cpu(a.tabs):
+        return decode_luts_plain(a.tabs, a.lents, a.dents)
+    _check_tables(a)
+    nblk = a.tabs.shape[0]
+    lut = torch.empty((nblk, LUT_ROWS, 2), dtype=torch.int32, device=a.tabs.device)
+    _build.launch("inflate_lut", "tz_inflate_lut", a.tabs.device, a.tabs.data_ptr(),
+                  a.lents.data_ptr(), a.dents.data_ptr(), nblk, LUT_BITS, DLUT_BITS,
+                  lut.data_ptr())
+    return lut
+
+
+def cursor_decode(a: DecodeArgs, luts: torch.Tensor | None = None,
+                  threads: int = DECODE_THREADS):
     """(tok_pack, tok_bp, cnt, end_pos, status, eob_idx) of the decode,
-    int32 tensors on the inputs' device."""
+    int32 tensors on the inputs' device.  On CUDA tensors: the `inflate_lut`
+    kernel builds the lookup tables unless `luts` (decode_luts of `a`) is
+    given, then the `inflate_decode` kernel runs in blocks of `threads`."""
     if _build.on_cpu(a.cur):
         return cursor_tokenize_plain(a)
-    K = _check(a)
+    K = _check_tables(a)
+    if threads % 32 or not 32 <= threads <= 128:
+        raise ValueError("inflate_decode: threads must be a multiple of 32 from 32 to 128")
     dev = a.cur.device
     tok = torch.empty(K * a.cap, dtype=torch.int32, device=dev)
     bp = torch.empty(K * a.cap, dtype=torch.int32, device=dev)
     fin = torch.empty((4, K), dtype=torch.int32, device=dev)
     if K:
+        luts = decode_luts(a) if luts is None else luts
+        _build.check_inputs("inflate_decode luts", (a.tabs.shape[0], LUT_ROWS, 2), luts)
+        if luts.device != dev:
+            raise ValueError("inflate_decode: all inputs must lie on one device")
+        _check_slices(a)  # last: the card idles from its read-back to the launch
         _build.launch("inflate_decode", "tz_inflate_decode", dev, a.words.data_ptr(),
                       a.cur.data_ptr(), K, a.nwp, a.cap, a.tabs.data_ptr(), a.lents.data_ptr(),
-                      a.dents.data_ptr(), tok.data_ptr(), bp.data_ptr(), fin.data_ptr())
+                      a.dents.data_ptr(), luts.data_ptr(), LUT_BITS, DLUT_BITS, threads,
+                      tok.data_ptr(), bp.data_ptr(), fin.data_ptr())
     return tok, bp, fin[0], fin[1], fin[2], fin[3]
 
 
@@ -272,6 +320,35 @@ def _tree_decode(w, cnt, first, off):
     lc = lsel.clamp(0, 15)[:, None]
     rank = (off.gather(1, lc) + code.gather(1, lc) - first.gather(1, lc))[:, 0]
     return rank, lc[:, 0], ok
+
+
+def decode_luts_plain(tabs: torch.Tensor, lents: torch.Tensor, dents: torch.Tensor,
+                      W: int = LUT_BITS, Wd: int = DLUT_BITS) -> torch.Tensor:
+    """(nblk, 2^W + 2^Wd, 2) int32: for every block, its lit/len table of
+    2^W rows, then its distance table of 2^Wd rows.  Row x holds
+    (ent, L | (L + extra bits of ent) << 8) where the counting decode
+    (_tree_decode) of a window whose first bits are x (first bit lowest)
+    matches a code length L of at most the table's bits, with ent the entry
+    it finds (rank clamped into the entry table); else (0, 0), and the
+    decode counts from length W + 1 (Wd + 1).  The counting match at length
+    L reads only the window's first L bits, so a row holds for every window
+    that starts with x."""
+    t = tabs.to(torch.int64)
+    parts = []
+    for ents, col, bits in ((lents, T_LC, W), (dents, T_DC, Wd)):
+        ln = torch.arange(1, bits + 1, device=tabs.device)
+        code = (_rev16(torch.arange(1 << bits, device=tabs.device))[:, None] >> (16 - ln))[None]
+        cnt, first, off = (t[:, col + c + ln][:, None, :] for c in (0, 16, 32))
+        match = (code >= first) & (code - first < cnt)  # (nblk, 2^bits, bits)
+        lsel = torch.where(match, ln, bits + 1).min(dim=2).values
+        hit = lsel <= bits
+        i = (lsel.clamp(max=bits) - 1)[..., None]
+        pick = lambda x: x.expand_as(match).gather(2, i)[..., 0]  # noqa: E731
+        rank = pick(off) + pick(code) - pick(first)
+        ent = ents.gather(1, rank.clamp(0, ents.shape[1] - 1))
+        lens = lsel | (lsel + ((ent >> 19) & 0xF)) << 8
+        parts.append(torch.stack([torch.where(hit, ent, 0), torch.where(hit, lens, 0).int()], -1))
+    return torch.cat(parts, 1).to(torch.int32).contiguous()
 
 
 def cursor_tokenize_plain(a: DecodeArgs):

@@ -11,7 +11,9 @@ cover what the encoder must handle:
 
 `zlib_stream` compresses with python zlib (levels, strategies, sync
 flushes) and `inflate_streams` makes one raw stream of every block kind
-for the decoder's tests.  `device_deflater_from_numpy` builds a DeviceDeflater from streaming state
+for the decoder's tests; `fibonacci_bytes` gives zlib's Huffman codes
+their longest lengths, and `dynamic_block` writes a block by hand with
+any code lengths, also ones zlib never writes.  `device_deflater_from_numpy` builds a DeviceDeflater from streaming state
 held in numpy, so a stream begun elsewhere can be finished by the port.
 """
 
@@ -22,7 +24,9 @@ import zlib
 import numpy as np
 import torch
 
+from .codec import huffman
 from .codec.bitsink import BitSink
+from .codec.tables import CLC_ORDER, DIST_EXTRA, LENGTH_EXTRA
 from .kernels.deflate_device3 import DeviceDeflater
 
 _LETTERS = np.frombuffer(b"etaoinshrdlcumwfgypbvkjxqz", np.uint8)
@@ -161,6 +165,79 @@ def inflate_streams(n: int = 1 << 16, seed: int = 0) -> dict:
         "hidden stored": (raw(hidden, mem_level=6), hidden),
         "port encoder": (deflate(blend, format="raw", device="cpu"), blend),
     }
+
+
+def fibonacci_bytes(k: int = 24, seed: int = 0) -> np.ndarray:
+    """k distinct byte values, the i-th most frequent F(k - i) times
+    (Fibonacci numbers), shuffled: compressed with zlib.Z_HUFFMAN_ONLY,
+    every block's literal code reaches zlib's longest length, 15 bits."""
+    fib = [1, 1]
+    while len(fib) < k:
+        fib.append(fib[-1] + fib[-2])
+    rng = np.random.default_rng(seed)
+    data = np.repeat(rng.permutation(256)[:k].astype(np.uint8), fib[::-1])
+    rng.shuffle(data)
+    return data
+
+
+def dynamic_block(litlens, distlens, tokens) -> np.ndarray:
+    """A raw DEFLATE stream of one final dynamic block with code lengths
+    `litlens` (257 to 286 of them) and `distlens` (1 to 30), whose header
+    writes every length with a 4-bit code, and then `tokens`: (lit/len
+    symbol, distance symbol) pairs, the distance read only after a length
+    symbol, every extra bit 0; the end of block follows."""
+    litlens, distlens = np.asarray(litlens, np.int64), np.asarray(distlens, np.int64)
+    sink = BitSink()
+    for value, nbits in ((1, 1), (2, 2), (len(litlens) - 257, 5), (len(distlens) - 1, 5),
+                         (15, 4)):  # BFINAL, dynamic, HLIT, HDIST, HCLEN = 19
+        sink.push_scalar(value, nbits)
+    # code-length symbols 0..15 each take 4 bits: symbol L's code is L
+    for sym in CLC_ORDER:
+        sink.push_scalar(4 if sym < 16 else 0, 3)
+    lens = np.concatenate([litlens, distlens])
+    sink.push(huffman._bit_reverse(lens, np.full(len(lens), 4)), np.full(len(lens), 4))
+
+    # the codes as the stream holds them, first bit lowest
+    lrev, drev = (huffman._bit_reverse(huffman.canonical_codes(n), n) for n in (litlens, distlens))
+    for lsym, dsym in [*tokens, (256, 0)]:
+        sink.push_scalar(int(lrev[lsym]), int(litlens[lsym]))
+        if lsym > 256:
+            sink.push_scalar(0, int(LENGTH_EXTRA[lsym - 257]))
+            sink.push_scalar(int(drev[dsym]), int(distlens[dsym]))
+            sink.push_scalar(0, int(DIST_EXTRA[dsym]))
+    return sink.flush(final=True)[0]
+
+
+def hand_made_blocks(seed: int = 0) -> dict:
+    """name -> a raw stream of one dynamic block that zlib would not write,
+    each a valid stream:
+
+      one-bit distance code  a single distance code of one bit (an
+                             incomplete code, which RFC 1951 allows), the
+                             literals at 8 and 9 bits, matches of 3 at
+                             distance 1;
+      15-bit codes           lit/len and distance codes of every length
+                             from 1 to 15 bits, each drawn as often as any
+                             other (more than the tape's six bits a
+                             symbol)."""
+    rng = np.random.default_rng(seed)
+    # 254 literals of 8 bits; literals 254, 255, the EOB and length 3 of 9
+    lit = np.zeros(258, np.int64)
+    lit[:254], lit[254:] = 8, 9
+    toks = [(int(s), 0) for s in rng.integers(0, 256, 400)]
+    for i in rng.choice(np.arange(1, 400), 60, replace=False):
+        toks[i] = (257, 0)
+    one_bit = dynamic_block(lit, [1], toks)
+    # one code of each length 1..14 and two of 15, in each tree: a complete
+    # code; the literal 'a', then lengths and literals alternate
+    lsyms = [97, 257, 98, 258, 99, 259, 100, 260, 101, 261, 102, 262, 103, 256, 0, 285]
+    lit = np.zeros(286, np.int64)
+    lit[lsyms] = list(range(1, 15)) + [15, 15]
+    dist = np.r_[np.arange(1, 15), 15, 15]
+    toks = [(97, 0)] * 260  # history for the longest distance, 257
+    toks += [(lsyms[i], int(d)) for i, d in zip(rng.integers(0, 16, 2000),
+                                               rng.integers(0, 16, 2000)) if lsyms[i] != 256]
+    return {"one-bit distance code": one_bit, "15-bit codes": dynamic_block(lit, dist, toks)}
 
 
 def device_deflater_from_numpy(level, chunk, batch, ctx, ctx_valid, pending,
