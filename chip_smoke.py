@@ -8,9 +8,13 @@ tpuzlib_torch/kernels/csrc, then:
 
   A  holds each kernel against its plain torch version (exact equality)
      at the main path's shapes: the encoder's four at level 6, 256 KiB
-     chunks, batch 8; the checksums' three (CRC-32 per-block forms, CRC-32
-     span forms, Adler-32 block sums) on 256 MiB, the size from which
-     tpuzlib's checksums take the device;
+     chunks, batch 8 (the near screen on the batch's bytes; the far
+     screen's two hash probes updating the near screen's keys in place,
+     every call from the near keys, the copy that restores them timed
+     alone and taken off);
+     the checksums' three (CRC-32 per-block forms, CRC-32 span forms,
+     Adler-32 block sums) on 256 MiB, the size from which tpuzlib's
+     checksums take the device;
   B  runs one full-shape make_encode_batch_v3 batch on the card and on
      the CPU (plain versions) and requires equal words, bits and ok;
   C  compresses 32 MiB of mixed corpus at level 6 in the zlib and the gzip
@@ -46,7 +50,8 @@ Each phase prints one JSON line; then the per-kernel table
 row gives its bound: the larger of the bytes it must move (each input
 read once, each output written once) over the card's memory rate, and a
 floor on its operations (one for each elementary step: a window
-compared, a byte folded, a symbol decoded) over the card's float32 rate
+compared, a byte folded, a symbol decoded; the screens count the window
+compares their exits leave on the batch) over the card's float32 rate
 outside the tensor cores (its table has no integer rate; a higher rate
 only lowers the bound).  No single PyTorch call computes any of these
 functions, so library_ms is null throughout.
@@ -100,6 +105,11 @@ def max_abs_err(a, b) -> int:
     return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0 for x, y in zip(a, b))
 
 
+def after(reset, fn):
+    """fn, run after reset()."""
+    return lambda: (reset(), fn())[1]
+
+
 def first_batch(data: np.ndarray, dev):
     """The first batch of `data` as deflate_device_v3 lays it out."""
     from tpuzlib_torch.kernels.deflate_device3 import batch_arrays
@@ -115,30 +125,36 @@ def phase_a(args) -> dict:
 
     bufs, cv, nv, _ = args
     p = d3.LEVELS_V3[LEVEL]
-    ws = d3.window_words(bufs.reshape(-1))
+    data = bufs.reshape(-1)
     lim16, _, mincand, chid = d3.batch_layout(BATCH, CTX, CHUNK, cv, nv)
-    rows = ws[0].numel()
-    # a window compare is four word compares
+    # a window compare is four word compares; each screen's count is what
+    # its exits leave on this batch
     cases = {
         "near_screen": (
-            lambda: screen.near_screen(*ws, mincand, lim16, p["nd"]),
-            lambda: screen.near_screen_plain(*ws, mincand, lim16, p["nd"]),
+            lambda: screen.near_screen(data, mincand, lim16, p["nd"]),
+            lambda: screen.near_screen_plain(data, mincand, lim16, p["nd"]),
             "tpuzlib_torch/kernels/csrc/screen.cu",
             "tpuzlib/kernels/screen_pallas.py:142",
-            (ws, mincand, lim16), 4 * rows * p["nd"],
+            (data, mincand, lim16), 4 * int(screen.near_trips(data, mincand, lim16, p["nd"]).sum()),
         ),
     }
-    far = []
-    for probe_bytes, bits in d3.PROBES:
-        sh, perm, sws = d3.probe_rows(ws, mincand, chid, probe_bytes, bits)
-        far.append((sh, perm.to(torch.int32), *sws, p["k%d" % probe_bytes]))
+    # both probes update one position-domain key array in place; every
+    # call starts from the near screen's keys, as on the main path.  Each
+    # probe reads and writes the keys once, and a position takes 4 bytes
+    # (the kernel keeps the low word of torch.sort's int64 permutation)
+    ws = d3.window_words(data)
+    probes = [(*d3.probe_rows(ws, mincand, chid, nb, bits), p["k%d" % nb]) for nb, bits in d3.PROBES]
+    near = screen.near_screen(data, mincand, lim16, p["nd"])
+    best, best_plain = near.clone(), near.clone()
     cases["far_screen"] = (
-        lambda: [screen.far_screen(*f) for f in far],
-        lambda: [screen.far_screen_plain(*f) for f in far],
+        lambda: [screen.far_screen(sh, sp, data, best, k) for sh, sp, k in probes],
+        lambda: [screen.far_screen_plain(sh, sp, data, best_plain, k) for sh, sp, k in probes],
         "tpuzlib_torch/kernels/csrc/screen.cu",
         "tpuzlib/kernels/screen_pallas.py:222",
-        far, sum(4 * f[0].numel() * f[-1] for f in far),
+        [(sh, sp.to(torch.int32), data, best) for sh, sp, _ in probes],
+        sum(4 * int(screen.far_trips(sh, sp, data, k).sum()) for sh, sp, k in probes),
     )
+    fresh = {"far_screen": (lambda: best.copy_(near), lambda: best_plain.copy_(near))}
     # a step tape of the parse's shape: mostly literals, some matches, no
     # step crossing a segment
     rng = np.random.default_rng(3)
@@ -164,7 +180,7 @@ def phase_a(args) -> dict:
         "tpuzlib/kernels/deflate_device3.py:338",
         (tok, tables), 2 * tok.numel(),  # two table lookups a token
     )
-    return check_kernels(cases)
+    return check_kernels(cases, fresh=fresh)
 
 
 def phase_a_checksums(big) -> dict:
@@ -192,17 +208,25 @@ def phase_a_checksums(big) -> dict:
     })
 
 
-def check_kernels(cases, phase="A") -> dict:
+def check_kernels(cases, phase="A", fresh=None) -> dict:
     """One row per kernel: its error against its plain version, both
     times and its bound; exits when a kernel differs.  A case is (kernel,
     plain version, source, TPU kernel replaced, the kernel's inputs, its
     operations: a number, or a function of its outputs), and may end with
     the number of timed runs of its plain version (default 10 after 3
     warm-ups; a plain version run fewer times is timed with no warm-up,
-    after the comparison's run).  The phase line adds the card memory the
-    plain version takes at its peak."""
+    after the comparison's run).  `fresh` maps the name of a kernel that
+    updates its inputs in place to two functions that restore them, one
+    run before every call of the kernel, one before every call of its
+    plain version; the first's own time (`fresh_ms`) is taken off both
+    times.  The phase line adds the card memory the plain version takes
+    at its peak."""
     rows = {}
     for name, (kern, plain, src, replaces, inputs, ops, *plain_reps) in cases.items():
+        resets = (fresh or {}).get(name)
+        fresh_ms = cuda_ms(resets[0]) if resets else 0.0
+        if resets:
+            kern, plain = after(resets[0], kern), after(resets[1], plain)
         got = kern()
         torch.cuda.synchronize()
         moved = nbytes(inputs) + nbytes(got)
@@ -214,17 +238,19 @@ def check_kernels(cases, phase="A") -> dict:
         err = max_abs_err(got, want)
         del got, want
         bytes_ms, ops_ms = moved / MEM_RATE * 1e3, ops / OP_RATE * 1e3
-        ms = cuda_ms(kern)
+        ms = cuda_ms(kern) - fresh_ms
         rows[name] = dict(name=name, route="cuda", source=src, replaces=replaces, launches=None,
                           max_abs_err=err, ms=ms,
-                          plain_ms=cuda_ms(plain, *plain_reps, 0) if plain_reps
-                          else cuda_ms(plain),
+                          plain_ms=(cuda_ms(plain, *plain_reps, 0) if plain_reps
+                                    else cuda_ms(plain)) - fresh_ms,
                           bound_ms=max(bytes_ms, ops_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                           library_ms=None, bytes=moved, ops=ops,
                           pct_of_bound=100 * max(bytes_ms, ops_ms) / ms)
         if plain_reps:
             rows[name]["plain_reps"] = plain_reps[0]
+        if resets:
+            rows[name]["fresh_ms"] = fresh_ms
         emit({"phase": phase, **rows[name], "plain_peak_MiB": plain_peak_mib})
         if err != 0:
             raise SystemExit("phase %s: %s differs from its plain version" % (phase, name))

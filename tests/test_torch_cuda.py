@@ -50,35 +50,144 @@ def _launched(kernel, fn, times=1):
 
 
 def _screen_args(total, seed, dev):
-    """Window words, candidate floor and caps for `total` positions of
+    """Bytes, candidate floor and caps for `total` positions of
     low-entropy data, so that most positions have candidates."""
     rng = np.random.default_rng(seed)
     data = np.concatenate([rng.integers(0, 4, total // 2, dtype=np.uint8),
                            testing.corpus("text", total - total // 2, seed)])
     mincand = np.minimum(rng.integers(0, 300, total), np.arange(total)).astype(np.int32)
     lim16 = np.clip(total - np.arange(total), 0, 16).astype(np.int32)
-    ws = d3.window_words(torch.from_numpy(data).to(dev))
-    return ws, torch.from_numpy(mincand).to(dev), torch.from_numpy(lim16).to(dev)
+    return tuple(torch.from_numpy(a).to(dev) for a in (data, mincand, lim16))
+
+
+def _near_equal(data, mincand, lim16, nd):
+    got = _launched("near_screen", lambda: screen.near_screen(data, mincand, lim16, nd))
+    want = screen.near_screen_plain(data, mincand, lim16, nd)
+    assert torch.equal(got, want)
+    return got
+
+
+def _far_equal(data, best, rows, k):
+    """Both versions over the probes' (sorted hash, permutation) rows in
+    turn, each from its own copy of `best`, updated in place."""
+    got, want = best.clone(), best.clone()
+    for sh, perm in rows:
+        assert _launched("far_screen", lambda: screen.far_screen(sh, perm, data, got, k)) is got
+        screen.far_screen_plain(sh, perm, data, want, k)
+    assert torch.equal(got, want)
+    return got
 
 
 @pytest.mark.parametrize("nd", [1, 24, 64])
-@pytest.mark.parametrize("total", [1, 255, 257, 5000])
+@pytest.mark.parametrize("total", [1, 255, 257, 5000, 5001])
 def test_near_screen_kernel_matches_plain(dev, total, nd):
-    ws, mincand, lim16 = _screen_args(total, total + nd, dev)
-    got = _launched("near_screen", lambda: screen.near_screen(*ws, mincand, lim16, nd))
-    assert torch.equal(got, screen.near_screen_plain(*ws, mincand, lim16, nd))
+    _near_equal(*_screen_args(total, total + nd, dev), nd)
+
+
+def _probe_rows(data, mincand, chid):
+    ws = d3.window_words(data)
+    return [d3.probe_rows(ws, mincand, chid, nbytes, bits) for nbytes, bits in d3.PROBES]
 
 
 @pytest.mark.parametrize("k", [1, 6, 48, 64])
-@pytest.mark.parametrize("total", [1, 255, 257, 5000])
+@pytest.mark.parametrize("total", [1, 255, 257, 5000, 5001])
 def test_far_screen_kernel_matches_plain(dev, total, k):
-    ws, mincand, _ = _screen_args(total, total + k, dev)
+    data, mincand, lim16 = _screen_args(total, total + k, dev)
     chid = (torch.arange(total, device=dev) >= total // 2).to(torch.int32)
-    for nbytes, bits in d3.PROBES:
-        sh, perm, sws = d3.probe_rows(ws, mincand, chid, nbytes, bits)
-        args = (sh, perm.to(torch.int32), *sws, k)
-        got = _launched("far_screen", lambda: screen.far_screen(*args))
-        assert torch.equal(got, screen.far_screen_plain(*args))
+    best = screen.near_screen_plain(data, mincand, lim16, 24)
+    _far_equal(data, best, _probe_rows(data, mincand, chid), k)
+
+
+def _offset(x, offset):
+    """x as a view starting `offset` elements into a larger allocation."""
+    buf = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x
+    return buf[offset:]
+
+
+@pytest.mark.parametrize("case", ["all equal", "lim16 < 3", "mincand = p", "unaligned bytes",
+                                  "R does not divide"])
+@pytest.mark.parametrize("nd", [1, 24, 64])
+def test_near_screen_kernel_edges(dev, case, nd):
+    total = 3 * 1024 + 7  # not a multiple of any block's positions or of 4
+    data, mincand, lim16 = _screen_args(total, nd, dev)
+    pos = torch.arange(total, dtype=torch.int32, device=dev)
+    if case == "all equal":
+        data = torch.full_like(data, 9)
+        mincand = torch.zeros_like(mincand)
+    elif case == "lim16 < 3":
+        lim16 = torch.remainder(pos, 3)
+    elif case == "mincand = p":
+        mincand = pos
+    elif case == "unaligned bytes":
+        data = _offset(data, 3)
+    else:
+        data, mincand, lim16 = data[:-2], mincand[:-2], lim16[:-2]
+    got = _near_equal(data, mincand, lim16, nd)
+    if case == "all equal":
+        # a full screen at d = 1 for every position with 16 bytes left
+        assert (got[1 : total - 16] == (16 << 16 | 0xFFFE)).all()
+    if case in ("lim16 < 3", "mincand = p"):
+        assert not got.any()
+
+
+def _bucket(total, positions, dev):
+    """(sorted hash, permutation) rows where `positions` share one hash and
+    every other position has a hash of its own, as probe_rows makes them."""
+    hc = (1 << 28) + torch.arange(total, dtype=torch.int32, device=dev)
+    hc[torch.as_tensor(positions, device=dev)] = 5
+    return torch.sort(hc, stable=True)
+
+
+@pytest.mark.parametrize("case", ["all equal", "long bucket", "gaps of 32768", "16 at j = 1",
+                                  "unaligned bytes", "tail"])
+@pytest.mark.parametrize("k", [1, 6, 48, 64])
+def test_far_screen_kernel_edges(dev, case, k):
+    """The walk's exits (another hash, a gap over 32768, a 16-byte
+    screen) and the windows that run past the end."""
+    total = 70001
+    rng = np.random.default_rng(k)
+    data = torch.from_numpy(rng.integers(0, 256, total, dtype=np.uint8)).to(dev)
+    best = torch.zeros(total, dtype=torch.int32, device=dev)
+    chid = torch.zeros(total, dtype=torch.int32, device=dev)
+    mincand = torch.zeros(total, dtype=torch.int32, device=dev)
+    if case == "all equal":
+        data = torch.full_like(data, 200)
+        rows = _probe_rows(data, mincand, chid)
+    elif case in ("long bucket", "unaligned bytes"):
+        # 200 positions sharing a hash, 3 bytes of a pattern and then noise
+        pos = np.sort(rng.choice(total - 32, 200, replace=False))
+        for i, p in enumerate(pos):
+            data[p : p + 3] = 77
+            data[p + 3 : p + 3 + i % 14] = 78
+        if case == "unaligned bytes":
+            data = _offset(data, 1)
+        rows = [_bucket(total, pos, dev)]
+    elif case == "gaps of 32768":
+        pos = [10, 20, 20 + 32768, 20 + 32768 + 32769, 20 + 2 * 32768 + 5]
+        for p in pos:
+            data[p : p + 20] = 33
+        rows = [_bucket(total, pos, dev)]
+    elif case == "16 at j = 1":
+        pos = [100 * i for i in range(1, 300)]
+        for i, p in enumerate(pos):
+            data[p : p + 16] = 44
+            data[p + 16] = i % 3  # runs of equal 17-byte screens
+        rows = [_bucket(total, pos, dev)]
+    else:
+        # windows within 15 bytes of the end read zeros past it, though the
+        # memory past it holds the same bytes as the last 40
+        data = torch.cat([data, torch.full((64,), 5, dtype=torch.uint8, device=dev)])
+        data[total - 40 :] = 5
+        data = data[:total]
+        pos = list(range(total - 40, total))
+        rows = [_bucket(total, pos, dev)]
+    got = _far_equal(data, best, rows, k)
+    assert got.any()
+    if case == "gaps of 32768":
+        d = 0xFFFF - (got & 0xFFFF)
+        assert int(d[20]) == 10 and int(d[20 + 32768]) == 32768
+        assert int(got[20 + 32768 + 32769]) == 0  # its only candidate is 32769 back
 
 
 @pytest.mark.parametrize("n,n_valid,seg", [
@@ -160,12 +269,25 @@ def test_deflate_and_stream_on_card(dev):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(300, dtype=torch.int32, device=dev)
+    u = torch.zeros(300, dtype=torch.uint8, device=dev)
     with pytest.raises(TypeError):
-        screen.near_screen(x.long(), x, x, x, x, x, 8)
+        screen.near_screen(x, x, x, 8)
+    with pytest.raises(TypeError):
+        screen.near_screen(u, x.long(), x, 8)
     with pytest.raises(ValueError):
-        screen.near_screen(x, x, x, x, x, x, screen.MAX_DEPTH + 1)
+        screen.near_screen(u, x, x, screen.MAX_DEPTH + 1)
     with pytest.raises(ValueError):
-        screen.far_screen(x, x, x, x, x, x[:10], 8)
+        screen.near_screen(u, x, x[:10], 8)
+    with pytest.raises(ValueError):
+        screen.near_screen(u, x.cpu(), x, 8)
+    with pytest.raises(TypeError):
+        screen.far_screen(x, x, u, x, 8)  # positions must be int64
+    with pytest.raises(ValueError):
+        screen.far_screen(x, x.long(), u, x[:10], 8)
+    with pytest.raises(ValueError):
+        screen.far_screen(x, x.long(), u, x, 0)
+    with pytest.raises(ValueError):
+        screen.far_screen(x, x.long(), u[::2], x[:150], 8)
     with pytest.raises(ValueError):
         parse.segment_parse(x[::2], 150)
     with pytest.raises(ValueError):
@@ -190,6 +312,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         inflate_cuda.cursor_decode(args, luts[:, :-1].contiguous())
     with pytest.raises(TypeError):
         inflate_cuda.cursor_decode(args, luts.long())
+
+
+def test_far_screen_kernel_skips_positions_outside_the_batch(dev):
+    """A permutation with two entries out of range reads no byte and
+    writes no key outside the batch; every other row keeps its key."""
+    total = 5000
+    data, mincand, lim16 = _screen_args(total, 7, dev)
+    data = torch.full_like(data, 3)  # every row of a bucket screens 16
+    sh = torch.full((total,), 9, dtype=torch.int32, device=dev)
+    sp = torch.arange(total, dtype=torch.int64, device=dev)
+    sp[[100, 4000]] = torch.tensor([-5, total + 7], device=dev)
+    guard = torch.zeros(total + 64, dtype=torch.int32, device=dev)
+    best = guard[:total]
+    _launched("far_screen", lambda: screen.far_screen(sh, sp, data, best, 6))
+    assert not guard[total:].any()
+    keep = torch.ones(total, dtype=torch.bool, device=dev)
+    keep[[0, 100, 101, 4000, 4001]] = False  # no predecessor in range, or out of range
+    keep[total - 15 :] = False  # windows that run past the end
+    assert (best[keep] == (16 << 16 | 0xFFFE)).all()
 
 
 def _bytes_at(n, offset, dev):

@@ -158,10 +158,11 @@ def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors; for any
     device it has no kernel for, it raises rather than falling back."""
     m = torch.zeros(16, dtype=torch.int32, device="meta")
+    b = torch.zeros(16, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
-        screen.near_screen(m, m, m, m, m, m, 8)
+        screen.near_screen(b, m, m, 8)
     with pytest.raises(ValueError):
-        screen.far_screen(m, m, m, m, m, m, 8)
+        screen.far_screen(m, m.long(), b, m, 8)
     with pytest.raises(ValueError):
         parse.segment_parse(m, 16)
     with pytest.raises(ValueError):

@@ -34,7 +34,7 @@ SPAN = jscreen.TR * 128  # positions per Pallas screen tile
 
 def _eq(jax_out, torch_out):
     a = np.asarray(jax_out).astype(np.int64)
-    b = torch_out.numpy().astype(np.int64)
+    b = np.asarray(torch_out).astype(np.int64)
     assert a.shape == b.shape
     bad = np.flatnonzero(a.reshape(-1) != b.reshape(-1))
     assert bad.size == 0, (bad[:5], a.reshape(-1)[bad[:5]], b.reshape(-1)[bad[:5]])
@@ -62,13 +62,19 @@ def _screen_input(total, seed):
     return data, mincand, lim16
 
 
+def _near_both(data, mincand, lim16, nd):
+    """tpuzlib's near screen on windows of `data`, and the port's on its
+    bytes."""
+    jws, _ = _windows(data)
+    want = jscreen.near_screen(jax, jnp, *jws, jnp.asarray(mincand), jnp.asarray(lim16), nd)
+    got = tscreen.near_screen(*(torch.from_numpy(a) for a in (data, mincand, lim16)), nd)
+    return want, got
+
+
 @pytest.mark.parametrize("level", [1, 6, 9])
 def test_near_screen_plain_matches_pallas(level):
     nd = jd3.LEVELS_V3[level]["nd"]
-    data, mincand, lim16 = _screen_input(SPAN + 4 * 128, level)
-    jws, tws = _windows(data)
-    want = jscreen.near_screen(jax, jnp, *jws, jnp.asarray(mincand), jnp.asarray(lim16), nd)
-    got = tscreen.near_screen(*tws, torch.from_numpy(mincand), torch.from_numpy(lim16), nd)
+    want, got = _near_both(*_screen_input(SPAN + 4 * 128, level), nd)
     _eq(want, got)
     assert (got.numpy() > 0).mean() > 0.02
 
@@ -80,41 +86,147 @@ def test_near_screen_tile_boundary():
     data[SPAN - 30 : SPAN + 30] = np.tile(np.asarray([7, 11, 13], np.uint8), 20)
     mincand = np.zeros(total, np.int32)
     lim16 = np.clip(total - np.arange(total), 0, 16).astype(np.int32)
-    jws, tws = _windows(data)
-    want = jscreen.near_screen(jax, jnp, *jws, jnp.asarray(mincand), jnp.asarray(lim16), 8)
-    got = tscreen.near_screen(*tws, torch.from_numpy(mincand), torch.from_numpy(lim16), 8)
+    want, got = _near_both(data, mincand, lim16, 8)
     _eq(want, got)
     key = got.numpy()[SPAN - 2 : SPAN + 20]
     assert ((key >> 16) >= 3).all() and (0xFFFF - (key & 0xFFFF) == 3).all()
 
 
+def _screen16(pad, p, q):
+    """Common prefix (0..16) of the windows at p and q of zero-padded bytes."""
+    ne = np.flatnonzero(pad[p : p + 16] != pad[q : q + 16])
+    return int(ne[0]) if ne.size else 16
+
+
+@pytest.mark.parametrize("nd", [8, 24])
+def test_near_walk_with_exits_matches_pallas(nd):
+    """The near kernel's walk, nearest candidate first, stopping past
+    mincand and at the first screen that reaches lim16, finds tpuzlib's
+    keys; near_trips counts its compares."""
+    total = 3000
+    data, mincand, lim16 = _screen_input(total, nd)
+    data[2000:2100] = 9  # a run: every screen reaches its cap at d = 1
+    lim16[1000:1100] = np.arange(100) % 4  # caps below and at MIN_MATCH
+    pad = np.concatenate([data, np.zeros(16, np.uint8)])
+    keys, trips = np.zeros(total, np.int64), np.zeros(total, np.int64)
+    for p in range(total):
+        for d in range(1, nd + 1):
+            if lim16[p] < 3 or d > p - mincand[p]:
+                break
+            trips[p] += 1
+            sc = min(_screen16(pad, p, p - d), lim16[p])
+            if sc >= 3:
+                keys[p] = max(keys[p], sc << 16 | (0xFFFF - d))
+            if sc == lim16[p]:
+                break
+    want, got = _near_both(data, mincand, lim16, nd)
+    _eq(want, got)
+    _eq(keys, got)
+    args = (torch.from_numpy(a) for a in (data, mincand, lim16))
+    _eq(trips, tscreen.near_trips(*args, nd))
+    assert 0 < trips.mean() < nd
+
+
+def _far_both(data, best, rows, k):
+    """tpuzlib's far screen over the port's sorted rows, its keys
+    scattered into a copy of `best` with a max in numpy, and the port's,
+    updated in place; probe after probe."""
+    jws, _ = _windows(data)
+    want, got = best.copy(), torch.from_numpy(best.copy())
+    for sh, perm in rows:
+        sp = perm.numpy()
+        keys = jscreen.far_screen(jax, jnp, jnp.asarray(sh.numpy()),
+                                  jnp.asarray(sp.astype(np.int32)), *(w[sp] for w in jws), k)
+        want[sp] = np.maximum(want[sp], np.asarray(keys))
+        assert tscreen.far_screen(sh, perm, torch.from_numpy(data), got, k) is got
+    return want, got
+
+
 @pytest.mark.parametrize("level", [1, 6, 9])
 def test_far_screen_plain_matches_pallas(level):
-    """Both hash probes of a level: the port sorts, both packages screen
-    the same sorted rows."""
-    data, mincand, _ = _screen_input(SPAN + 3 * 128, 10 + level)
-    _, tws = _windows(data)
+    """Both hash probes of a level, from the near screen's keys: the port
+    sorts, both packages screen the same sorted rows."""
+    data, mincand, lim16 = _screen_input(SPAN + 3 * 128, 10 + level)
+    tdata, tmin = torch.from_numpy(data), torch.from_numpy(mincand)
     chid = torch.from_numpy((np.arange(len(data)) >= len(data) // 2).astype(np.int32))
-    for nbytes, bits in td3.PROBES:
-        k = jd3.LEVELS_V3[level]["k%d" % nbytes]
-        if not k:
-            continue
-        sh, perm, sws = td3.probe_rows(tws, torch.from_numpy(mincand), chid, nbytes, bits)
-        sp = perm.to(torch.int32)
-        jargs = [jnp.asarray(sh.numpy()), jnp.asarray(sp.numpy())] + [
-            jnp.asarray(w.numpy().view(np.uint32)) for w in sws
-        ]
-        want = jscreen.far_screen(jax, jnp, *jargs, k)
-        got = tscreen.far_screen(sh, sp, *sws, k)
+    ws = td3.window_words(tdata)
+    rows = [td3.probe_rows(ws, tmin, chid, nbytes, bits) for nbytes, bits in td3.PROBES
+            if jd3.LEVELS_V3[level]["k%d" % nbytes]]
+    best = tscreen.near_screen(tdata, tmin, torch.from_numpy(lim16), jd3.LEVELS_V3[level]["nd"])
+    for (sh, perm), nbytes in zip(rows, (4, 6)):
+        want, got = _far_both(data, best.numpy(), [(sh, perm)], jd3.LEVELS_V3[level]["k%d" % nbytes])
         _eq(want, got)
-        assert (got.numpy() > 0).any()
+        assert (got > best).any()  # the probe found keys the near band did not
+
+
+def _far_case(case, total=70001, seed=0):
+    """Bytes and one hash bucket (the positions that share a hash; every
+    other position has a sentinel hash of its own, as probe_rows gives
+    invalid positions) that drive the far walk's exits."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, total, dtype=np.uint8)
+    if case == "long bucket":
+        pos = np.sort(rng.choice(total - 32, 200, replace=False))
+        for i, p in enumerate(pos):
+            data[p : p + 3] = 77
+            data[p + 3 : p + 3 + i % 14] = 78
+    elif case == "gaps of 32768":
+        pos = np.asarray([10, 20, 20 + 32768, 20 + 32768 + 32769, 20 + 2 * 32768 + 5])
+        for p in pos:
+            data[p : p + 20] = 33
+    elif case == "16 at j = 1":
+        pos = 100 * np.arange(1, 300)
+        for i, p in enumerate(pos):
+            data[p : p + 16] = 44
+            data[p + 16] = i % 3
+    else:  # the last 15 positions and those before them
+        data[-40:] = 5
+        pos = np.arange(total - 40, total)
+    hc = (1 << 28) + np.arange(total, dtype=np.int32)
+    hc[pos] = 5
+    return data, torch.sort(torch.from_numpy(hc), stable=True)
+
+
+@pytest.mark.parametrize("case", ["long bucket", "gaps of 32768", "16 at j = 1", "tail"])
+def test_far_screen_edges_match_pallas(case):
+    """A bucket longer than k, gaps of 32768 and 32769, screens of 16 at
+    j = 1 and windows that run past the end: the port's plain version and
+    the far kernel's walk with its three exits (another hash, a gap over
+    32768, a 16-byte screen) give tpuzlib's keys; far_trips counts the
+    walk's compares."""
+    k = 24
+    data, (sh, perm) = _far_case(case)
+    best = np.zeros(len(data), np.int32)
+    want, got = _far_both(data, best, [(sh, perm)], k)
+    _eq(want, got)
+    pad = np.concatenate([data, np.zeros(16, np.uint8)])
+    h, sp = sh.numpy(), perm.numpy()
+    walk, trips = np.zeros(len(data), np.int64), np.zeros(len(data), np.int64)
+    for i in np.flatnonzero(h == 5):
+        for j in range(1, k + 1):
+            d = sp[i] - sp[i - j]
+            if i < j or h[i - j] != h[i] or d > 32768:
+                break
+            trips[i] += 1
+            sc = _screen16(pad, sp[i], sp[i - j])
+            if sc >= 3:
+                walk[sp[i]] = max(walk[sp[i]], sc << 16 | (0xFFFF - d))
+            if sc == 16:
+                break
+    _eq(want, walk)
+    _eq(trips, tscreen.far_trips(sh, perm, torch.from_numpy(data), k))
+    assert want.any()
+    if case == "gaps of 32768":
+        assert list(trips[h == 5]) == [0, 1, 1, 0, 1]
+    if case == "long bucket":
+        assert trips.max() == k
 
 
 @pytest.mark.parametrize("B", [1, 3])
 def test_screen_inputs_are_what_the_kernels_take(B):
     """On the card the screen wrappers take only contiguous int32 arrays of
-    the flat batch's length; a batch of one chunk is the case where a view
-    would not be."""
+    the flat batch's length (and its bytes); a batch of one chunk is the
+    case where a view would not be."""
     N = 1024
     data = torch.from_numpy(testing.corpus("text", B * (tdd.CTX + N), B))
     cv = torch.full((B,), 100, dtype=torch.int32)

@@ -35,8 +35,8 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream are c_void_p);
 # each returns a cudaError_t as int
 _ARGTYPES = {
-    "tz_near_screen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "tz_far_screen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tz_near_screen": [_P, _P, _P, _P, _I, _I, _P],
+    "tz_far_screen": [_P, _P, _P, _P, _I, _I, _P],
     "tz_segment_parse": [_P, _P, _I, _I, _I, _P],
     "tz_pack_fields": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
@@ -98,17 +98,18 @@ def on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def check_inputs(name: str, shape: tuple, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor has `shape`, is int32, contiguous and on
-    the first tensor's device."""
-    device = tensors[0].device
+def check_inputs(name: str, shape: tuple, *tensors: torch.Tensor, dtype=torch.int32,
+                 device=None) -> None:
+    """Raise unless every tensor has `shape`, is of `dtype` (int32),
+    contiguous and on `device` (the first tensor's)."""
+    device = tensors[0].device if device is None else device
     for t in tensors:
         if tuple(t.shape) != tuple(shape):
             raise ValueError("%s: expected shape %s, got %s" % (name, tuple(shape), tuple(t.shape)))
         if t.device != device:
             raise ValueError("%s: tensors must share one device (%s vs %s)" % (name, t.device, device))
-        if t.dtype != torch.int32:
-            raise TypeError("%s: expected int32 tensors, got %s" % (name, t.dtype))
+        if t.dtype != dtype:
+            raise TypeError("%s: expected %s tensors, got %s" % (name, dtype, t.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: tensors must be contiguous" % name)
 

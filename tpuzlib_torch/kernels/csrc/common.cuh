@@ -8,20 +8,14 @@ namespace tz {
 
 constexpr int kMinMatch = 3;
 
-// Trailing zero BYTES of x (4 when x == 0).
-__device__ __forceinline__ int ctz_bytes(uint32_t x) {
-  return x ? (__ffs(static_cast<int>(x)) - 1) >> 3 : 4;
-}
-
-// Common prefix length in bytes (0..16) of two little-endian 16-byte windows.
+// Common prefix length in bytes (0..16) of two little-endian 16-byte
+// windows, without a branch: the first word that differs, and its
+// trailing zero bits.
 __device__ __forceinline__ int prefix16(uint4 a, uint4 b) {
-  uint32_t x = a.x ^ b.x;
-  if (x) return ctz_bytes(x);
-  x = a.y ^ b.y;
-  if (x) return 4 + ctz_bytes(x);
-  x = a.z ^ b.z;
-  if (x) return 8 + ctz_bytes(x);
-  return 12 + ctz_bytes(a.w ^ b.w);
+  const uint32_t x0 = a.x ^ b.x, x1 = a.y ^ b.y, x2 = a.z ^ b.z, x3 = a.w ^ b.w;
+  const uint32_t x = x0 ? x0 : x1 ? x1 : x2 ? x2 : x3;
+  const int at = x0 ? 0 : x1 ? 32 : x2 ? 64 : 96;
+  return (at + __clz(__brev(x))) >> 3;  // 16 when all four words are equal
 }
 
 // Best-match key: a longer screen wins, then a closer distance.

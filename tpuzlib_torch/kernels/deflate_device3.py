@@ -5,10 +5,11 @@ Counterpart of tpuzlib/kernels/deflate_device3.py.  The function that
 trees included, and gives (words, total_bits, ok) with the same values
 as tpuzlib's program on the same input:
 
-  1. match search over the flat batch: the near-band screen and two
-     hash-probe screens (stable sort by chunk-tagged hash, far screen,
-     scatter back to position order), then the d-chain recurrence and the
-     residual extension of chain-broken >= 16-byte matches;
+  1. match search over the flat batch's bytes: the near-band screen and
+     two hash-probe screens (stable sort by chunk-tagged hash, then the
+     far screen, which writes each row's key back by position in place),
+     then the d-chain recurrence and the residual extension of
+     chain-broken >= 16-byte matches;
   2. the lazy rule, the SEG-forced token breaks and the segment parse;
   3. token compaction to (B, T_CAP), histograms, package-merge trees,
      canonical codes and the RLE'd dynamic header;
@@ -29,10 +30,10 @@ from ..codec.bitsink import BitSink
 from ..codec.tables import CLC_ORDER, LEVELS, MAX_MATCH, MIN_MATCH, TOO_FAR, WINDOW_SIZE
 from ..common import u8_view
 from . import _build
-from .deflate_device import CTX, SEG, _build_w32, _push_words, sym_fields_v2
+from .deflate_device import CTX, SEG, _push_words, sym_fields_v2
 from .huffman_device import canonical_codes_device, package_merge_device
 from .parse import segment_parse
-from .screen import _prefix16, far_screen, near_screen
+from .screen import _prefix16, far_screen, near_screen, window_words
 
 # per-level knobs: near-band depth, 4-byte probe depth, 6-byte probe depth
 LEVELS_V3 = {
@@ -77,25 +78,16 @@ def _hash_k(w0: torch.Tensor, w1: torch.Tensor, nbytes: int, bits: int) -> torch
 PROBES = ((4, 16), (6, 18))
 
 
-def window_words(data: torch.Tensor):
-    """(w0, w1, w2, w3): the int32 words at +0, +4, +8, +12 bytes of every
-    position, so that together they hold its 16-byte window."""
-    w0 = _build_w32(data)
-    n = w0.shape[0]
-    return (w0, *(torch.cat([w0[o:], w0.new_zeros(min(o, n))]) for o in (4, 8, 12)))
-
-
 def probe_rows(ws, mincand, chid, nbytes: int, bits: int):
-    """The far screen's input for one hash probe: the positions stably
-    sorted by chunk-tagged hash.  Returns (sorted hash, permutation, the
-    four window words in sorted order)."""
+    """The far screen's rows for one hash probe: the positions stably
+    sorted by chunk-tagged hash.  Returns (sorted hash int32, permutation
+    int64)."""
     pos = torch.arange(ws[0].shape[0], dtype=torch.int32, device=ws[0].device)
     # invalid candidate positions (unfilled context) take a unique sentinel
     # hash: they never match, so the far screen needs no validity input
     hc = torch.where(pos >= mincand, _hash_k(ws[0], ws[1], nbytes, bits) | (chid << bits),
                      (1 << 28) + pos)
-    sh, perm = torch.sort(hc, stable=True)
-    return sh, perm, [w[perm] for w in ws]
+    return torch.sort(hc, stable=True)
 
 
 def match_lengths_v3(data, lim16, limit, mincand, chid, level: int):
@@ -106,27 +98,27 @@ def match_lengths_v3(data, lim16, limit, mincand, chid, level: int):
     per-position chunk id.  Returns (length, dist) int32 arrays over all
     positions."""
     params = LEVELS_V3[level]
-    total = data.shape[0]
-    dev = data.device
+    ws = window_words(data)
+    best = near_screen(data, mincand, lim16, params["nd"])
+    for nbytes, bits in PROBES:
+        k = params["k%d" % nbytes]
+        if k:
+            sh, perm = probe_rows(ws, mincand, chid, nbytes, bits)
+            far_screen(sh, perm, data, best, k)  # in place, by position
+    return lengths_from_keys(best, ws, lim16, limit, chid)
+
+
+def lengths_from_keys(best, ws, lim16, limit, chid):
+    """(length, dist) from the screens' best keys by position: the d-chain
+    recurrence over 16-byte links and the residual extension of
+    chain-broken >= 16-byte matches."""
+    total = best.shape[0]
+    dev = best.device
 
     def zeros(n):
         return torch.zeros(n, dtype=torch.int32, device=dev)
 
-    ws = window_words(data)
     pos = torch.arange(total, dtype=torch.int32, device=dev)
-    best = near_screen(*ws, mincand, lim16, params["nd"])
-
-    for nbytes, bits in PROBES:
-        k = params["k%d" % nbytes]
-        if not k:
-            continue
-        sh, perm, sws = probe_rows(ws, mincand, chid, nbytes, bits)
-        fkeys = far_screen(sh, perm.to(torch.int32), *sws, k)
-        # perm is a permutation: one scatter returns the keys to position order
-        fpos = torch.empty_like(fkeys)
-        fpos[perm] = fkeys
-        best = torch.maximum(best, fpos)
-
     sc = torch.minimum(best >> 16, lim16)
     d = torch.where((best > 0) & (sc >= MIN_MATCH), 0xFFFF - (best & 0xFFFF), 0)
     sc = torch.where(d > 0, sc, 0)
