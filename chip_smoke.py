@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero at once without
-a card, and on any failed check.  It builds the nine kernels from
+a card, and on any failed check.  It builds the kernels from
 tpuzlib_torch/kernels/csrc, then:
 
   A  holds each kernel against its plain torch version (exact equality)
@@ -11,7 +11,10 @@ tpuzlib_torch/kernels/csrc, then:
      chunks, batch 8 (the near screen on the batch's bytes; the far
      screen's two hash probes updating the near screen's keys in place,
      every call from the near keys, the copy that restores them timed
-     alone and taken off);
+     alone and taken off; the segment parse on the batch's own step tape,
+     whose walks the "A parse tape" line measures; pack_words, the token
+     fields and the bit pack into words, from the batch's compacted
+     tokens, tables and header);
      the checksums' three (CRC-32 per-block forms, CRC-32 span forms,
      Adler-32 block sums) on 256 MiB, the size from which tpuzlib's
      checksums take the device;
@@ -155,13 +158,13 @@ def phase_a(args) -> dict:
         sum(4 * int(screen.far_trips(sh, sp, data, k).sum()) for sh, sp, k in probes),
     )
     fresh = {"far_screen": (lambda: best.copy_(near), lambda: best_plain.copy_(near))}
-    # a step tape of the parse's shape: mostly literals, some matches, no
-    # step crossing a segment
-    rng = np.random.default_rng(3)
-    n = BATCH * CHUNK
-    room = SEG - np.arange(n) % SEG
-    step = np.where(rng.random(n) < 0.7, 1, rng.integers(3, 259, n))
-    step = torch.from_numpy(np.minimum(step, room).astype(np.int32)).to(bufs.device)
+    # the path's own step tape for this batch: the parse's input in the encoder
+    _, step, _ = d3.parse_tape(BATCH, CTX, CHUNK, bufs, cv, nv, LEVEL)
+    step = step.reshape(-1)
+    n = step.numel()
+    walks = segment_parse_xla(step, n).reshape(-1, SEG).sum(1)  # chain steps a segment
+    emit({"phase": "A parse tape", "segments": walks.numel(), "mean_walk": float(walks.float().mean()),
+          "longest_walk": int(walks.max()), "walks_of_1000_or_more": int((walks >= 1000).sum())})
     cases["segment_parse"] = (
         lambda: parse.segment_parse(step, n),
         lambda: segment_parse_xla(step, n),
@@ -169,18 +172,30 @@ def phase_a(args) -> dict:
         "tpuzlib/kernels/parse_pallas.py:44",
         (step,), n,
     )
+    # the fields and the bit pack from the first batch's compacted tokens:
+    # the bound counts 4 B a token up to each row's EOB, the tables, the
+    # header, and the words and total_bits as the encoder returns them
     ow = d3.out_words_for(CHUNK)
-    tok, _, _ = d3.make_encode_batch_v3(LEVEL, CHUNK, BATCH, ow, stage="compact")(*args)
-    ll, dl, lcodes, dcodes = d3.make_encode_batch_v3(LEVEL, CHUNK, BATCH, ow, stage="trees")(*args)
-    tables = (lcodes.int(), ll, dcodes.int().contiguous(), dl.contiguous())
-    cases["pack_fields"] = (
-        lambda: d3.pack_fields(tok, *tables),
-        lambda: d3.pack_fields_plain(tok, *tables),
+    enc = functools.partial(d3.make_encode_batch_v3, LEVEL, CHUNK, BATCH, ow)
+    tok, M, _ = enc(stage="compact")(*args)
+    ll, dl, lcodes, dcodes = enc(stage="trees")(*args)
+    hdr_vals, hdr_bits, _ = enc(stage="header")(*args)
+    eob_at = torch.clamp(M.long(), max=tok.shape[1] - 1)
+    rest = (lcodes.int(), ll, dcodes.int().contiguous(), dl.contiguous(), eob_at, hdr_vals,
+            hdr_bits, args[3])
+    tokens = int((eob_at + 1).sum())
+    cases["pack_words"] = (
+        lambda: d3.pack_words(tok, *rest, ow),
+        lambda: d3.pack_words_plain(tok, *rest, ow),
         "tpuzlib_torch/kernels/csrc/pack_fields.cu",
         "tpuzlib/kernels/deflate_device3.py:338",
-        (tok, tables), 2 * tok.numel(),  # two table lookups a token
+        lambda got: 4 * tokens + nbytes(rest) + nbytes(got), 2 * tokens,  # two table lookups a token
     )
-    return check_kernels(cases, fresh=fresh)
+    rows = check_kernels(cases, fresh=fresh)
+    rows["pack_words"]["also_replaces"] = ("tpuzlib/kernels/deflate_device3.py:670-700, the bit"
+                                           " pack that tpuzlib runs in XLA")
+    rows["pack_words"]["tokens"] = tokens
+    return rows
 
 
 def phase_a_checksums(big) -> dict:
@@ -211,7 +226,8 @@ def phase_a_checksums(big) -> dict:
 def check_kernels(cases, phase="A", fresh=None) -> dict:
     """One row per kernel: its error against its plain version, both
     times and its bound; exits when a kernel differs.  A case is (kernel,
-    plain version, source, TPU kernel replaced, the kernel's inputs, its
+    plain version, source, TPU kernel replaced, the kernel's inputs, or a
+    function of its outputs that gives the bytes it must move, its
     operations: a number, or a function of its outputs), and may end with
     the number of timed runs of its plain version (default 10 after 3
     warm-ups; a plain version run fewer times is timed with no warm-up,
@@ -229,7 +245,7 @@ def check_kernels(cases, phase="A", fresh=None) -> dict:
             kern, plain = after(resets[0], kern), after(resets[1], plain)
         got = kern()
         torch.cuda.synchronize()
-        moved = nbytes(inputs) + nbytes(got)
+        moved = inputs(got) if callable(inputs) else nbytes(inputs) + nbytes(got)
         ops = ops(got) if callable(ops) else ops
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -638,7 +654,7 @@ def phase_g3(corpus, raw6: np.ndarray, reps: int = 3) -> None:
             M, kcnt = int(M_r), kcnt_t.cpu().numpy()[: lay.K]
         else:
             ends = d2.fast_block_ends(lay, meta_np)
-        ins, tail = piece("gap walk", lambda: d2.walk_blocks(raw6, lay, ends))
+        ins, tail, _ = piece("gap walk", lambda: d2.walk_blocks(raw6, lay, ends))
         parts = d2.token_pieces(lay, M, kcnt, ins, tail, bridges)
         comph = piece("compacted-tape pull", lambda: comp[:M].cpu().numpy().view(np.uint32))
         host = piece("host expansion (token assembly + native expand)",

@@ -141,12 +141,12 @@ def turns(old, new, new_less=(0.0, 0.0)) -> dict:
             "new_host_ms": [host[1] - new_less[1], host[2] - new_less[1]]}
 
 
-def patched(text: str, patches, name: str) -> str:
-    """Compile this checkout's screen.cu with `patches` applied, as
-    probes/_build/lib<name>.so."""
+def patched(text: str, patches, name: str, source: str = "screen.cu") -> subprocess.Popen:
+    """Compile `text`, this checkout's `source` (in its csrc/), with
+    `patches` applied, as probes/_build/lib<name>.so."""
     for old, new in patches:
         if old not in text:
-            raise SystemExit("screen_breakdown: %r no longer in screen.cu" % old)
+            raise SystemExit("%r no longer in %s" % (old, source))
         text = text.replace(old, new)
     path = os.path.join(OUT, name + ".cu")
     with open(path, "w") as f:

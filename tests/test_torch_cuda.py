@@ -204,8 +204,57 @@ def test_segment_parse_kernel_matches_plain(dev, n, n_valid, seg):
     assert torch.equal(got, segment_parse_xla(step, n_valid, seg))
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (3, 1000), (8, 4096)])
+def _segment_tape(case, n, seg, seed):
+    """A step tape of n positions whose steps end at or before their
+    segment's end."""
+    rng = np.random.default_rng(seed)
+    room = seg - np.arange(n) % seg
+    if case == "literals":  # every segment a walk of seg steps
+        step = np.ones(n)
+    elif case == "jumps over spans":  # steps of up to 258 over spans of seg / 32
+        step = np.where(rng.random(n) < 0.2, 1, rng.integers(seg // 32 + 1, 259, n))
+    elif case == "steps to the room left":
+        step = np.where(rng.random(n) < 0.5, room, 1)
+    else:
+        step = np.where(rng.random(n) < 0.6, 1, rng.integers(3, 259, n))
+    return np.minimum(step, room).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["literals", "jumps over spans", "steps to the room left", "mixed",
+                                  "mixed, tape not 16-byte aligned"])
+@pytest.mark.parametrize("seg", [1, 64, 1024, 8192])
+def test_segment_parse_kernel_tapes(dev, case, seg):
+    """n not a multiple of seg, and n_valid inside a segment."""
+    n = 3 * seg + seg // 3 + 1
+    n_valid = n - seg // 2 - 1
+    step = torch.from_numpy(_segment_tape(case, n, seg, seg)).to(dev)
+    if case.endswith("aligned"):
+        step = _offset(step, 1)  # 4-byte loads and 1-byte stores
+    got = _launched("segment_parse", lambda: parse.segment_parse(step, n_valid, seg))
+    assert torch.equal(got, segment_parse_xla(step, n_valid, seg))
+    if case == "literals":
+        assert got[:n_valid].all() and not got[n_valid:].any()
+
+
+def test_segment_parse_kernel_on_the_paths_tape(dev):
+    """The encoder's own step tape for one small batch."""
+    chunk, batch = 16 * KB, 4
+    args = [torch.from_numpy(a).to(dev) for a in d3.batch_arrays(_mixed_stream(), range(batch),
+                                                                 chunk, batch)]
+    _, step, _ = d3.parse_tape(batch, d3.CTX, chunk, args[0], args[1], args[2], 6)
+    step = step.reshape(-1).contiguous()
+    got = _launched("segment_parse", lambda: parse.segment_parse(step, step.numel()))
+    assert torch.equal(got, segment_parse_xla(step, step.numel()))
+
+
+def _pack_on(dev, arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 1000), (2, 1001), (8, 4096)])
 def test_pack_fields_kernel_matches_plain(dev, B, T):
+    """pack_words (fields and words) on random tokens, every slot up to
+    the last one a token."""
     rng = np.random.default_rng(B * T)
     litlen = rng.integers(0, 512, (B, T))
     is_match = rng.random((B, T)) < 0.5
@@ -216,10 +265,32 @@ def test_pack_fields_kernel_matches_plain(dev, B, T):
     dbits = rng.integers(0, 16, (B, 30))
     lcodes = rng.integers(0, 1 << 15, (B, 286)) & ((1 << lbits) - 1)
     dcodes = rng.integers(0, 1 << 15, (B, 30)) & ((1 << dbits) - 1)
+    hdr_bits = rng.integers(0, 15, (B, d3.HDRF))
+    hdr_vals = rng.integers(0, 1 << 14, (B, d3.HDRF)) & ((1 << hdr_bits) - 1)
     args = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (tok, lcodes, lbits, dcodes, dbits)]
-    got = _launched("pack_fields", lambda: d3.pack_fields(*args))
-    for g, w in zip(got, d3.pack_fields_plain(*args)):
-        assert torch.equal(g, w)
+    args += _pack_on(dev, (np.full(B, T - 1, np.int64), hdr_vals.astype(np.int64),
+                           hdr_bits.astype(np.int64), rng.integers(0, 2, B).astype(np.int32)))
+    out_words = (48 * T + 15 * d3.HDRF) // 32 + 4
+    got = _launched("pack_words", lambda: d3.pack_words(*args, out_words))
+    for g, w in zip(got, d3.pack_words_plain(*args, out_words)):
+        assert g.dtype == torch.int64 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", sorted(testing.PACK_CASES))
+def test_pack_words_kernel_cases(dev, case):
+    """Rows whose EOB sits at the last slot, an empty row, lasts 0 and 1,
+    a row past its output cap (its total_bits and ok equal, its words
+    compared where ok, as the encoder's caller reads them), 48-bit fields
+    and a row of two tiles."""
+    arrays, out_words = testing.pack_words_inputs(case)
+    args = _pack_on(dev, arrays)
+    words, total_bits = _launched("pack_words", lambda: d3.pack_words(*args, out_words))
+    want_words, want_total = d3.pack_words_plain(*args, out_words)
+    assert torch.equal(total_bits, want_total)
+    ok = total_bits <= out_words * 32 - 64
+    assert torch.equal(words[ok], want_words[ok])
+    if case == "past the output cap":
+        assert not ok.all() and ok.any()
 
 
 def _mixed_stream():
@@ -239,7 +310,7 @@ def test_encode_batch_on_card_matches_cpu(dev, level):
     cw, cb, cok = enc(*(torch.from_numpy(a) for a in args))
     _build.reset_launches()
     gw, gb, gok = (t.cpu() for t in enc(*(torch.from_numpy(a).to(dev) for a in args)))
-    assert all(_build.LAUNCHES[k] for k in ("near_screen", "far_screen", "segment_parse", "pack_fields"))
+    assert all(_build.LAUNCHES[k] for k in ("near_screen", "far_screen", "segment_parse", "pack_words"))
     assert torch.equal(gb, cb) and torch.equal(gok, cok)
     ok = cok.bool()
     assert ok.any() and torch.equal(gw[ok], cw[ok])
@@ -292,8 +363,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         parse.segment_parse(x[::2], 150)
     with pytest.raises(ValueError):
         parse.segment_parse(x, 300, seg=parse.MAX_SEG + 1)
+    arrays, _ = testing.pack_words_inputs("empty row")
+    pack = _pack_on(dev, arrays)
     with pytest.raises(ValueError):
-        d3.pack_fields(x.reshape(3, 100), x[:286], x[:286], x[:30], x[:30])
+        d3.pack_words(pack[0][:, :-1], *pack[1:], 8)
+    with pytest.raises(TypeError):
+        d3.pack_words(*pack[:5], pack[5].int(), *pack[6:], 8)
+    with pytest.raises(ValueError):
+        d3.pack_words(*pack, 0)
     b = torch.zeros(4096, dtype=torch.uint8, device=dev)
     with pytest.raises(TypeError):
         crc32_cuda.crc32_forms(x, 0, 1)
@@ -512,3 +589,31 @@ def test_inflate_on_card_matches_cpu(dev):
         assert out.tobytes() == data.tobytes()
     with pytest.raises(tpuzlib_torch.DeviceDeclined):
         tpuzlib_torch.inflate(streams[0][:-1] + bytes([streams[0][-1] ^ 1]), device=dev)
+
+
+def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):
+    """Bytes after the trailer are ignored and a trailer cut short raises
+    ValueError, on the card as on the CPU."""
+    data = testing.mixed(3 << 16, 10)
+    z = zlib.compress(data.tobytes(), 6)
+    gz = tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes()
+    for wire, want in ((z + b"GARBAGE TRAILING DATA", data.tobytes()),
+                       (gz + tpuzlib_torch.deflate(data[::-1], format="gzip", device=dev).tobytes(),
+                        data.tobytes()),
+                       (_zlib_raw(data).tobytes() + b"\x01\x02trailing", data.tobytes())):
+        got = tpuzlib_torch.inflate(wire, device=dev)
+        assert got.tobytes() == want == tpuzlib_torch.inflate(wire, device="cpu").tobytes()
+    for wire in (z[:-2], gz[:-3]):
+        with pytest.raises(ValueError, match="Unexpected EOF"):
+            tpuzlib_torch.inflate(wire, device=dev)
+
+
+def test_device_deflater_on_card_keeps_its_own_pending_input(dev):
+    """A buffer reused between appends: the bytes as they were appended."""
+    d = tpuzlib_torch.DeviceDeflater(level=6, chunk=16 * KB, batch=2, device=dev)
+    buf = bytearray(b"A" * 40000)
+    parts = [d.append(buf)]
+    buf[:] = b"B" * 40000
+    parts += [d.append(buf), d.finish()]
+    wire = b"".join(p.tobytes() for p in parts)
+    assert zlib.decompress(wire, -15) == b"A" * 40000 + b"B" * 40000

@@ -166,7 +166,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         parse.segment_parse(m, 16)
     with pytest.raises(ValueError):
-        td3.pack_fields(m.reshape(2, 8), m, m, m, m)
+        td3.pack_words(m.reshape(2, 8), m, m, m, m, m.long(), m.long(), m.long(), m, 8)
     meta = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="meta")  # noqa: E731
     with pytest.raises(ValueError):
         inflate_cuda.cursor_decode(inflate_cuda.DecodeArgs(
@@ -176,7 +176,7 @@ def test_wrappers_refuse_other_devices():
         inflate_cuda.decode_luts(inflate_cuda.DecodeArgs(
             meta(64), meta(inflate_cuda.NCUR, 4), meta(1, inflate_cuda.TB),
             meta(1, inflate_cuda.LE), meta(1, inflate_cuda.DE), 8, 8))
-    assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_fields",
+    assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
                                     "crc32_forms", "crc32_spans", "adler32", "inflate_lut",
                                     "inflate_decode"}
     assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 6

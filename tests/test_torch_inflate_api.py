@@ -1,7 +1,9 @@
 """tpuzlib_torch.inflate on the CPU against tpuzlib.inflate and zlib:
-zlib, gzip and raw streams, gzip headers with every optional field, and
+zlib, gzip and raw streams, gzip headers with every optional field, bytes
+after the stream (garbage, a second gzip member) that both ignore, and
 the errors: DeviceDeclined on a bad trailer and on a truncated stream,
-NotImplementedError for preset dictionaries, ValueError on bad input.
+ValueError on a trailer cut short, NotImplementedError for preset
+dictionaries, ValueError on bad input.
 """
 
 import gzip
@@ -82,12 +84,50 @@ def test_bad_trailers_decline():
 
 
 def test_truncated_stream_declines():
+    """A stream cut inside its blocks declines (the port has no host engine
+    to settle it); a trailer cut to two bytes, after the whole stream,
+    raises tpuzlib's ValueError."""
     z = STREAMS["zlib"]
-    for wire in (z[: len(z) // 2], z[:-4] + b"\x00\x00"):
-        with pytest.raises(DeviceDeclined):
+    with pytest.raises(DeviceDeclined):
+        tpuzlib_torch.inflate(z[: len(z) // 2], device="cpu")
+    with pytest.raises(ValueError):
+        tpuzlib.inflate(z[: len(z) // 2])
+    for wire in (z[:-4] + b"\x00\x00", z[:-2], STREAMS["gzip (port)"][:-3]):
+        with pytest.raises(ValueError, match="Unexpected EOF"):
             tpuzlib_torch.inflate(wire, device="cpu")
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="Unexpected EOF"):
             tpuzlib.inflate(wire)
+
+
+def _after_sync_flush(level: int, tail: bytes) -> bytes:
+    """A zlib stream of DATA, a sync flush, then `tail` in the final block:
+    at level 6 a dynamic block, then a small fixed final block that the
+    header scan does not see (walk_blocks' open tail); at level 0 stored
+    blocks, then an empty stored final block after the plan's last block
+    (its gap walk)."""
+    c = zlib.compressobj(level, zlib.DEFLATED, 15)
+    data = DATA.tobytes() if level else DATA[:3000].tobytes()
+    return c.compress(data) + c.flush(zlib.Z_SYNC_FLUSH) + c.compress(tail) + c.flush()
+
+
+AFTER = {  # name -> (wire with bytes after its stream, the stream's bytes)
+    "zlib + garbage": (STREAMS["zlib"] + b"GARBAGE TRAILING DATA", DATA.tobytes()),
+    "raw + trailing bytes": (STREAMS["raw"] + b"\x01\x02trailing", DATA.tobytes()),
+    "two gzip members": (gzip.compress(b"hello ") + gzip.compress(b"world"), b"hello "),
+    "two large gzip members": (STREAMS["gzip (port)"] + gzip.compress(DATA[::-1].tobytes()),
+                               DATA.tobytes()),
+    "open tail + garbage": (_after_sync_flush(6, b"xyz") + b"junkjunk", DATA.tobytes() + b"xyz"),
+    "gap walk + garbage": (_after_sync_flush(0, b"") + b"junk", DATA[:3000].tobytes()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AFTER))
+def test_bytes_after_the_stream_are_ignored(name):
+    """The trailer is read right after the final block, as tpuzlib reads it,
+    and whatever follows it is ignored."""
+    wire, want = AFTER[name]
+    got = tpuzlib_torch.inflate(wire, device="cpu")
+    assert got.tobytes() == want == np.asarray(tpuzlib.inflate(wire)).tobytes()
 
 
 def test_dictionaries_not_supported():

@@ -19,6 +19,7 @@ from tpuzlib.kernels import huffman_device as jhuff
 from tpuzlib.kernels import parse_pallas as jparse
 from tpuzlib.kernels import screen_pallas as jscreen
 from tpuzlib_torch import testing
+from tpuzlib_torch.codec.bitsink import BitSink
 from tpuzlib_torch.kernels import deflate_device as tdd
 from tpuzlib_torch.kernels import deflate_device3 as td3
 from tpuzlib_torch.kernels import huffman_device as thuff
@@ -290,10 +291,65 @@ def test_pack_fields_plain_matches_pallas():
     lo, hi, nb = jd3._pack_fields_kernel(nrows, T // jd3.PACK_TILE // 8, True)(
         jnp.asarray(tok.astype(np.uint32).reshape(nrows, jd3.PACK_TILE)), planes_l, planes_d
     )
-    got = td3.pack_fields(*(torch.from_numpy(a) for a in (tok, lcodes, lbits, dcodes, dbits)))
+    got = td3.pack_fields_plain(*(torch.from_numpy(a) for a in (tok, lcodes, lbits, dcodes, dbits)))
     for want, g in zip((lo, hi, nb), got):
         assert g.dtype == torch.int32
         _eq(np.asarray(want).view(np.int32).reshape(B, T), g)
+
+
+def _torch_tail(lo_t, hi_t, nb_t, hdr_vals, hdr_bits, lasts, out_words):
+    """The encoder's bit pack as it ran before pack_words took it in: the
+    torch ops after the field kernel, on its (lo, hi, nb)."""
+    B = lo_t.shape[0]
+    m32 = 0xFFFFFFFF
+    lo_t, hi_t = lo_t.to(torch.int64) & m32, hi_t.to(torch.int64) & m32
+    all_lo = torch.cat([(4 | lasts.to(torch.int64))[:, None], hdr_vals, lo_t], 1)
+    all_hi = torch.cat([torch.zeros(B, 1 + td3.HDRF, dtype=torch.int64), hi_t], 1)
+    all_nb = torch.cat([torch.full((B, 1), 3, dtype=torch.int64), hdr_bits, nb_t.to(torch.int64)], 1)
+    offsets = torch.cumsum(all_nb, 1) - all_nb
+    total_bits = offsets[:, -1] + all_nb[:, -1]
+    idx = offsets >> 5
+    sh = offsets & 31
+    p0 = (all_lo << sh) & m32
+    p1 = (torch.where(sh > 0, all_lo >> (32 - sh), 0) | (all_hi << sh)) & m32
+    p2 = torch.where(sh > 0, all_hi >> (32 - sh), 0)
+    wb = torch.arange(B, dtype=torch.int64)[:, None] * out_words
+    widx = torch.cat([wb + torch.clamp(idx + s, max=out_words - 1) for s in range(3)], 1)
+    words = torch.zeros(B * out_words, dtype=torch.int64)
+    words.index_add_(0, widx.reshape(-1), torch.cat([p0, p1, p2], 1).reshape(-1))
+    return (words & m32).reshape(B, out_words), total_bits
+
+
+@pytest.mark.parametrize("case", sorted(testing.PACK_CASES))
+def test_pack_words_plain_matches_torch_tail(case):
+    """pack_words' plain version against the torch ops it replaced, on the
+    fields of the tokens up to each row's EOB, and against a host bit
+    writer where a row's bits fit its words."""
+    arrays, out_words = testing.pack_words_inputs(case)
+    tok, lcodes, lbits, dcodes, dbits, eob_at, hdr_vals, hdr_bits, lasts = map(torch.from_numpy, arrays)
+    words, total_bits = td3.pack_words(*map(torch.from_numpy, arrays), out_words)
+    assert words.dtype == total_bits.dtype == torch.int64
+    B, T = tok.shape
+    upto_eob = torch.where(torch.arange(T)[None, :] > eob_at[:, None], 511, tok)
+    lo, hi, nb = td3.pack_fields_plain(upto_eob, lcodes, lbits, dcodes, dbits)
+    want_words, want_total = _torch_tail(lo, hi, nb, hdr_vals, hdr_bits, lasts, out_words)
+    assert torch.equal(words, want_words) and torch.equal(total_bits, want_total)
+    fits = 0
+    for b in range(B):
+        total = int(total_bits[b])
+        if total > 32 * out_words:
+            continue
+        fits += 1
+        field = (lo[b].numpy().astype(np.uint32).astype(np.uint64)
+                 | hi[b].numpy().astype(np.uint32).astype(np.uint64) << np.uint64(32))
+        sink = BitSink()
+        sink.push_scalar(4 | int(lasts[b]), 3)
+        sink.push(hdr_vals[b].numpy(), hdr_bits[b].numpy())
+        sink.push(field, nb[b].numpy())
+        want = sink.flush(final=True)[0]
+        got = words[b].numpy().astype("<u4").view(np.uint8)[: (total + 7) // 8]
+        assert got.tobytes() == want.tobytes()
+    assert fits >= 1
 
 
 def test_sym_fields_matches_jax():

@@ -101,3 +101,17 @@ def test_device_deflater_handover():
     got = np.asarray(td.append(rest)).tobytes() + np.asarray(td.finish()).tobytes()
     assert got == want
     assert zlib.decompress(b"".join(head) + got, -15) == data.tobytes()
+
+
+@pytest.mark.parametrize("size", [1000, 40000])
+def test_device_deflater_keeps_its_own_pending_input(size):
+    """A caller reuses one buffer between appends: the bytes that wait for
+    a later append are the ones appended, not what the buffer holds later
+    (tpuzlib's DeviceDeflater keeps a view and writes 2 * size B's)."""
+    d = tpuzlib_torch.DeviceDeflater(level=6, chunk=CHUNK, batch=BATCH, device="cpu")
+    buf = bytearray(b"A" * size)
+    parts = [d.append(buf)]
+    buf[:] = b"B" * size
+    parts += [d.append(buf), d.finish()]
+    wire = b"".join(np.asarray(p).tobytes() for p in parts)
+    assert zlib.decompress(wire, -15) == b"A" * size + b"B" * size

@@ -9,7 +9,11 @@ device path declines, or whose output fails its container's checksum or
 ISIZE, raises DeviceDeclined (tpuzlib re-decodes such streams on its host
 engine, which settles whether the data or the device path is at fault);
 device and build errors propagate.  The trailer's checksum runs on
-`device` through the port's own crc32 / adler32.
+`device` through the port's own crc32 / adler32.  The trailer is read
+from the first whole byte after the stream's final block, as tpuzlib's
+ContainerInflater reads it, and bytes after it are ignored: a second
+gzip member, or trailing garbage.  A trailer cut short raises
+ValueError("Unexpected EOF during decompression").
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 from ..codec.tokenize import DataError
 from ..common import u8_view
 from ..containers.inflate_container import parse_gzip_header, parse_zlib_header
-from ..kernels.inflate_device2 import DeviceDeclined, decode
+from ..kernels.inflate_device2 import DeviceDeclined, decode, decode_stream
 from .checksums import adler32, crc32
 
 _NO_DICTIONARIES = (
@@ -29,6 +33,16 @@ _NO_DICTIONARIES = (
     " and the host engine that serves them is not ported to tpuzlib_torch"
 )
 _EOF = "Unexpected EOF during decompression"
+
+
+def _trailer(input_, start: int, end_bit: int, n: int) -> bytes:
+    """The n trailer bytes from the first whole byte after a DEFLATE stream
+    that starts at byte `start` and ends at bit `end_bit` of it; raises
+    ValueError where the input ends first."""
+    at = start + (end_bit + 7) // 8
+    if len(input_) < at + n:
+        raise ValueError(_EOF)
+    return input_[at : at + n].tobytes()
 
 
 def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
@@ -47,8 +61,8 @@ def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
                 input_, lambda b: crc32(np.ascontiguousarray(b), device=device) & 0xFFFF)
             if hdr is None or len(input_) < hdr.size + 8:
                 raise ValueError(_EOF)
-            stored_crc, isize = struct.unpack("<II", input_[-8:].tobytes())
-            out = decode(input_[hdr.size : -8], device=device)
+            out, end = decode_stream(input_[hdr.size :], device=device)
+            stored_crc, isize = struct.unpack("<II", _trailer(input_, hdr.size, end, 8))
             if crc32(out, device=device) != stored_crc:
                 raise DeviceDeclined("the device output fails the gzip CRC-32")
             if len(out) & 0xFFFFFFFF != isize:
@@ -60,8 +74,8 @@ def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
                 raise ValueError(_EOF)
             if hdr[1] is not None:
                 raise NotImplementedError(_NO_DICTIONARIES)
-            stored_adler = struct.unpack(">I", input_[-4:].tobytes())[0]
-            out = decode(input_[2:-4], device=device)
+            out, end = decode_stream(input_[hdr[0] :], device=device)
+            stored_adler = struct.unpack(">I", _trailer(input_, hdr[0], end, 4))[0]
             if adler32(out, device=device) != stored_adler:
                 raise DeviceDeclined("the device output fails the zlib Adler-32")
             return out

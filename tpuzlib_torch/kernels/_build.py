@@ -38,7 +38,7 @@ _ARGTYPES = {
     "tz_near_screen": [_P, _P, _P, _P, _I, _I, _P],
     "tz_far_screen": [_P, _P, _P, _P, _I, _I, _P],
     "tz_segment_parse": [_P, _P, _I, _I, _I, _P],
-    "tz_pack_fields": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tz_pack_words": [_P] * 12 + [_I] * 3 + [_P],
     "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
     "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
     "tz_inflate_lut": [_P, _P, _P, _I, _I, _I, _P, _P],
@@ -47,8 +47,9 @@ _ARGTYPES = {
 _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
                "tz_error_string": (ctypes.c_char_p, [_I])}
 
-# the CRC kernel counts its two modes apart: per-block forms, span forms
-LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_fields": 0,
+# the CRC kernel counts its two modes apart: per-block forms, span forms;
+# pack_words' one launch is its two kernels (tile sums, then the words)
+LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
             "crc32_forms": 0, "crc32_spans": 0, "adler32": 0, "inflate_lut": 0,
             "inflate_decode": 0}
 

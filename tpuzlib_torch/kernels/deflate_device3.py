@@ -13,9 +13,10 @@ as tpuzlib's program on the same input:
   2. the lazy rule, the SEG-forced token breaks and the segment parse;
   3. token compaction to (B, T_CAP), histograms, package-merge trees,
      canonical codes and the RLE'd dynamic header;
-  4. per-token bit fields (the pack-fields kernel) and the bit pack.
+  4. per-token bit fields and the bit pack of head3 | header | tokens into
+     each chunk's words (pack_words: one kernel for both).
 
-The four kernels (near / far screen, segment parse, pack fields) run on
+The four kernels (near / far screen, segment parse, pack words) run on
 a CUDA tensor; on a CPU tensor each wrapper runs its plain version.  The
 device of the input decides; there is no switch and no fallback.  No step
 reads a value back to the host, so a batch is enqueued without a sync.
@@ -55,6 +56,7 @@ NUM_DIST = 30
 # tpuzlib sizes it
 T_CAP_ALIGN = 4096
 HDRF = 338  # 3 + 19 + 316 header fields
+PACK_TILE = 2048  # fields a block of pack_words' kernels takes (csrc/pack_fields.cu: kTile)
 # the extension loop walks 16 bytes a step from offset 16 up to MAX_MATCH
 _EXT_STEPS = -(-MAX_MATCH // 16)
 
@@ -189,10 +191,10 @@ def batch_layout(B, ctx, N, ctx_valids, n_valids):
     return lim16, limit, mincand, chid
 
 
-def _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level):
-    """Match + lazy + segment parse over the flat batch.
-
-    data: (B, ctx+N) uint8.  Returns (starts bool, litlen, dist) as (B, N)."""
+def parse_tape(B, ctx, N, data, ctx_valids, n_valids, level):
+    """Match search, the lazy rule and the forced token breaks over the flat
+    batch: (eff, step, dist) as (B, N) int32, where eff is each position's
+    match length (0: a literal) and step the segment parse's step tape."""
     stride = ctx + N
     i32 = dict(dtype=torch.int32, device=data.device)
     length, dist = match_lengths_v3(
@@ -212,7 +214,15 @@ def _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level):
     effT = torch.minimum(eff, room[None, :])
     eff = torch.where(effT >= MIN_MATCH, effT, 0)
     step = torch.where(eff >= MIN_MATCH, eff, 1)
+    return eff, step, dist
 
+
+def _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level):
+    """Match + lazy + segment parse over the flat batch.
+
+    data: (B, ctx+N) uint8.  Returns (starts bool, litlen, dist) as (B, N)."""
+    i32 = dict(dtype=torch.int32, device=data.device)
+    eff, step, dist = parse_tape(B, ctx, N, data, ctx_valids, n_valids, level)
     # the parse treats the flat array as one stream; SEG divides N, so
     # segment starts align with chunk starts, and per-chunk n_valid masking
     # happens here
@@ -225,7 +235,7 @@ def _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level):
 
 
 # ---------------------------------------------------------------------------
-# pack fields: token -> (lo, hi, nb)
+# pack: token -> field (lo, hi, nb), and the fields -> packed words
 # ---------------------------------------------------------------------------
 
 
@@ -254,28 +264,80 @@ def pack_fields_plain(tok, lcodes, lbits, dcodes, dbits):
     return _as_i32(f & _M32), _as_i32(f >> 32), nb.to(torch.int32)
 
 
-def pack_fields(tok, lcodes, lbits, dcodes, dbits):
-    """Per-token LSB-first Huffman bit fields.
-
-    tok: (B, T) int32 tokens `litlen | is_match << 9 | (dist - 1) << 10`;
-    lcodes/lbits: (B, 286) and dcodes/dbits: (B, 30) int32 per-chunk code
-    tables (bit-reversed codes, lengths <= 15).  Returns (lo, hi, nb):
-    the int32 bit patterns of the low and high words of each token's field
-    and its width in bits."""
-    if _build.on_cpu(tok):
-        return pack_fields_plain(tok, lcodes, lbits, dcodes, dbits)
+def pack_words_plain(tok, lcodes, lbits, dcodes, dbits, eob_at, hdr_vals, hdr_bits, lasts,
+                     out_words: int):
+    """The plain version of pack_words: the token fields (pack_fields_plain)
+    and the bit pack of the field stream head3 | header | tokens."""
     B, T = tok.shape
-    _build.check_inputs("pack_fields", (B, T), tok)
-    _build.check_inputs("pack_fields", (B, NUM_LIT), lcodes, lbits)
-    _build.check_inputs("pack_fields", (B, NUM_DIST), dcodes, dbits)
-    lo, hi, nb = (torch.empty_like(tok) for _ in range(3))
-    if B * T == 0:
-        return lo, hi, nb
+    dev = tok.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    tok = torch.where(torch.arange(T, device=dev)[None, :] > eob_at[:, None], 511, tok)
+    lo_t, hi_t, nb_t = pack_fields_plain(tok, lcodes, lbits, dcodes, dbits)
+    all_lo = torch.cat([(4 | lasts.to(torch.int64))[:, None], hdr_vals, lo_t.to(torch.int64) & _M32], 1)
+    all_hi = torch.cat([torch.zeros(B, 1 + HDRF, **i64), hi_t.to(torch.int64) & _M32], 1)
+    all_nb = torch.cat([torch.full((B, 1), 3, **i64), hdr_bits, nb_t.to(torch.int64)], 1)
+    offsets = torch.cumsum(all_nb, 1) - all_nb
+    total_bits = offsets[:, -1] + all_nb[:, -1]
+
+    # each field lands in up to three words; pieces in one word are
+    # disjoint, so their sum is their OR.  Indices are clipped to the
+    # out_words window, as in tpuzlib.
+    idx = offsets >> 5
+    sh = offsets & 31
+    p0 = (all_lo << sh) & _M32
+    p1 = (torch.where(sh > 0, all_lo >> (32 - sh), 0) | (all_hi << sh)) & _M32
+    p2 = torch.where(sh > 0, all_hi >> (32 - sh), 0)
+    wb = torch.arange(B, **i64)[:, None] * out_words
+    widx = torch.cat([wb + torch.clamp(idx + s, max=out_words - 1) for s in range(3)], 1)
+    words = torch.zeros(B * out_words, **i64)
+    words.index_add_(0, widx.reshape(-1), torch.cat([p0, p1, p2], 1).reshape(-1))
+    return (words & _M32).reshape(B, out_words), total_bits
+
+
+def pack_words(tok, lcodes, lbits, dcodes, dbits, eob_at, hdr_vals, hdr_bits, lasts,
+               out_words: int):
+    """Each chunk's packed bits: head3 (3 bits: 4 | last), the dynamic
+    header's fields, then its tokens' LSB-first Huffman fields, one after
+    another from bit 0 of word 0.
+
+    tok: (B, T) int32 tokens `litlen | is_match << 9 | (dist - 1) << 10`,
+    the EOB (256) at eob_at (B,) int64 and pads (511) after it, which are
+    taken as pads whatever they hold; lcodes/lbits: (B, 286) and
+    dcodes/dbits: (B, 30) int32 per-chunk code tables (bit-reversed codes,
+    lengths <= 15); hdr_vals/hdr_bits: (B, 338) int64 header fields, each
+    value below 2^32 and its width at most 64; lasts: (B,) int32, 0 or 1.
+    Returns (words int64 (B, out_words) holding u32 values, total_bits
+    int64 (B,)); the pieces of bits past the last word are added into it,
+    mod 2^32.  On a CUDA tensor it launches csrc/pack_fields.cu's two
+    kernels, on a CPU tensor it runs pack_words_plain."""
+    if _build.on_cpu(tok):
+        return pack_words_plain(tok, lcodes, lbits, dcodes, dbits, eob_at, hdr_vals, hdr_bits,
+                                lasts, out_words)
+    B, T = tok.shape
+    dev = tok.device
+    _build.check_inputs("pack_words", (B, T), tok)
+    _build.check_inputs("pack_words", (B, NUM_LIT), lcodes, lbits, device=dev)
+    _build.check_inputs("pack_words", (B, NUM_DIST), dcodes, dbits, device=dev)
+    _build.check_inputs("pack_words", (B, HDRF), hdr_vals, hdr_bits, dtype=torch.int64, device=dev)
+    _build.check_inputs("pack_words", (B,), eob_at, dtype=torch.int64, device=dev)
+    _build.check_inputs("pack_words", (B,), lasts, device=dev)
+    if out_words < 1 or (1 + HDRF + T) * 64 >= 1 << 31:
+        raise ValueError("pack_words: out_words must be >= 1 and a row's bits below 2^31"
+                         " (out_words %d, T %d)" % (out_words, T))
+    words = torch.empty((B, out_words), dtype=torch.int64, device=dev)
+    total_bits = torch.empty(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return words, total_bits
+    # each row's tiles' widths (the kernel pads the header to a multiple of
+    # 8 fields, so a row has at most T // PACK_TILE + 2 tiles)
+    sums = torch.empty(B * (T // PACK_TILE + 2), dtype=torch.int32, device=dev)
     _build.launch(
-        "pack_fields", "tz_pack_fields", tok.device,
-        *(t.data_ptr() for t in (tok, lcodes, lbits, dcodes, dbits, lo, hi, nb)), T, B,
+        "pack_words", "tz_pack_words", dev,
+        *(t.data_ptr() for t in (tok, lcodes, lbits, dcodes, dbits, eob_at, hdr_vals, hdr_bits,
+                                 lasts, words, total_bits, sums)),
+        T, B, out_words,
     )
-    return lo, hi, nb
+    return words, total_bits
 
 
 # ---------------------------------------------------------------------------
@@ -411,35 +473,13 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         if stage == "header":
             return hdr_vals, hdr_bits, ok
 
-        # ---- per-token fields (kernel) -----------------------------------
-        lo_t, hi_t, nb_t = pack_fields(
-            tok, lcodes.to(torch.int32), ll, dcodes.to(torch.int32).contiguous(), dl.contiguous())
-        lo_t = lo_t.to(torch.int64) & _M32
-        hi_t = hi_t.to(torch.int64) & _M32
+        # ---- per-token fields and the bit pack (kernel) -----------------
+        tables = (tok, lcodes.to(torch.int32), ll, dcodes.to(torch.int32).contiguous(),
+                  dl.contiguous())
         if stage == "fields":
-            return lo_t, hi_t, nb_t
-
-        # ---- one field stream: head3 | header | tokens -------------------
-        all_lo = torch.cat([(4 | lasts.to(torch.int64))[:, None], hdr_vals, lo_t], 1)
-        all_hi = torch.cat([torch.zeros(B, 1 + HDRF, **i64), hi_t], 1)
-        all_nb = torch.cat([torch.full((B, 1), 3, **i64), hdr_bits, nb_t.to(torch.int64)], 1)
-        offsets = torch.cumsum(all_nb, 1) - all_nb
-        total_bits = offsets[:, -1] + all_nb[:, -1]
-
-        # ---- bit pack: each field lands in up to three words; pieces in
-        # one word are disjoint, so their sum is their OR.  Indices are
-        # clipped to the out_words window, as in tpuzlib.
-        idx = offsets >> 5
-        sh = offsets & 31
-        p0 = (all_lo << sh) & _M32
-        p1 = (torch.where(sh > 0, all_lo >> (32 - sh), 0) | (all_hi << sh)) & _M32
-        p2 = torch.where(sh > 0, all_hi >> (32 - sh), 0)
-        wb = torch.arange(B, **i64)[:, None] * out_words
-        widx = torch.cat([wb + torch.clamp(idx + s, max=out_words - 1) for s in range(3)], 1)
-        words = torch.zeros(B * out_words, **i64)
-        words.index_add_(0, widx.reshape(-1), torch.cat([p0, p1, p2], 1).reshape(-1))
-        words = (words & _M32).reshape(B, out_words)
-
+            lo_t, hi_t, nb_t = pack_fields_plain(*tables)
+            return lo_t.to(torch.int64) & _M32, hi_t.to(torch.int64) & _M32, nb_t
+        words, total_bits = pack_words(*tables, eob_at, hdr_vals, hdr_bits, lasts, out_words)
         ok = ok & (total_bits <= out_words * 32 - 64).to(torch.int32)
         return words, total_bits.to(torch.int32), ok
 
@@ -540,6 +580,12 @@ class DeviceDeflater:
 
     append(data) -> compressed bytes ready so far (byte-aligned);
     finish() -> final bytes (BFINAL block + padding).
+
+    append keeps its own copy of the input that waits for a later call, so
+    a caller may reuse its buffer between calls.  This departs from
+    tpuzlib's DeviceDeflater, which keeps a view of the caller's buffer and
+    so compresses whatever the buffer holds when the bytes are encoded; the
+    bytes written for callers that do not reuse buffers are the same.
     """
 
     def __init__(self, level: int = 6, chunk: int = 1 << 18, batch: int = 4, device="cuda"):
@@ -585,11 +631,13 @@ class DeviceDeflater:
         if self._finished:
             raise RuntimeError("DeviceDeflater instances cannot be reused")
         data = np.ascontiguousarray(u8_view(data))
-        self._pending = np.concatenate([self._pending, data]) if len(self._pending) else data
-        chunks = []
-        while len(self._pending) > self.chunk:
-            chunks.append(self._pending[: self.chunk])
-            self._pending = self._pending[self.chunk :]
+        buf = np.concatenate([self._pending, data]) if len(self._pending) else data
+        cut = max(0, (len(buf) - 1) // self.chunk) * self.chunk
+        chunks = [buf[lo : lo + self.chunk] for lo in range(0, cut, self.chunk)]
+        # what waits for a later call is copied: `buf` may be the caller's
+        # buffer, which the caller may reuse once this call returns (the
+        # chunks above are encoded before it does)
+        self._pending = buf[cut:].copy()
         for i in range(0, len(chunks), self.batch):
             group = chunks[i : i + self.batch]
             self._encode(group, [0] * len(group))

@@ -719,13 +719,15 @@ def fast_block_ends(lay: Layout, meta_np: np.ndarray) -> list:
     return ends
 
 
-def _gap_tokens(buf: np.ndarray, bit: int, stop_at: int | None) -> list:
+def _gap_tokens(buf: np.ndarray, bit: int, stop_at: int | None):
     """The tokens between a block's end `bit` and the next planned header
     `stop_at` (None: the stream's end), as a list of (litlen, dist): the
     payloads of stored blocks, and the tokens of Huffman blocks that the
     header scan cannot see (a fixed block, which zlib writes for a small
     flush, or a dynamic one too short to confirm), decoded on the host one
-    block at a time.  Raises DeviceDeclined where the walk breaks."""
+    block at a time.  Returns (that list, the bit where the walk ended:
+    stop_at, or the end of the final block).  Raises DeviceDeclined where
+    the walk breaks."""
     avail_bits = len(buf) * 8
     parts = []
     while True:
@@ -737,7 +739,7 @@ def _gap_tokens(buf: np.ndarray, bit: int, stop_at: int | None) -> list:
         if final or bit == stop_at:
             if final != (stop_at is None):
                 raise DeviceDeclined("the stream ends before the header at bit %d" % stop_at)
-            return parts
+            return parts, bit
         if stop_at is not None and bit > stop_at:
             raise DeviceDeclined("the blocks after bit %d overrun the header at bit %d"
                                  % (bit, stop_at))
@@ -749,29 +751,31 @@ def _gap_tokens(buf: np.ndarray, bit: int, stop_at: int | None) -> list:
         if fin:
             if stop_at is not None:
                 raise DeviceDeclined("the stream ends before the header at bit %d" % stop_at)
-            return parts
+            return parts, bit
 
 
 def walk_blocks(buf: np.ndarray, lay: Layout, block_end_bits: list):
     """Chain each block's end to the next header, through sync markers,
     stored runs and blocks the header scan cannot see.  Returns
-    (insertions, tail): insertions maps a block to the (litlen, dist)
+    (insertions, tail, end): insertions maps a block to the (litlen, dist)
     token arrays decoded on the host after it; tail is the host-tokenized
-    rest of an open-ended stream, or None.  Raises DeviceDeclined where the
-    chain breaks."""
+    rest of an open-ended stream, or None; end is the bit after the
+    stream's final block, where a container's trailer starts.  Raises
+    DeviceDeclined where the chain breaks."""
     avail_bits = len(buf) * 8
     plan = lay.plan
     insertions: dict[int, list] = {}
     tail = None
+    end = block_end_bits[-1]
     for bi, p in enumerate(plan):
         if bi < len(plan) - 1:
-            parts = _gap_tokens(buf, block_end_bits[bi], plan[bi + 1].header_bit)
+            parts, _ = _gap_tokens(buf, block_end_bits[bi], plan[bi + 1].header_bit)
         elif p.bfinal:
             parts = []  # the stream ends with this block
         elif p.open_end:
             # discovery stopped here: decode the rest on the host
             try:
-                litlen, dist, _, fin = _tokenize_range(buf, block_end_bits[bi], avail_bits)
+                litlen, dist, end, fin = _tokenize_range(buf, block_end_bits[bi], avail_bits)
             except tk.DataError as e:
                 raise DeviceDeclined("the stream's tail does not decode: %s" % e) from None
             if not fin:
@@ -779,10 +783,10 @@ def walk_blocks(buf: np.ndarray, lay: Layout, block_end_bits: list):
             tail = (litlen, dist)
             parts = []
         else:
-            parts = _gap_tokens(buf, block_end_bits[bi], None)
+            parts, end = _gap_tokens(buf, block_end_bits[bi], None)
         if parts:
             insertions[bi] = parts
-    return insertions, tail
+    return insertions, tail, end
 
 
 def token_pieces(lay: Layout, M: int, kcnt_np, insertions, tail, bridge_ins=None) -> list:
@@ -909,20 +913,27 @@ def _window(dictionary) -> np.ndarray:
 
 
 def decode(data, dictionary=None, stride_bits: int | None = None, max_cursors: int | None = None,
-           device_expand: bool = False, *, device="cuda",
-           force_repair: bool = False, bridge_chunk: int = 1024, max_bridges: int = 64,
-           max_row_batches: int = 64):
+           device_expand: bool = False, **kwargs):
     """Decode the raw DEFLATE stream `data` (uint8) with its heavy work on
     `device`.  Returns the bytes as a uint8 ndarray when pass 3 runs on the
     host (the default), or as a 1-D uint8 tensor on `device` with
-    device_expand.
+    device_expand.  Bytes after the stream's final block are ignored.
     Raises DeviceDeclined, with the reason, for a stream the device path
     cannot decode.
 
     dictionary: the history before the stream (a zlib preset dictionary);
-    force_repair: run the splice repair even where the splice validated;
-    bridge_chunk: tokens per native bridge call; max_bridges /
-    max_row_batches: the repair's caps."""
+    keywords: device (default "cuda"); force_repair: run the splice repair
+    even where the splice validated; bridge_chunk: tokens per native
+    bridge call; max_bridges / max_row_batches: the repair's caps."""
+    return decode_stream(data, dictionary, stride_bits, max_cursors, device_expand, **kwargs)[0]
+
+
+def decode_stream(data, dictionary=None, stride_bits: int | None = None,
+                  max_cursors: int | None = None, device_expand: bool = False, *, device="cuda",
+                  force_repair: bool = False, bridge_chunk: int = 1024, max_bridges: int = 64,
+                  max_row_batches: int = 64):
+    """decode(...) and the bit after the stream's final block: (bytes,
+    end bit)."""
     buf = np.ascontiguousarray(np.asarray(data), dtype=np.uint8)
     lay = plan_cursors(buf, stride_bits, max_cursors)
     toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))
@@ -944,19 +955,19 @@ def decode(data, dictionary=None, stride_bits: int | None = None, max_cursors: i
         kcnt_np = kcnt.cpu().numpy()[: lay.K]
     else:
         block_end_bits = fast_block_ends(lay, meta_np)
-    insertions, tail = walk_blocks(buf, lay, block_end_bits)
+    insertions, tail, end = walk_blocks(buf, lay, block_end_bits)
 
     window = _window(dictionary)
     pieces = token_pieces(lay, M, kcnt_np, insertions, tail,
                           repair[2] if repair is not None else None)
     if not device_expand:
         comph = comp[:M].cpu().numpy().view(np.uint32)
-        return expand_host(*host_tokens(comph, pieces), window)
+        return expand_host(*host_tokens(comph, pieces), window), end
     tape, n = device_tape(comp, M, pieces)
     win = np.zeros(WINDOW, np.uint8)
     win[WINDOW - len(window):] = window
     return device_expand_all(tape, n, torch.from_numpy(win).to(comp.device),
-                             8 * len(buf) + (1 << 16))
+                             8 * len(buf) + (1 << 16)), end
 
 
 def device_expand_all(tape: torch.Tensor, n: int, window: torch.Tensor, out_cap: int):

@@ -3,8 +3,9 @@
 Counterpart of tpuzlib/kernels/parse_pallas.py:segment_parse_pallas.  The
 encoder forces a token break every SEG bytes, so each segment's chain
 i -> i + step[i] is independent of every other.  On a CUDA tensor the
-wrapper launches csrc/parse.cu (one block per segment); on a CPU tensor
-it runs the plain version, deflate_device.segment_parse_xla.
+wrapper launches csrc/parse.cu (one warp per segment: span exits, the
+chain from span to span, then each span's marks); on a CPU tensor it runs
+the plain version, deflate_device.segment_parse_xla.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from . import _build
 from .deflate_device import SEG, segment_parse_xla
 
-MAX_SEG = 8192  # shared memory per block: 5 bytes per segment position
+MAX_SEG = 8192  # a warp holds its segment in shared memory, about 4 bytes a position
 
 
 def segment_parse(step: torch.Tensor, n_valid: int, seg: int = SEG) -> torch.Tensor:

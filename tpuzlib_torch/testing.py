@@ -13,7 +13,9 @@ cover what the encoder must handle:
 flushes) and `inflate_streams` makes one raw stream of every block kind
 for the decoder's tests; `fibonacci_bytes` gives zlib's Huffman codes
 their longest lengths, and `dynamic_block` writes a block by hand with
-any code lengths, also ones zlib never writes.  `device_deflater_from_numpy` builds a DeviceDeflater from streaming state
+any code lengths, also ones zlib never writes.  `pack_words_inputs` makes
+the bit pack's inputs for the cases of PACK_CASES.
+`device_deflater_from_numpy` builds a DeviceDeflater from streaming state
 held in numpy, so a stream begun elsewhere can be finished by the port.
 """
 
@@ -238,6 +240,45 @@ def hand_made_blocks(seed: int = 0) -> dict:
     toks += [(lsyms[i], int(d)) for i, d in zip(rng.integers(0, 16, 2000),
                                                rng.integers(0, 16, 2000)) if lsyms[i] != 256]
     return {"one-bit distance code": one_bit, "15-bit codes": dynamic_block(lit, dist, toks)}
+
+
+# name -> (slots a row, out_words, each row's EOB slot, each row's last
+# flag, every field 48 bits wide)
+PACK_CASES = {
+    "EOB at the cap": (4096, 8192, [4095, 4095], [0, 1], False),
+    "empty row": (4096, 8192, [0, 2000, 4095], [1, 0, 1], False),
+    "past the output cap": (3000, 300, [2999, 100], [1, 0], False),
+    "48-bit fields": (3000, 5000, [2999, 10], [0, 1], True),
+    "one row, two tiles": (2048, 4096, [2047], [1], False),
+}
+
+
+def pack_words_inputs(name: str, seed: int = 0):
+    """The inputs of deflate_device3.pack_words for PACK_CASES[name], as
+    numpy arrays (tok, lcodes, lbits, dcodes, dbits, eob_at, hdr_vals,
+    hdr_bits, lasts), and out_words.  Tokens are literals, and matches of
+    every length and distance; the slots after the EOB hold noise, which
+    pack_words takes as pads.  With 48-bit fields every token is a match
+    of length 250 at distance 20001 and every code is 15 bits long."""
+    T, out_words, eob_at, lasts, wide = PACK_CASES[name]
+    B = len(eob_at)
+    rng = np.random.default_rng(seed)
+    match = rng.integers(3, 259, (B, T)) | 1 << 9 | rng.integers(0, 1 << 15, (B, T)) << 10
+    tok = np.where(rng.random((B, T)) < 0.5, match, rng.integers(0, 256, (B, T)))
+    lbits, dbits = rng.integers(0, 16, (B, 286)), rng.integers(0, 16, (B, 30))
+    if wide:
+        tok[:] = 250 | 1 << 9 | 20000 << 10
+        lbits[:], dbits[:] = 15, 15
+    lcodes = rng.integers(0, 1 << 15, (B, 286)) & ((1 << lbits) - 1)
+    dcodes = rng.integers(0, 1 << 15, (B, 30)) & ((1 << dbits) - 1)
+    for b, e in enumerate(eob_at):
+        tok[b, e] = 256
+        tok[b, e + 1 :] = rng.integers(0, 1 << 24, T - e - 1)
+    hdr_bits = rng.integers(0, 15, (B, 338))
+    hdr_vals = rng.integers(0, 1 << 14, (B, 338)) & ((1 << hdr_bits) - 1)
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    return ((i32(tok), i32(lcodes), i32(lbits), i32(dcodes), i32(dbits), np.asarray(eob_at, np.int64),
+             hdr_vals.astype(np.int64), hdr_bits.astype(np.int64), i32(lasts)), out_words)
 
 
 def device_deflater_from_numpy(level, chunk, batch, ctx, ctx_valid, pending,
