@@ -46,7 +46,16 @@ tpuzlib_torch/kernels/csrc, then:
      lines say, per stream, whether its splice validates under the port's
      rule (any kept flagged EOB declines), under tpuzlib's (only each
      cursor's first flag) and with no flag at all; G3 times the level-6
-     decode's pieces apart, both expansions included.
+     decode's pieces apart, both expansions included;
+  H  holds the CRC probe kernels (the read floor crc_rowsum, the bit
+     unpack crc_unpack in u8, i32 and bf16, the GF(2) product gf2_bits_mm
+     on 8 MiB of bits unpacked beforehand, the tensor-core forms
+     crc_forms_mm in bf16 and int8) to their plain versions on 256 MiB,
+     requires both forms to give zlib's CRC through the host combine and
+     to equal the table fold's, times each kernel at every (B, tile) the
+     tools run beside the table fold, then runs the three probes of
+     tpuzlib_torch/tools at 8 MiB; their launches are taken over those
+     runs.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -56,8 +65,12 @@ floor on its operations (one for each elementary step: a window
 compared, a byte folded, a symbol decoded; the screens count the window
 compares their exits leave on the batch) over the card's float32 rate
 outside the tensor cores (its table has no integer rate; a higher rate
-only lowers the bound).  No single PyTorch call computes any of these
-functions, so library_ms is null throughout.
+only lowers the bound), or, for the tensor-core products of H, the
+published dense bf16 or int8 rate (`op_rate` in the row).  library_ms is
+one PyTorch call computing the same function: the row sums for
+crc_rowsum, a float32 torch.mm for gf2_bits_mm (its row adds torch._int_mm
+as library_int8_ms); no single call computes any other kernel's function,
+and theirs is null.
 """
 
 from __future__ import annotations
@@ -75,8 +88,11 @@ import torch
 LEVEL, CHUNK, BATCH = 6, 1 << 18, 8
 DEVICE = "cuda"
 # NVIDIA H100 SXM, published: HBM3 bytes/s, float32 operations/s without
-# the tensor cores
+# the tensor cores; the tensor cores' dense bf16 FLOP/s and int8 OP/s
 MEM_RATE, OP_RATE = 3.35e12, 67e12
+BF16_RATE, INT8_RATE = 989.4e12, 1978.9e12
+# the (B, tile) pairs the CRC probes run (tools/probe_crc.py, probe_crc3.py)
+FORM_PAIRS = ((1024, 256), (4096, 256), (4096, 512), (1024, 1024))
 
 
 def emit(obj) -> None:
@@ -223,7 +239,7 @@ def phase_a_checksums(big) -> dict:
     })
 
 
-def check_kernels(cases, phase="A", fresh=None) -> dict:
+def check_kernels(cases, phase="A", fresh=None, rates=None, library=None) -> dict:
     """One row per kernel: its error against its plain version, both
     times and its bound; exits when a kernel differs.  A case is (kernel,
     plain version, source, TPU kernel replaced, the kernel's inputs, or a
@@ -235,10 +251,13 @@ def check_kernels(cases, phase="A", fresh=None) -> dict:
     updates its inputs in place to two functions that restore them, one
     run before every call of the kernel, one before every call of its
     plain version; the first's own time (`fresh_ms`) is taken off both
-    times.  The phase line adds the card memory the plain version takes
-    at its peak."""
+    times.  `rates` maps a kernel's name to the operations rate of its
+    bound where it is not OP_RATE (the tensor cores'), `library` to one
+    PyTorch call computing the same function, timed as library_ms.  The
+    phase line adds the card memory the plain version takes at its peak."""
     rows = {}
     for name, (kern, plain, src, replaces, inputs, ops, *plain_reps) in cases.items():
+        op_rate = (rates or {}).get(name, OP_RATE)
         resets = (fresh or {}).get(name)
         fresh_ms = cuda_ms(resets[0]) if resets else 0.0
         if resets:
@@ -253,18 +272,21 @@ def check_kernels(cases, phase="A", fresh=None) -> dict:
         plain_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
         err = max_abs_err(got, want)
         del got, want
-        bytes_ms, ops_ms = moved / MEM_RATE * 1e3, ops / OP_RATE * 1e3
+        bytes_ms, ops_ms = moved / MEM_RATE * 1e3, ops / op_rate * 1e3
         ms = cuda_ms(kern) - fresh_ms
+        lib = (library or {}).get(name)
         rows[name] = dict(name=name, route="cuda", source=src, replaces=replaces, launches=None,
                           max_abs_err=err, ms=ms,
                           plain_ms=(cuda_ms(plain, *plain_reps, 0) if plain_reps
                                     else cuda_ms(plain)) - fresh_ms,
                           bound_ms=max(bytes_ms, ops_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                          library_ms=None, bytes=moved, ops=ops,
+                          library_ms=cuda_ms(lib) if lib else None, bytes=moved, ops=ops,
                           pct_of_bound=100 * max(bytes_ms, ops_ms) / ms)
         if plain_reps:
             rows[name]["plain_reps"] = plain_reps[0]
+        if op_rate != OP_RATE:
+            rows[name]["op_rate"] = op_rate
         if resets:
             rows[name]["fresh_ms"] = fresh_ms
         emit({"phase": phase, **rows[name], "plain_peak_MiB": plain_peak_mib})
@@ -676,6 +698,104 @@ def phase_g3(corpus, raw6: np.ndarray, reps: int = 3) -> None:
           "ms": pieces})
 
 
+def phase_h(big_host: np.ndarray, big) -> tuple:
+    """The CRC probe kernels against their plain versions on `big` (the
+    product alone on its first 8 MiB, unpacked to bf16 bits beforehand),
+    the CRC of both tensor-core forms against zlib and the table fold,
+    each kernel's time at every (B, tile) the tools run, beside the table
+    fold; then the three probes at 8 MiB, over which the kernels' launches
+    are counted.  Returns (rows, launches)."""
+    from tpuzlib_torch import tools
+    from tpuzlib_torch.kernels import _build, crc32_cuda, crc32_probe as cp
+    from tpuzlib_torch.tools import probe_crc, probe_crc2, probe_crc3
+
+    src, n, dev = "tpuzlib_torch/kernels/csrc/crc32_probe.cu", big.numel(), big.device
+    rows = big.view(-1, 1024)
+    small = rows[: (8 << 20) // 1024]
+    bits = cp.plane_bits(small)
+    m = cp.form_matrix(1024, torch.bfloat16, dev)
+    # the library calls: a float32 product of 0/1 values, exact, with TF32
+    # off so that it is the float32 product; and the int8 product
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bits_f32, m_f32 = bits.float(), m.float()
+    bits_i8, m_i8 = bits.to(torch.int8), m.to(torch.int8)
+    # operations: an add a byte; a shift-and-mask and an add a bit; the
+    # products' multiply-adds (8 bits x 32 columns x 2 a byte of the forms)
+    cases = {"crc_rowsum": (lambda: cp.crc_rowsum(rows), lambda: cp.crc_rowsum_plain(rows), src,
+                            "tools/probe_crc2.py:89", (rows,), n)}
+    for mode in cp.MODES:
+        cases["crc_unpack_" + mode] = (
+            lambda mode=mode: cp.crc_unpack(rows, mode),
+            lambda mode=mode: cp.crc_unpack_plain(rows, mode),
+            src, "tools/probe_crc2.py:122", (rows,), 16 * n)
+    cases["gf2_bits_mm"] = (lambda: cp.gf2_bits_mm(bits, m), lambda: cp.gf2_bits_mm_plain(bits, m),
+                            src, "tools/probe_crc2.py:179", (bits, m), 2 * bits.numel() * 32)
+    for dt, (torch_dtype, _) in cp.DTYPES.items():
+        cases["crc_forms_mm_" + dt] = (
+            lambda dt=dt: cp.crc_forms_mm(rows, dt), lambda dt=dt: cp.crc_forms_mm_plain(rows, dt),
+            src, "tools/probe_crc.py:70", (rows, cp.form_matrix(1024, torch_dtype, dev)), 512 * n)
+    rates = {"gf2_bits_mm": BF16_RATE, "crc_forms_mm_bf16": BF16_RATE, "crc_forms_mm_i8": INT8_RATE}
+    out = check_kernels(cases, phase="H", rates=rates, library={
+        "crc_rowsum": lambda: rows.sum(1, dtype=torch.int32),
+        "gf2_bits_mm": lambda: torch.mm(bits_f32, m_f32)})
+    for dt in cp.DTYPES:
+        out["crc_forms_mm_" + dt]["also_replaces"] = "tools/probe_crc3.py:63 (the bf16 kernel)"
+    out["gf2_bits_mm"]["library_int8_ms"] = cuda_ms(lambda: torch._int_mm(bits_i8, m_i8))
+    del bits_f32, bits_i8
+
+    want = zlib.crc32(big_host)
+    fold = crc32_cuda.crc32_forms(big, 0, 1)
+    bad = []
+    for dt in cp.DTYPES:
+        for B in cp.FORM_BLOCKS:
+            cols = cp.crc_forms_mm(big.view(-1, B), dt)
+            if tools.forms_crc(cols, B, n) != want:
+                bad.append("%s B%d: the CRC differs from zlib" % (dt, B))
+            if B == 1024 and not torch.equal(cp.pack_forms(cols), fold):
+                bad.append("%s: the forms differ from the table fold" % dt)
+    emit({"phase": "H crc", "bytes": n, "zlib": want, "equal": not bad, "failed": bad})
+    if bad:
+        raise SystemExit("phase H: %s" % ", ".join(bad))
+
+    def time_line(kernel, mode, B, tile, data_bytes, row):
+        emit({"phase": "H time", "kernel": kernel, "mode": mode, "B": B, "tile": tile,
+              "ms": row["ms"], "GBps": data_bytes / row["ms"] / 1e6,
+              **{k: row[k] for k in ("bound_ms", "bound_by", "pct_of_bound")}})
+
+    # the rows above at their own shapes; the forms' other (B, tile) pairs
+    # timed here
+    time_line("crc_rowsum", None, 1024, None, n, out["crc_rowsum"])
+    for mode in cp.MODES:
+        time_line("crc_unpack", mode, 1024, None, n, out["crc_unpack_" + mode])
+    time_line("gf2_bits_mm", "bf16", 1024, None, small.numel(), out["gf2_bits_mm"])
+    for dt, (torch_dtype, _) in cp.DTYPES.items():
+        for B, tile in FORM_PAIRS:
+            if (B, tile) == (1024, cp.TILES[0]):
+                row = out["crc_forms_mm_" + dt]
+            else:
+                blocks = big.view(-1, B)
+                ms = cuda_ms(lambda: cp.crc_forms_mm(blocks, dt, tile))
+                bytes_ms = (n + nbytes(cp.form_matrix(B, torch_dtype, dev))
+                            + 128 * blocks.shape[0]) / MEM_RATE * 1e3
+                ops_ms = 512 * n / rates["crc_forms_mm_" + dt] * 1e3
+                row = dict(ms=ms, bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                           pct_of_bound=100 * max(bytes_ms, ops_ms) / ms)
+            time_line("crc_forms_mm", dt, B, tile, n, row)
+    fold_ms = cuda_ms(lambda: crc32_cuda.crc32_forms(big, 0, 1))
+    bf16_ms, i8_ms = out["crc_forms_mm_bf16"]["ms"], out["crc_forms_mm_i8"]["ms"]
+    emit({"phase": "H compare", "bytes": n, "table_fold_ms": fold_ms, "forms_bf16_ms": bf16_ms,
+          "forms_i8_ms": i8_ms, "rowsum_ms": out["crc_rowsum"]["ms"],
+          "read_GBps": n / out["crc_rowsum"]["ms"] / 1e6, "bf16_over_fold": bf16_ms / fold_ms,
+          "i8_over_fold": i8_ms / fold_ms})
+
+    _build.reset_launches()
+    for probe in (probe_crc, probe_crc2, probe_crc3):
+        probe.main(["--mib", "8"])
+    torch.cuda.synchronize()
+    return out, {k: _build.LAUNCHES[k] for k in out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -727,6 +847,9 @@ def main() -> int:
     for name, raw in payload.items():
         emit({"phase": "G2 census", "stream": name, **flag_census(raw)})
     phase_g3(corpus, raw6)
+    rows_h, launches_h = phase_h(big_host, big)
+    rows.update(rows_h)
+    launches.update(launches_h)
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

@@ -18,8 +18,9 @@ import pytest
 import torch
 
 import tpuzlib_torch
-from tpuzlib_torch import testing
-from tpuzlib_torch.kernels import _build, adler32_cuda, crc32_cuda, inflate_cuda, parse, screen
+from tpuzlib_torch import testing, tools
+from tpuzlib_torch.kernels import _build, adler32_cuda, crc32_cuda, crc32_probe, inflate_cuda
+from tpuzlib_torch.kernels import parse, screen
 from tpuzlib_torch.kernels import deflate_device3 as d3
 from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.kernels.deflate_device import segment_parse_xla
@@ -617,3 +618,115 @@ def test_device_deflater_on_card_keeps_its_own_pending_input(dev):
     parts += [d.append(buf), d.finish()]
     wire = b"".join(p.tobytes() for p in parts)
     assert zlib.decompress(wire, -15) == b"A" * 40000 + b"B" * 40000
+
+
+# the CRC probe kernels: row counts around a CUDA block of each kernel
+# (8 rows, 32 rows, tiles of 256 to 1024), all-zero and all-0xFF bytes
+PROBE_NB = [1, 7, 255, 257]
+
+
+def _crc_rows(nb, row, offset, fill, dev):
+    """(nb, row) bytes on the card, seeded or all `fill`, as a view
+    starting `offset` bytes into its allocation; and the same bytes on the
+    host."""
+    if fill is None:
+        return (lambda x, data: (x.view(nb, row), data))(*_bytes_at(nb * row, offset, dev))
+    data = np.full(nb * row, fill, np.uint8)
+    buf = torch.zeros(nb * row + offset, dtype=torch.uint8, device=dev)
+    buf[offset:] = fill
+    return buf[offset:].view(nb, row), data
+
+
+@pytest.mark.parametrize("fill", [None, 0, 255])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("row", [17, 1024, 4096])
+@pytest.mark.parametrize("nb", PROBE_NB)
+def test_crc_row_kernels_match_plain(dev, nb, row, offset, fill):
+    x, _ = _crc_rows(nb, row, offset, fill, dev)
+    got = _launched("crc_rowsum", lambda: crc32_probe.crc_rowsum(x))
+    assert got.dtype == torch.int32 and torch.equal(got, crc32_probe.crc_rowsum_plain(x))
+    for mode in crc32_probe.MODES:
+        got = _launched("crc_unpack_" + mode, lambda: crc32_probe.crc_unpack(x, mode))
+        assert torch.equal(got, crc32_probe.crc_unpack_plain(x, mode)), mode
+
+
+@pytest.mark.parametrize("fill", [None, 0, 255])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("block", crc32_probe.FORM_BLOCKS)
+@pytest.mark.parametrize("nb", PROBE_NB)
+def test_crc_forms_mm_kernel_matches_plain(dev, nb, block, offset, fill):
+    x, _ = _crc_rows(nb, block, offset, fill, dev)
+    for dtype in crc32_probe.DTYPES:
+        want = crc32_probe.crc_forms_mm_plain(x, dtype)
+        for tile in crc32_probe.TILES:
+            got = _launched("crc_forms_mm_" + dtype,
+                            lambda: crc32_probe.crc_forms_mm(x, dtype, tile))
+            assert got.shape == (nb, 32) and torch.equal(got, want), (dtype, tile)
+
+
+@pytest.mark.parametrize("fill", [None, 0, 255])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("nb", PROBE_NB)
+def test_gf2_bits_mm_kernel_matches_plain(dev, nb, offset, fill):
+    """Bits of bytes at an element offset (3: no fragment load is aligned)
+    against the plain product and the forms of the same bytes."""
+    x, _ = _crc_rows(nb, 1024, 0, fill, dev)
+    bits = crc32_probe.plane_bits(x)
+    buf = torch.zeros(bits.numel() + offset, dtype=torch.bfloat16, device=dev)
+    buf[offset:] = bits.reshape(-1)
+    bits = buf[offset:].view(nb, -1)
+    m = crc32_probe.form_matrix(1024, torch.bfloat16, dev)
+    got = _launched("gf2_bits_mm", lambda: crc32_probe.gf2_bits_mm(bits, m))
+    assert torch.equal(got, crc32_probe.gf2_bits_mm_plain(bits, m))
+    assert torch.equal(got, crc32_probe.crc_forms_mm_plain(x))
+
+
+def test_gf2_bits_mm_kernel_on_random_matrices(dev):
+    rng = np.random.default_rng(7)
+    for nb, K in ((33, 128), (64, 384), (300, 1024)):
+        bits, m = (torch.from_numpy(rng.integers(0, 2, shape).astype(np.float32))
+                   .to(dev, torch.bfloat16) for shape in ((nb, K), (K, 32)))
+        got = _launched("gf2_bits_mm", lambda: crc32_probe.gf2_bits_mm(bits, m))
+        assert torch.equal(got, crc32_probe.gf2_bits_mm_plain(bits, m)), (nb, K)
+
+
+@pytest.mark.parametrize("dtype", sorted(crc32_probe.DTYPES))
+@pytest.mark.parametrize("block", crc32_probe.FORM_BLOCKS)
+def test_tensor_core_forms_give_the_crc(dev, dtype, block):
+    """The forms of 257 blocks, combined on the host, give zlib's CRC; at
+    1 KiB they equal the table fold's per-block forms."""
+    x, data = _crc_rows(257, block, 5, None, dev)
+    cols = crc32_probe.crc_forms_mm(x, dtype)
+    assert tools.forms_crc(cols, block, data.size) == zlib.crc32(data.tobytes())
+    if block == 1024:
+        fold = crc32_cuda.crc32_forms(x.reshape(-1), 0, 1)
+        assert torch.equal(crc32_probe.pack_forms(cols), fold)
+
+
+def test_crc_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
+    b = torch.zeros(8, 1024, dtype=torch.uint8, device=dev)
+    m = crc32_probe.form_matrix(1024, torch.bfloat16, dev)
+    bits = torch.zeros(8, 8192, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):
+        crc32_probe.crc_rowsum(b.int())
+    with pytest.raises(ValueError):
+        crc32_probe.crc_rowsum(b.reshape(-1))
+    with pytest.raises(ValueError):
+        crc32_probe.crc_unpack(b, "f32")
+    with pytest.raises(ValueError):
+        crc32_probe.crc_unpack(b[:, ::2], "u8")
+    with pytest.raises(ValueError):
+        crc32_probe.crc_forms_mm(b[:, :512])
+    with pytest.raises(ValueError):
+        crc32_probe.crc_forms_mm(b, "f16")
+    with pytest.raises(ValueError):
+        crc32_probe.crc_forms_mm(b, "bf16", 64)
+    with pytest.raises(TypeError):
+        crc32_probe.gf2_bits_mm(bits.float(), m)
+    with pytest.raises(ValueError):
+        crc32_probe.gf2_bits_mm(bits[:, :8000].contiguous(), m[:8000].contiguous())
+    with pytest.raises(ValueError):
+        crc32_probe.gf2_bits_mm(bits, m[:4096])
+    with pytest.raises(ValueError):  # m off a 32-byte boundary
+        crc32_probe.gf2_bits_mm(bits[:, :128].contiguous(),
+                                m.view(-1)[8 : 8 + 128 * 32].view(128, 32))

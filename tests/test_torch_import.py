@@ -27,7 +27,7 @@ from tpuzlib_torch import DeflaterOptions
 from tpuzlib_torch.codec import bitsink, huffman, tables
 from tpuzlib_torch.codec import tokenize as tk
 from tpuzlib_torch.containers import headers
-from tpuzlib_torch.kernels import _build, adler32, deflate_device as tdd
+from tpuzlib_torch.kernels import _build, adler32, crc32_probe, deflate_device as tdd
 from tpuzlib_torch.kernels import deflate_device3 as td3
 from tpuzlib_torch.kernels import inflate_cuda, parse, screen
 from tpuzlib_torch.native import bindings
@@ -59,6 +59,8 @@ def test_no_source_imports_jax_or_tpuzlib():
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    probes = ("probe_crc", "probe_crc2", "probe_crc3")
+    assert {os.path.join(PKG, "tools", n + ".py") for n in probes} <= set(files)
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
@@ -176,9 +178,21 @@ def test_wrappers_refuse_other_devices():
         inflate_cuda.decode_luts(inflate_cuda.DecodeArgs(
             meta(64), meta(inflate_cuda.NCUR, 4), meta(1, inflate_cuda.TB),
             meta(1, inflate_cuda.LE), meta(1, inflate_cuda.DE), 8, 8))
+    rows = b.reshape(2, 8)
+    with pytest.raises(ValueError):
+        crc32_probe.crc_rowsum(rows)
+    with pytest.raises(ValueError):
+        crc32_probe.crc_unpack(rows, "u8")
+    with pytest.raises(ValueError):
+        crc32_probe.crc_forms_mm(torch.zeros(2, 1024, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError):
+        crc32_probe.gf2_bits_mm(torch.zeros(2, 128, dtype=torch.bfloat16, device="meta"),
+                                torch.zeros(128, 32, dtype=torch.bfloat16, device="meta"))
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
                                     "crc32_forms", "crc32_spans", "adler32", "inflate_lut",
-                                    "inflate_decode"}
+                                    "inflate_decode", "crc_rowsum", "crc_unpack_u8",
+                                    "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
+                                    "crc_forms_mm_bf16", "crc_forms_mm_i8"}
     assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 6
 
 
@@ -231,8 +245,12 @@ def test_native_library_builds_and_loads():
 
 def test_reads_no_environment():
     pat = re.compile(r"os\.environ|getenv")
+    seen = set()
     for root, _, names in os.walk(PKG):
         for n in names:
             if n.endswith(".py"):
+                seen.add(os.path.relpath(os.path.join(root, n), PKG))
                 with open(os.path.join(root, n)) as f:
                     assert not pat.search(f.read()), n
+    assert {"tools/__init__.py", "tools/probe_crc.py", "tools/probe_crc2.py",
+            "tools/probe_crc3.py", "kernels/crc32_probe.py"} <= seen

@@ -43,15 +43,21 @@ _ARGTYPES = {
     "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
     "tz_inflate_lut": [_P, _P, _P, _I, _I, _I, _P, _P],
     "tz_inflate_decode": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tz_crc_rowsum": [_P, _L, _I, _I, _P, _P],
+    "tz_crc_forms_mm": [_P, _L, _I, _I, _I, _P, _P, _P],
+    "tz_gf2_bits_mm": [_P, _L, _I, _P, _P, _P],
 }
 _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
                "tz_error_string": (ctypes.c_char_p, [_I])}
 
 # the CRC kernel counts its two modes apart: per-block forms, span forms;
-# pack_words' one launch is its two kernels (tile sums, then the words)
+# pack_words' one launch is its two kernels (tile sums, then the words);
+# the probes' unpack counts each mode apart, their forms each dtype
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
             "crc32_forms": 0, "crc32_spans": 0, "adler32": 0, "inflate_lut": 0,
-            "inflate_decode": 0}
+            "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
+            "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,
+            "crc_forms_mm_i8": 0}
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))

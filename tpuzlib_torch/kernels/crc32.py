@@ -103,6 +103,15 @@ def block_matrix_bits(block: int) -> np.ndarray:
     return bits
 
 
+@functools.lru_cache()
+def plane_matrix_bits(block: int) -> np.ndarray:
+    """block_matrix_bits(block) with its rows regrouped by bit plane: row
+    i * block + j is row j * 8 + i (bit i of byte j), the K order of the
+    tensor-core forms (tpuzlib builds it inline, crc32_pallas.py:44-46)."""
+    m = block_matrix_bits(block)
+    return np.concatenate([m[i::8] for i in range(8)])
+
+
 def _combine_blocks(g: np.ndarray, block: int) -> int:
     """Fold per-block linear forms into L(data) via a log-depth tree.
 
