@@ -55,7 +55,21 @@ tpuzlib_torch/kernels/csrc, then:
      to equal the table fold's, times each kernel at every (B, tile) the
      tools run beside the table fold, then runs the three probes of
      tpuzlib_torch/tools at 8 MiB; their launches are taken over those
-     runs.
+     runs;
+  I  holds the gather and primitive probe kernels (gather_probe.cu,
+     inflate_prims.cu) to their plain versions: take_along on (64, 4352)
+     along axis 1 and on (4352, 128) and the encoder batch's
+     (8 x 2304, 128) along axis 0, take_along_loop on (4352, 128) x 64,
+     flat_gather, shift_screen and scatter_max on 8 chunks of (2304, 128)
+     (the positions of one chunk, 32 KiB of context and 256 KiB, as
+     tools/probe_primitives.py:48 sizes them, in the main path's batch of
+     8), the inflate primitives at 8,192 lanes (G1's cursor count); an
+     "I device" line a row gives its device time (and its library call's)
+     of bare launches queued behind a sleep kernel, since these wrapper
+     calls are held by their host time; the "I launch floor" line gives
+     take_along on a (1, 1) input timed both ways; then runs the four probes of tpuzlib_torch/tools
+     (probe_gather, probe_primitives, probe_inflate_prims,
+     probe_inflate_prims2), over which their launches are counted.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -69,8 +83,11 @@ only lowers the bound), or, for the tensor-core products of H, the
 published dense bf16 or int8 rate (`op_rate` in the row).  library_ms is
 one PyTorch call computing the same function: the row sums for
 crc_rowsum, a float32 torch.mm for gf2_bits_mm (its row adds torch._int_mm
-as library_int8_ms); no single call computes any other kernel's function,
-and theirs is null.
+as library_int8_ms), torch.gather for take_along (on in-range indices,
+int64 beforehand), torch.take for flat_gather, scatter_reduce_ "amax" for
+scatter_max; no single call computes any other kernel's function (the
+loop, the shift screen's 16 rolls under a max, the inflate primitives'
+loops and lane arithmetic are each several calls), and theirs is null.
 """
 
 from __future__ import annotations
@@ -91,6 +108,8 @@ DEVICE = "cuda"
 # the tensor cores; the tensor cores' dense bf16 FLOP/s and int8 OP/s
 MEM_RATE, OP_RATE = 3.35e12, 67e12
 BF16_RATE, INT8_RATE = 989.4e12, 1978.9e12
+# cycles a second that size torch.cuda._sleep: the H100's top SM clock
+SLEEP_HZ = 1.98e9
 # the (B, tile) pairs the CRC probes run (tools/probe_crc.py, probe_crc3.py)
 FORM_PAIRS = ((1024, 256), (4096, 256), (4096, 512), (1024, 1024))
 
@@ -104,6 +123,29 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of fn() in ms, mean over `reps` after 3 warm-ups, with
+    the calls queued behind a sleep kernel while the host launches them,
+    so that a call's host time does not stretch it (a call's own host
+    time, card idle, sizes the sleep)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * SLEEP_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -796,6 +838,118 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
     return out, {k: _build.LAUNCHES[k] for k in out}
 
 
+def phase_i() -> tuple:
+    """The gather and primitive probe kernels against their plain versions
+    (exact) at the shapes named in the module docstring, the launch floor,
+    then the four probes, over which the kernels' launches are counted.
+    Returns (rows, launches); a take_along row names its kernel."""
+    from tpuzlib_torch.codec.tables import FIXED_LITLEN_LENGTHS
+    from tpuzlib_torch.kernels import _build, gather_probe as gp, inflate_cuda, inflate_prims as ip
+    from tpuzlib_torch.tools import (probe_gather, probe_inflate_prims, probe_inflate_prims2,
+                                     probe_primitives)
+
+    rng = np.random.default_rng(9)
+
+    def ints(shape, lo=-(1 << 31), hi=(1 << 31) - 1):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int32)).to(DEVICE)
+
+    gsrc, isrc = ("tpuzlib_torch/kernels/csrc/%s.cu" % n for n in ("gather_probe", "inflate_prims"))
+    chunks, lanes = (BATCH, 2304, 128), 8192
+    cases, library, kernel_of = {}, {}, {}
+    # take_along: one element gathered a lane
+    for name, shape, axis, replaces in (
+        ("take_along_axis1", (64, 4352), 1, "tools/probe_gather.py:54"),
+        ("take_along_axis0", (4352, 128), 0, "tools/probe_gather.py:75"),
+        ("take_along_axis0_batch8", (BATCH * 2304, 128), 0, "tools/probe_gather.py:75"),
+    ):
+        x, idx = ints(shape), ints(shape, 0, shape[axis])
+        idx64 = idx.long()
+        cases[name] = (lambda x=x, idx=idx, axis=axis: gp.take_along(x, idx, axis),
+                       lambda x=x, idx=idx, axis=axis: gp.take_along_plain(x, idx, axis),
+                       gsrc, replaces, (x, idx), idx.numel())
+        library[name] = lambda x=x, idx64=idx64, axis=axis: torch.gather(x, axis, idx64)
+        kernel_of[name] = "take_along"
+    x, idx = ints((4352, 128)), ints((4352, 128), 0, 4352)
+    cases["take_along_loop"] = (lambda: gp.take_along_loop(x, idx, 0, 64),
+                                lambda: gp.take_along_loop_plain(x, idx, 0, 64), gsrc,
+                                "tools/probe_gather.py:96", (x, idx), 64 * x.numel())
+    table, fidx = ints((256, 128)), ints(chunks, 0, 32768)
+    fidx64 = fidx.long()
+    cases["flat_gather"] = (lambda: gp.flat_gather(table, fidx),
+                            lambda: gp.flat_gather_plain(table, fidx), gsrc,
+                            "tools/probe_primitives.py:176", (table, fidx), fidx.numel())
+    library["flat_gather"] = lambda: torch.take(table, fidx64)
+    sx = ints(chunks)
+    cases["shift_screen"] = (lambda: gp.shift_screen(sx, 16), lambda: gp.shift_screen_plain(sx, 16),
+                             gsrc, "tools/probe_primitives.py:208", (sx,), 16 * sx.numel())
+    sidx, svals = ints(chunks, 0, chunks[1]), ints(chunks, 0, (1 << 31) - 1)
+    sidx64, sout = sidx.long(), torch.zeros(chunks, dtype=torch.int32, device=DEVICE)
+    cases["scatter_max"] = (lambda: gp.scatter_max(sidx, svals, chunks[1]),
+                            lambda: gp.scatter_max_plain(sidx, svals, chunks[1]), gsrc,
+                            "tools/probe_primitives.py:196", (sidx, svals), sidx.numel())
+    library["scatter_max"] = lambda: sout.scatter_reduce_(1, sidx64, svals, "amax")
+
+    # the inflate primitives at 8,192 lanes; operations: one a lane and step
+    x0 = ints((1, lanes), 0, 100)
+    steps = min(64, max(0, 100 - int(x0.min())))  # the loop's steps on this input
+    cases["vec_cond_while"] = (lambda: ip.vec_cond_while(x0), lambda: ip.vec_cond_while_plain(x0),
+                               isrc, "tools/probe_inflate_prims.py:81", (x0,), steps * lanes)
+    words, j = ints((40, lanes)), ints((1, lanes), 0, 37)
+    cases["fetch_rows"] = (lambda: ip.fetch_rows(words, j, 3),
+                           lambda: ip.fetch_rows_plain(words, j, 3), isrc,
+                           "tools/probe_inflate_prims.py:105", (words, j), 3 * lanes)
+    cases["row_store_loop"] = (lambda: ip.row_store_loop(24, lanes, DEVICE),
+                               lambda: ip.row_store_loop_plain(24, lanes, DEVICE), isrc,
+                               "tools/probe_inflate_prims.py:58", (), 24 * lanes)
+    cases["gather_store_loop"] = (lambda: ip.gather_store_loop(words, j, 16),
+                                  lambda: ip.gather_store_loop_plain(words, j, 16), isrc,
+                                  "tools/probe_inflate_prims.py:131", (words, j), 16 * lanes)
+    cx = ints((16, lanes), 0, 1000)
+    cases["col_min_sum"] = (lambda: ip.col_min_sum(cx), lambda: ip.col_min_sum_plain(cx), isrc,
+                            "tools/probe_inflate_prims2.py:46", (cx,), 2 * cx.numel())
+    rv, eb = ints((1, lanes), 0, 1 << 16), ints((1, lanes), 0, 14)
+    cases["var_shifts"] = (lambda: ip.var_shifts(rv, eb), lambda: ip.var_shifts_plain(rv, eb), isrc,
+                           "tools/probe_inflate_prims2.py:58", (rv, eb), 17 * lanes)
+    _, *cols = inflate_cuda.canon_tables(FIXED_LITLEN_LENGTHS, "litlen")
+    tabs = [torch.from_numpy(np.tile(c[:, None], (1, lanes))).to(DEVICE) for c in cols]
+    w = ints((1, lanes))
+    cases["tree_decode"] = (lambda: ip.tree_decode(w, *tabs), lambda: ip.tree_decode_plain(w, *tabs),
+                            isrc, "tools/probe_inflate_prims2.py:82", (w, *tabs), 16 * lanes)
+    win = (*(ints((1, lanes)) for _ in range(3)), ints((1, lanes), 0, 32), ints((1, lanes), 0, 21))
+    cases["window64"] = (lambda: ip.window64(*win), lambda: ip.window64_plain(*win), isrc,
+                         "tools/probe_inflate_prims2.py:139", win, 3 * lanes)
+
+    rows = check_kernels(cases, phase="I", library=library)
+    # device time of bare launches: the wrappers' host time holds these rows
+    for name, row in rows.items():
+        row["device_ms"] = device_ms(cases[name][0])
+        row["device_pct_of_bound"] = 100 * row["bound_ms"] / row["device_ms"]
+        if name in library:
+            row["library_device_ms"] = device_ms(library[name])
+        emit({"phase": "I device", **{k: row[k] for k in ("name", "ms", "device_ms", "bound_ms",
+                                                           "device_pct_of_bound", "library_ms")},
+              "library_device_ms": row.get("library_device_ms")})
+    axis0 = ("tools/probe_primitives.py:188 k_tala0, tools/probe_inflate_prims.py:50 k_a, "
+             "tools/probe_inflate_prims2.py:115 k_i (table_lookup)")
+    rows["take_along_axis1"]["also_replaces"] = "tools/probe_primitives.py:167 k_tala"
+    rows["take_along_axis0"]["also_replaces"] = axis0
+    rows["take_along_axis0_batch8"]["also_replaces"] = axis0
+    for name, kernel in kernel_of.items():
+        rows[name]["kernel"] = kernel
+    one = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
+    one64 = one.long()
+    floor, lib_floor = lambda: gp.take_along(one, one, 1), lambda: torch.gather(one, 1, one64)
+    emit({"phase": "I launch floor", "kernel": "take_along", "shape": [1, 1],
+          "ms": cuda_ms(floor), "device_ms": device_ms(floor),
+          "library_ms": cuda_ms(lib_floor), "library_device_ms": device_ms(lib_floor)})
+
+    _build.reset_launches()
+    for probe in (probe_gather, probe_primitives, probe_inflate_prims, probe_inflate_prims2):
+        probe.main([])
+    torch.cuda.synchronize()
+    return rows, {k: _build.LAUNCHES[kernel_of.get(k, k)] for k in rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -850,6 +1004,11 @@ def main() -> int:
     rows_h, launches_h = phase_h(big_host, big)
     rows.update(rows_h)
     launches.update(launches_h)
+    t0 = time.perf_counter()
+    rows_i, launches_i = phase_i()
+    emit({"phase": "I", "s": time.perf_counter() - t0})
+    rows.update(rows_i)
+    launches.update(launches_i)
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

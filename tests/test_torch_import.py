@@ -29,7 +29,7 @@ from tpuzlib_torch.codec import tokenize as tk
 from tpuzlib_torch.containers import headers
 from tpuzlib_torch.kernels import _build, adler32, crc32_probe, deflate_device as tdd
 from tpuzlib_torch.kernels import deflate_device3 as td3
-from tpuzlib_torch.kernels import inflate_cuda, parse, screen
+from tpuzlib_torch.kernels import gather_probe, inflate_cuda, inflate_prims, parse, screen
 from tpuzlib_torch.native import bindings
 
 # One intra-op thread: the suite runs in several worker processes at once,
@@ -59,8 +59,11 @@ def test_no_source_imports_jax_or_tpuzlib():
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
-    probes = ("probe_crc", "probe_crc2", "probe_crc3")
+    probes = ("probe_crc", "probe_crc2", "probe_crc3", "probe_gather", "probe_primitives",
+              "probe_inflate_prims", "probe_inflate_prims2")
     assert {os.path.join(PKG, "tools", n + ".py") for n in probes} <= set(files)
+    kernels = ("crc32_probe", "gather_probe", "inflate_prims")
+    assert {os.path.join(PKG, "kernels", n + ".py") for n in kernels} <= set(files)
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
@@ -188,11 +191,39 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         crc32_probe.gf2_bits_mm(torch.zeros(2, 128, dtype=torch.bfloat16, device="meta"),
                                 torch.zeros(128, 32, dtype=torch.bfloat16, device="meta"))
+    m2 = meta(2, 8)
+    row = meta(1, 8)
+    for call in (lambda: gather_probe.take_along(m2, m2, 0),
+                 lambda: gather_probe.take_along_loop(m2, m2, 1),
+                 lambda: gather_probe.flat_gather(m2, m2),
+                 lambda: gather_probe.scatter_max(m2, m2, 4),
+                 lambda: gather_probe.shift_screen(m2),
+                 lambda: inflate_prims.vec_cond_while(row),
+                 lambda: inflate_prims.fetch_rows(m2, row),
+                 lambda: inflate_prims.row_store_loop(2, 8, "meta"),
+                 lambda: inflate_prims.gather_store_loop(m2, row),
+                 lambda: inflate_prims.col_min_sum(m2),
+                 lambda: inflate_prims.var_shifts(row, row),
+                 lambda: inflate_prims.tree_decode(row, meta(16, 8), meta(16, 8), meta(16, 8)),
+                 lambda: inflate_prims.table_lookup(m2, row),
+                 lambda: inflate_prims.window64(row, row, row, row, row)):
+        with pytest.raises(ValueError):
+            call()
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
                                     "crc32_forms", "crc32_spans", "adler32", "inflate_lut",
                                     "inflate_decode", "crc_rowsum", "crc_unpack_u8",
                                     "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
-                                    "crc_forms_mm_bf16", "crc_forms_mm_i8"}
+                                    "crc_forms_mm_bf16", "crc_forms_mm_i8", "take_along",
+                                    "take_along_loop", "flat_gather", "scatter_max",
+                                    "shift_screen", "vec_cond_while", "fetch_rows",
+                                    "row_store_loop", "gather_store_loop", "col_min_sum",
+                                    "var_shifts", "tree_decode", "window64"}
+    assert set(_build._ARGTYPES) >= {"tz_" + k for k in ("take_along", "take_along_loop",
+                                                         "flat_gather", "scatter_max",
+                                                         "shift_screen", "vec_cond_while",
+                                                         "fetch_rows", "row_store_loop",
+                                                         "gather_store_loop", "col_min_sum",
+                                                         "var_shifts", "tree_decode", "window64")}
     assert all(p.endswith((".cu", ".cuh")) for p in _build.sources()) and len(_build.sources()) >= 6
 
 
@@ -253,4 +284,23 @@ def test_reads_no_environment():
                 with open(os.path.join(root, n)) as f:
                     assert not pat.search(f.read()), n
     assert {"tools/__init__.py", "tools/probe_crc.py", "tools/probe_crc2.py",
-            "tools/probe_crc3.py", "kernels/crc32_probe.py"} <= seen
+            "tools/probe_crc3.py", "kernels/crc32_probe.py", "tools/probe_gather.py",
+            "tools/probe_primitives.py", "tools/probe_inflate_prims.py",
+            "tools/probe_inflate_prims2.py", "kernels/gather_probe.py",
+            "kernels/inflate_prims.py"} <= seen
+
+
+def test_importing_the_probes_runs_nothing():
+    """Every probe does its work in main(): importing one prints nothing and
+    builds and launches nothing (tools/probe_primitives.py runs at import)."""
+    code = (
+        "import tpuzlib_torch.tools.probe_primitives, tpuzlib_torch.tools.probe_gather\n"
+        "import tpuzlib_torch.tools.probe_inflate_prims, tpuzlib_torch.tools.probe_inflate_prims2\n"
+        "from tpuzlib_torch.kernels import _build\n"
+        "assert _build.lib._handle is None and not any(_build.LAUNCHES.values())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == ""

@@ -46,6 +46,19 @@ _ARGTYPES = {
     "tz_crc_rowsum": [_P, _L, _I, _I, _P, _P],
     "tz_crc_forms_mm": [_P, _L, _I, _I, _I, _P, _P, _P],
     "tz_gf2_bits_mm": [_P, _L, _I, _P, _P, _P],
+    "tz_take_along": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    "tz_take_along_loop": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "tz_flat_gather": [_P, _L, _P, _L, _P, _P],
+    "tz_scatter_max": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "tz_shift_screen": [_P, _I, _L, _I, _P, _P],
+    "tz_vec_cond_while": [_P, _I, _P, _P],
+    "tz_fetch_rows": [_P, _I, _I, _P, _I, _P, _P],
+    "tz_row_store_loop": [_I, _I, _P, _P],
+    "tz_gather_store_loop": [_P, _I, _I, _P, _I, _P, _P],
+    "tz_col_min_sum": [_P, _I, _I, _P, _P],
+    "tz_var_shifts": [_P, _P, _I, _P, _P],
+    "tz_tree_decode": [_P, _P, _P, _P, _I, _P, _P],
+    "tz_window64": [_P, _P, _P, _P, _P, _I, _P, _P],
 }
 _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
                "tz_error_string": (ctypes.c_char_p, [_I])}
@@ -57,7 +70,10 @@ LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words":
             "crc32_forms": 0, "crc32_spans": 0, "adler32": 0, "inflate_lut": 0,
             "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
             "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,
-            "crc_forms_mm_i8": 0}
+            "crc_forms_mm_i8": 0, "take_along": 0, "take_along_loop": 0, "flat_gather": 0,
+            "scatter_max": 0, "shift_screen": 0, "vec_cond_while": 0, "fetch_rows": 0,
+            "row_store_loop": 0, "gather_store_loop": 0, "col_min_sum": 0, "var_shifts": 0,
+            "tree_decode": 0, "window64": 0}
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))

@@ -1,0 +1,267 @@
+// The inflate primitive probe kernels: the steps the TPU decode kernel was
+// built from, each alone, over L lanes (a lane is a column, as a cursor
+// was a lane of the TPU kernel; the tools run 128).
+//
+// Replace the Pallas kernels of tools/probe_inflate_prims.py and
+// probe_inflate_prims2.py:
+//   vec_cond_while     :81 k_c, a while loop on one condition for the whole
+//                      vector (any lane below 100, fewer than 64 steps),
+//                      adding 1 to each lane below 100 a step;
+//   fetch_rows         :105 k_d, words[j + i] for i < k (the tool's k = 3),
+//                      0 outside the rows;
+//   row_store_loop     :58 k_b, row `it` of the output set to `it` in step
+//                      `it` of a loop;
+//   gather_store_loop  :131 k_e, a loop that stores words[j] to row `it`
+//                      and steps j to (j + 3) mod (nw - 1);
+//   col_min_sum        prims2 :46 k_f, each column's min and int32 sum;
+//   var_shifts         prims2 :58 k_g, r >> (16 - L) for L < 16 and the
+//                      mask (1 << e) - 1 in uint32;
+//   tree_decode        prims2 :82 k_h, the counting decode over 16 code
+//                      lengths of a 16-bit window (bit-reversed);
+//   window64           prims2 :139 k_j, a 64-bit window from three words
+//                      at a bit shift, and its re-window.
+// k_a (:50) and k_i (prims2 :115) are take_along on axis 0
+// (gather_probe.cu).  k_d, k_e and k_i select their word by a where-chain
+// over 8-row tiles, a TPU workaround; here each lane loads its word, and a
+// row outside [0, nw) gives 0 as the chain did.  Every lane's arithmetic
+// is the tools' in 32 bits: sums add as unsigned (the int32 wrap), a shift
+// of a uint32 by 32 or more gives 0, and k_j's selects for a shift of 0
+// stay (w << 32 is undefined in C++).
+//
+// Bounds (H100 SXM): a few words a lane in and out, so at the tools' 128
+// lanes and at 8,192 (the TPU decode's cursors) every kernel is held by
+// its launch.  Designs: one thread a lane, rows a loop inside it, stores
+// coalesced across lanes.  vec_cond_while is one CUDA block that holds
+// every lane and tests the condition with __syncthreads_or, since lanes
+// in different blocks could not share it.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWhileThreads = 1024;  // vec_cond_while's one block
+constexpr int kLimit = 100, kMaxSteps = 64;  // k_c's condition
+
+__host__ __device__ __forceinline__ unsigned blocks_for(int lanes) {
+  return static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
+}
+
+__device__ __forceinline__ uint32_t shr(uint32_t x, uint32_t s) { return s < 32u ? x >> s : 0u; }
+__device__ __forceinline__ uint32_t shl(uint32_t x, uint32_t s) { return s < 32u ? x << s : 0u; }
+
+__global__ void __launch_bounds__(kWhileThreads)
+vec_cond_while_kernel(const int32_t* __restrict__ x, int lanes, int32_t* __restrict__ out) {
+  int below = 0;
+  for (int l = threadIdx.x; l < lanes; l += kWhileThreads) {
+    const int32_t v = x[l];
+    out[l] = v;
+    below |= v < kLimit;
+  }
+  // each thread reads and writes only its own lanes; the barrier orders the steps
+  for (int it = 0; __syncthreads_or(below) && it < kMaxSteps; ++it) {
+    below = 0;
+    for (int l = threadIdx.x; l < lanes; l += kWhileThreads) {
+      int32_t v = out[l];
+      v += v < kLimit;
+      out[l] = v;
+      below |= v < kLimit;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fetch_rows_kernel(const int32_t* __restrict__ words, int nw, int lanes,
+                  const int32_t* __restrict__ j, int k, int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  const long long j0 = j[l];
+  for (int i = 0; i < k; ++i) {
+    const long long r = j0 + i;
+    out[static_cast<long long>(i) * lanes + l] = r >= 0 && r < nw ? words[r * lanes + l] : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+row_store_loop_kernel(int rows, int lanes, int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  for (int it = 0; it < rows; ++it) out[static_cast<long long>(it) * lanes + l] = it;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_store_loop_kernel(const int32_t* __restrict__ words, int nw, int lanes,
+                         const int32_t* __restrict__ j, int steps, int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  int jj = j[l];
+  for (int it = 0; it < steps; ++it) {
+    out[static_cast<long long>(it) * lanes + l] =
+        jj >= 0 && jj < nw ? words[static_cast<long long>(jj) * lanes + l] : 0;
+    jj = static_cast<int>(static_cast<uint32_t>(jj) + 3u) % (nw - 1);  // jnp's %: a floor mod
+    if (jj < 0) jj += nw - 1;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+col_min_sum_kernel(const int32_t* __restrict__ x, int rows, int lanes, int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  int32_t m = x[l];
+  uint32_t s = static_cast<uint32_t>(m);
+  for (int r = 1; r < rows; ++r) {
+    const int32_t v = x[static_cast<long long>(r) * lanes + l];
+    m = min(m, v);
+    s += static_cast<uint32_t>(v);
+  }
+  out[l] = m;
+  out[lanes + l] = static_cast<int32_t>(s);
+}
+
+// out (17, lanes): rows 0-15 r >> (16 - L) (arithmetic), row 16 the mask
+__global__ void __launch_bounds__(kThreads)
+var_shifts_kernel(const int32_t* __restrict__ r, const int32_t* __restrict__ e, int lanes,
+                  int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  const int32_t rv = r[l];
+#pragma unroll
+  for (int L = 0; L < 16; ++L) out[static_cast<long long>(L) * lanes + l] = rv >> (16 - L);
+  out[16LL * lanes + l] = static_cast<int32_t>(shl(1u, static_cast<uint32_t>(e[l])) - 1u);
+}
+
+__device__ __forceinline__ uint32_t rev16(uint32_t w) {
+  return __brev(w & 0xFFFFu) >> 16;
+}
+
+// out (2, lanes): the first code length L >= 1 whose table range holds
+// the window's L-bit prefix (99 for none), and the rank at L clipped to
+// [0, 15]; cnt, first, off: int32 (16, lanes)
+__global__ void __launch_bounds__(kThreads)
+tree_decode_kernel(const int32_t* __restrict__ w, const int32_t* __restrict__ cnt,
+                   const int32_t* __restrict__ first, const int32_t* __restrict__ off, int lanes,
+                   int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  const int32_t rv = static_cast<int32_t>(rev16(static_cast<uint32_t>(w[l])));
+  int sel = 99;
+#pragma unroll
+  for (int L = 15; L >= 1; --L) {
+    const int32_t code = rv >> (16 - L);
+    const int32_t f = first[static_cast<long long>(L) * lanes + l];
+    const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(code) - static_cast<uint32_t>(f));
+    if (code >= f && d < cnt[static_cast<long long>(L) * lanes + l]) sel = L;
+  }
+  const int Lc = sel < 15 ? sel : 15;
+  const int32_t code = rv >> (16 - Lc);
+  const long long at = static_cast<long long>(Lc) * lanes + l;
+  out[l] = sel;
+  out[lanes + l] = static_cast<int32_t>(static_cast<uint32_t>(off[at]) + static_cast<uint32_t>(code) -
+                                        static_cast<uint32_t>(first[at]));
+}
+
+// out (3, lanes): the 64-bit window's low and high words at bit sh of
+// (a, b, c), and its low word re-windowed by o clipped to [0, 31]
+__global__ void __launch_bounds__(kThreads)
+window64_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                const int32_t* __restrict__ c, const int32_t* __restrict__ sh,
+                const int32_t* __restrict__ o, int lanes, int32_t* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  const uint32_t wa = a[l], wb = b[l], wc = c[l];
+  const uint32_t shv = static_cast<uint32_t>(sh[l]);
+  const uint32_t nsh = (32u - shv) & 31u;
+  const uint32_t hi_b = shv == 0u ? 0u : wb << nsh;
+  const uint32_t hi_c = shv == 0u ? 0u : wc << nsh;
+  const uint32_t lo = shr(wa, shv) | hi_b;
+  const uint32_t hi = shr(wb, shv) | hi_c;
+  const int32_t oc = min(max(o[l], 0), 31);
+  const uint32_t ov = static_cast<uint32_t>(oc), no = (32u - ov) & 31u;
+  const uint32_t w2 = ov == 0u ? lo : (lo >> ov) | (hi << no);
+  out[l] = static_cast<int32_t>(lo);
+  out[lanes + l] = static_cast<int32_t>(hi);
+  out[2LL * lanes + l] = static_cast<int32_t>(w2);
+}
+
+int done() { return static_cast<int>(cudaGetLastError()); }
+int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
+
+}  // namespace
+
+// Every array is int32 (rows, lanes), row-major; uint32 values pass as
+// their bits.  lanes >= 1.
+
+extern "C" int tz_vec_cond_while(const void* x, int lanes, void* out, void* stream) {
+  if (lanes <= 0) return invalid();
+  vec_cond_while_kernel<<<1, kWhileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), lanes, static_cast<int32_t*>(out));
+  return done();
+}
+
+// words (nw, lanes), j (1, lanes), out (k, lanes); k >= 1
+extern "C" int tz_fetch_rows(const void* words, int nw, int lanes, const void* j, int k,
+                             void* out, void* stream) {
+  if (lanes <= 0 || nw < 0 || k <= 0) return invalid();
+  fetch_rows_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(words), nw, lanes, static_cast<const int32_t*>(j), k,
+      static_cast<int32_t*>(out));
+  return done();
+}
+
+// out (rows, lanes); rows >= 1
+extern "C" int tz_row_store_loop(int rows, int lanes, void* out, void* stream) {
+  if (lanes <= 0 || rows <= 0) return invalid();
+  row_store_loop_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, lanes, static_cast<int32_t*>(out));
+  return done();
+}
+
+// words (nw, lanes) with nw >= 2, j (1, lanes), out (steps, lanes); steps >= 1
+extern "C" int tz_gather_store_loop(const void* words, int nw, int lanes, const void* j, int steps,
+                                    void* out, void* stream) {
+  if (lanes <= 0 || nw < 2 || steps <= 0) return invalid();
+  gather_store_loop_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(words), nw, lanes, static_cast<const int32_t*>(j), steps,
+      static_cast<int32_t*>(out));
+  return done();
+}
+
+// x (rows, lanes) with rows >= 1, out (2, lanes)
+extern "C" int tz_col_min_sum(const void* x, int rows, int lanes, void* out, void* stream) {
+  if (lanes <= 0 || rows <= 0) return invalid();
+  col_min_sum_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), rows, lanes, static_cast<int32_t*>(out));
+  return done();
+}
+
+// r, e (1, lanes), out (17, lanes)
+extern "C" int tz_var_shifts(const void* r, const void* e, int lanes, void* out, void* stream) {
+  if (lanes <= 0) return invalid();
+  var_shifts_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(r), static_cast<const int32_t*>(e), lanes,
+      static_cast<int32_t*>(out));
+  return done();
+}
+
+// w (1, lanes), cnt, first, off (16, lanes), out (2, lanes)
+extern "C" int tz_tree_decode(const void* w, const void* cnt, const void* first, const void* off,
+                              int lanes, void* out, void* stream) {
+  if (lanes <= 0) return invalid();
+  tree_decode_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(w), static_cast<const int32_t*>(cnt),
+      static_cast<const int32_t*>(first), static_cast<const int32_t*>(off), lanes,
+      static_cast<int32_t*>(out));
+  return done();
+}
+
+// a, b, c, sh, o (1, lanes), out (3, lanes)
+extern "C" int tz_window64(const void* a, const void* b, const void* c, const void* sh,
+                           const void* o, int lanes, void* out, void* stream) {
+  if (lanes <= 0) return invalid();
+  window64_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<const int32_t*>(c), static_cast<const int32_t*>(sh),
+      static_cast<const int32_t*>(o), lanes, static_cast<int32_t*>(out));
+  return done();
+}

@@ -1,0 +1,229 @@
+"""The gather and primitive probe kernels (csrc/gather_probe.cu).
+
+Counterparts of the Pallas kernels of tools/probe_gather.py and
+tools/probe_primitives.py, which the probes in tpuzlib_torch/tools drive;
+all take and give int32 (uint32 values pass as their bits):
+
+  take_along(x, idx, axis, fill)
+                   jnp.take_along_axis on a 2-D x (probe_gather's lane and
+                   sublane gathers, probe_primitives' k_tala and k_tala0,
+                   and the sublane gathers of the inflate probes): the
+                   output has idx's shape; an index in [-n, 0) counts from
+                   the end, any other outside [0, n) gives `fill` (jnp's:
+                   INT32_MIN for int32, -1 for uint32 bits);
+  take_along_loop(x, idx, axis, iters)
+                   the int32 sum of take_along(x, (idx + t) mod n, axis)
+                   over t < iters (probe_gather's loop_cost);
+  flat_gather(table, idx)
+                   table.reshape(-1)[idx] (k_flatgather): an index below 0
+                   counts from the end, then clamps to the table;
+  scatter_max(idx, vals, rows)
+                   zeros (rows, w) max-scattered along rows:
+                   out[idx[i, c], c] = max(out[...], vals[i, c]) (k_scatter,
+                   whose values were zeros); an index below 0 counts from
+                   the end, one still outside [0, rows) is dropped;
+  shift_screen(x, steps)
+                   the signed max over s in [1, steps] of
+                   roll(x, s) ^ x on the flattened array, and 0 (k_roll's
+                   16 shifts by one of the row-major array, element 0
+                   receiving the last).
+
+scatter_max and shift_screen take a leading batch dimension: a 3-D input
+is that many independent chunks.  On a CUDA tensor each wrapper launches
+its kernel and counts it in _build.LAUNCHES; on a CPU tensor it runs the
+plain version beside it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+INT32_MIN = -(1 << 31)
+MAX_STEPS = 4096  # shift_screen's steps (its shared memory tile)
+
+
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values -> int32 with the two's-complement wrap."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def check_arrays(name: str, *tensors: torch.Tensor, dims=(2,)) -> None:
+    """Raise unless every tensor is an int32, contiguous tensor of one of
+    `dims` dimensions, on the first tensor's device."""
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError("%s: expected int32 tensors, got %s" % (name, t.dtype))
+        if t.dim() not in dims or not t.is_contiguous():
+            raise ValueError("%s: expected contiguous tensors of %s dimensions, got shape %s"
+                             % (name, " or ".join(map(str, dims)), tuple(t.shape)))
+        if t.device != tensors[0].device:
+            raise ValueError("%s: tensors must share one device (%s vs %s)"
+                             % (name, t.device, tensors[0].device))
+
+
+def _check_take(x: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
+    check_arrays("take_along", x, idx)
+    if axis not in (0, 1):
+        raise ValueError("take_along: axis must be 0 or 1, got %r" % (axis,))
+    if x.shape[1 - axis] != idx.shape[1 - axis] or x.shape[axis] == 0:
+        raise ValueError("take_along: x %s, not empty along axis %d, and idx %s of its other "
+                         "extent" % (tuple(x.shape), axis, tuple(idx.shape)))
+
+
+def take_along_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                     fill: int = INT32_MIN) -> torch.Tensor:
+    _check_take(x, idx, axis)
+    n = x.shape[axis]
+    i = idx.long()
+    i = torch.where(i < 0, i + n, i)
+    ok = (i >= 0) & (i < n)
+    return torch.where(ok, torch.gather(x, axis, i.clamp(0, n - 1)), fill)
+
+
+def take_along(x: torch.Tensor, idx: torch.Tensor, axis: int,
+               fill: int = INT32_MIN) -> torch.Tensor:
+    """int32 of idx's shape: x (r, c) gathered along `axis` at idx (the
+    other axis of idx as long as x's)."""
+    if _build.on_cpu(x):
+        return take_along_plain(x, idx, axis, fill)
+    _check_take(x, idx, axis)
+    out = torch.empty_like(idx)
+    if idx.numel():
+        _build.launch("take_along", "tz_take_along", x.device, x.data_ptr(), x.shape[0],
+                      x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1], axis, fill,
+                      out.data_ptr())
+    return out
+
+
+def _check_loop(x: torch.Tensor, idx: torch.Tensor, axis: int, iters: int) -> None:
+    check_arrays("take_along_loop", x, idx)
+    if axis not in (0, 1):
+        raise ValueError("take_along_loop: axis must be 0 or 1, got %r" % (axis,))
+    if x.shape != idx.shape or x.numel() == 0:
+        raise ValueError("take_along_loop: x and idx of one non-empty shape, got %s and %s"
+                         % (tuple(x.shape), tuple(idx.shape)))
+    if not 0 <= iters < 1 << 31:
+        raise ValueError("take_along_loop: iters must be in [0, 2^31), got %r" % (iters,))
+
+
+def take_along_loop_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                          iters: int) -> torch.Tensor:
+    _check_loop(x, idx, axis, iters)
+    n = x.shape[axis]
+    acc = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    i = idx.long()
+    for t in range(iters):
+        acc += torch.gather(x, axis, wrap32(i + t).long() % n)
+    return wrap32(acc)
+
+
+def take_along_loop(x: torch.Tensor, idx: torch.Tensor, axis: int, iters: int = 64) -> torch.Tensor:
+    """int32 of x's shape: the sum over t < iters of take_along(x, (idx +
+    t) mod n, axis), n = x.shape[axis] (idx + t wraps as int32; the mod is
+    a floor mod, so every index is in range)."""
+    if _build.on_cpu(x):
+        return take_along_loop_plain(x, idx, axis, iters)
+    _check_loop(x, idx, axis, iters)
+    out = torch.empty_like(x)
+    _build.launch("take_along_loop", "tz_take_along_loop", x.device, x.data_ptr(), x.shape[0],
+                  x.shape[1], idx.data_ptr(), axis, iters, out.data_ptr())
+    return out
+
+
+def _check_flat(table: torch.Tensor, idx: torch.Tensor) -> None:
+    check_arrays("flat_gather", table, idx, dims=(1, 2, 3))
+    if table.numel() == 0:
+        raise ValueError("flat_gather: the table is empty")
+
+
+def flat_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _check_flat(table, idx)
+    T = table.numel()
+    i = idx.long()
+    return table.reshape(-1)[torch.where(i < 0, i + T, i).clamp(0, T - 1)]
+
+
+def flat_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int32 of idx's shape: table.reshape(-1)[idx], an index below 0
+    counted from the end and then clamped to the table."""
+    if _build.on_cpu(table):
+        return flat_gather_plain(table, idx)
+    _check_flat(table, idx)
+    out = torch.empty_like(idx)
+    if idx.numel():
+        _build.launch("flat_gather", "tz_flat_gather", table.device, table.data_ptr(),
+                      table.numel(), idx.data_ptr(), idx.numel(), out.data_ptr())
+    return out
+
+
+def _chunks(x: torch.Tensor) -> torch.Tensor:
+    """A 2-D array as one chunk, a 3-D one as its chunks."""
+    return x.unsqueeze(0) if x.dim() == 2 else x
+
+
+def _check_scatter(idx: torch.Tensor, vals: torch.Tensor, rows: int) -> None:
+    check_arrays("scatter_max", idx, vals, dims=(2, 3))
+    if idx.shape != vals.shape or idx.numel() == 0:
+        raise ValueError("scatter_max: idx and vals of one non-empty shape, got %s and %s"
+                         % (tuple(idx.shape), tuple(vals.shape)))
+    if not 0 < rows < 1 << 31:
+        raise ValueError("scatter_max: rows must be in [1, 2^31), got %r" % (rows,))
+
+
+def scatter_max_plain(idx: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
+    _check_scatter(idx, vals, rows)
+    i, v = _chunks(idx).long(), _chunks(vals)
+    i = torch.where(i < 0, i + rows, i)
+    i = torch.where((i >= 0) & (i < rows), i, rows)  # row `rows` takes what is dropped
+    out = torch.zeros(i.shape[0], rows + 1, i.shape[2], dtype=torch.int32, device=idx.device)
+    out.scatter_reduce_(1, i, v, "amax")
+    out = out[:, :rows]
+    return out[0] if idx.dim() == 2 else out
+
+
+def scatter_max(idx: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
+    """int32 (rows, w), or (b, rows, w) for b chunks: zeros with vals
+    max-scattered along the rows, out[idx[i, c], c] = max(out[...],
+    vals[i, c]); idx and vals (r, w) or (b, r, w)."""
+    if _build.on_cpu(idx):
+        return scatter_max_plain(idx, vals, rows)
+    _check_scatter(idx, vals, rows)
+    b, r, w = _chunks(idx).shape
+    out = torch.zeros(*idx.shape[:-2], rows, w, dtype=torch.int32, device=idx.device)
+    _build.launch("scatter_max", "tz_scatter_max", idx.device, idx.data_ptr(), vals.data_ptr(),
+                  b, r, w, rows, out.data_ptr())
+    return out
+
+
+def _check_shift(x: torch.Tensor, steps: int) -> None:
+    check_arrays("shift_screen", x, dims=(2, 3))
+    if x.numel() == 0 or (x.dim() == 3 and x.shape[0] > 65535):
+        raise ValueError("shift_screen: 1 to 65,535 non-empty chunks, got shape %s"
+                         % (tuple(x.shape),))
+    if not 0 <= steps <= MAX_STEPS:
+        raise ValueError("shift_screen: steps must be in [0, %d], got %r" % (MAX_STEPS, steps))
+
+
+def shift_screen_plain(x: torch.Tensor, steps: int = 16) -> torch.Tensor:
+    _check_shift(x, steps)
+    flat = _chunks(x).flatten(1)
+    acc = torch.zeros_like(flat)
+    for s in range(1, steps + 1):
+        acc = torch.maximum(acc, torch.roll(flat, s, 1) ^ flat)
+    return acc.reshape(x.shape)
+
+
+def shift_screen(x: torch.Tensor, steps: int = 16) -> torch.Tensor:
+    """int32 of x's shape: the signed max of 0 and x[p - s] ^ x[p] over s
+    in [1, steps], p and p - s flat row-major positions of x (r, w),
+    wrapping, or of each chunk of x (b, r, w)."""
+    if _build.on_cpu(x):
+        return shift_screen_plain(x, steps)
+    _check_shift(x, steps)
+    b = x.shape[0] if x.dim() == 3 else 1
+    out = torch.empty_like(x)
+    _build.launch("shift_screen", "tz_shift_screen", x.device, x.data_ptr(), b, x.numel() // b,
+                  steps, out.data_ptr())
+    return out
