@@ -15,21 +15,27 @@ tpuzlib_torch/kernels/csrc, then:
      whose walks the "A parse tape" line measures; pack_words, the token
      fields and the bit pack into words, from the batch's compacted
      tokens, tables and header);
-     the checksums' three (CRC-32 per-block forms, CRC-32 span forms,
-     Adler-32 block sums) on 256 MiB, the size from which tpuzlib's
-     checksums take the device;
+     the checksums' four (CRC-32 per-block forms, CRC-32 span forms, the
+     whole CRC-32 finished on the card in the same launch (crc32_scalar,
+     tpuzlib's crc32_device_jit), Adler-32 block sums) on 256 MiB, the
+     size from which tpuzlib's checksums take the device;
   B  runs one full-shape make_encode_batch_v3 batch on the card and on
      the CPU (plain versions) and requires equal words, bits and ok;
   C  compresses 32 MiB of mixed corpus at level 6 in the zlib and the gzip
      container, and 8 MiB at levels 1 and 9 (zlib), with
      tpuzlib_torch.deflate and decodes each with python's zlib; the
      launch counts of the encoder's kernels and of the two trailers'
-     checksum kernels (adler32, crc32_spans) are taken over C;
+     checksum kernels (adler32; crc32_spans, the span mode the gzip
+     trailer's crc32_scalar launch folds in) are taken over C;
   D  streams 16 MiB through DeviceDeflater in uneven appends;
   E  holds tpuzlib_torch.crc32 / adler32 to zlib: 256 MiB as a host array
      and as a card tensor, ragged sizes with seeds, a chain of seven
-     pieces and the combines; crc32_forms' launch count (inputs below one
-     span) is taken over E;
+     pieces and the combines; then times the warm public crc32 of a
+     200 KiB, an 8 MiB and the 256 MiB card tensor (host clock, median of
+     10 after 3 warm-ups; "E latency" lines), each call one crc32_scalar
+     launch and no call of the host tree (crc32._combine_blocks, counted);
+     the launch counts of crc32_scalar and of crc32_forms (the block mode
+     its launches on inputs below one span fold in) are taken over E;
   F  runs tpuzlib_torch.entry's forward step on the card and on the CPU
      and requires equal outputs;
   G  decompresses on the card: G1 holds the decode's two kernels to their
@@ -273,6 +279,11 @@ def phase_a_checksums(big) -> dict:
             lambda: crc32_cuda.crc32_forms_plain(big, 0, 256),
             crc_src, "tpuzlib/kernels/crc32_pallas.py:99", (big,), big.numel(),
         ),
+        "crc32_scalar": (
+            lambda: crc32_cuda.crc32_device_scalar(big),
+            lambda: crc32_cuda.crc32_device_scalar_plain(big),
+            crc_src, "tpuzlib/kernels/crc32_pallas.py:188", (big,), big.numel(),
+        ),
         "adler32": (
             lambda: adler32_cuda.adler32_blocks(big, 0),
             lambda: adler32_cuda.adler32_blocks_plain(big, 0),
@@ -468,6 +479,44 @@ def phase_e(big_host, big) -> None:
     emit({"phase": "E", "ragged_and_chains_equal": not bad, "failed": bad[:10]})
     if bad:
         raise SystemExit("phase E: checksums differ from zlib: %s" % ", ".join(bad[:10]))
+
+
+def phase_e_latency(big_host, big) -> None:
+    """Warm host ms of the public crc32 of card tensors of 200 KiB, 8 MiB
+    and 256 MiB (median of 10 after 3 warm-ups); every call must equal
+    zlib, launch crc32_scalar once and never reach the host tree."""
+    import statistics
+
+    import tpuzlib_torch
+    from tpuzlib_torch.kernels import _build, crc32 as crc_host
+
+    tree = crc_host._combine_blocks
+    tree_calls = []
+    crc_host._combine_blocks = lambda *args: tree_calls.append(1) or tree(*args)
+    bad = []
+    try:
+        for n in (200 << 10, 8 << 20, big.numel()):
+            x, want = big[:n], zlib.crc32(big_host[:n])
+            for _ in range(3):
+                tpuzlib_torch.crc32(x)
+            launched = _build.LAUNCHES["crc32_scalar"]
+            ms, got = [], set()
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got.add(tpuzlib_torch.crc32(x))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launched = _build.LAUNCHES["crc32_scalar"] - launched
+            emit({"phase": "E latency", "bytes": n, "warm_ms_median": statistics.median(ms),
+                  "warm_ms": ms, "equal": got == {want}, "crc32_scalar_launches": launched,
+                  "host_tree_calls": len(tree_calls)})
+            if got != {want} or launched != 10 or tree_calls:
+                bad.append(n)
+    finally:
+        crc_host._combine_blocks = tree
+    if bad:
+        raise SystemExit("phase E: the warm crc32 of %s bytes differs from zlib, or did not take"
+                         " one crc32_scalar launch a call and no host tree" % bad)
 
 
 def phase_f() -> None:
@@ -979,7 +1028,8 @@ def main() -> int:
     phase_b(args)
 
     # each kernel's launches are read on the path that runs it: C for the
-    # encoder and the trailers' checksums, E for the per-block CRC forms
+    # encoder and the trailers' checksums, E for the public crc32 (the
+    # scalar, and its block mode below one span)
     _build.reset_launches()
     gzip32 = phase_c(corpus)
     torch.cuda.synchronize()
@@ -987,8 +1037,10 @@ def main() -> int:
     phase_d(corpus)
     _build.reset_launches()
     phase_e(big_host, big)
+    phase_e_latency(big_host, big)
     torch.cuda.synchronize()
-    launches["crc32_forms"] = _build.LAUNCHES["crc32_forms"]
+    for k in ("crc32_forms", "crc32_scalar"):
+        launches[k] = _build.LAUNCHES[k]
     phase_f()
     z6 = testing.zlib_stream(corpus, 6)
     raw6 = np.frombuffer(z6, np.uint8)[2:-4]

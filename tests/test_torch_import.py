@@ -210,8 +210,8 @@ def test_wrappers_refuse_other_devices():
         with pytest.raises(ValueError):
             call()
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
-                                    "crc32_forms", "crc32_spans", "adler32", "inflate_lut",
-                                    "inflate_decode", "crc_rowsum", "crc_unpack_u8",
+                                    "crc32_forms", "crc32_spans", "crc32_scalar", "adler32",
+                                    "inflate_lut", "inflate_decode", "crc_rowsum", "crc_unpack_u8",
                                     "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
                                     "crc_forms_mm_bf16", "crc_forms_mm_i8", "take_along",
                                     "take_along_loop", "flat_gather", "scatter_max",

@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # C entry point -> argument types (pointers and the stream are c_void_p);
 # each returns a cudaError_t as int
 _ARGTYPES = {
@@ -40,6 +41,7 @@ _ARGTYPES = {
     "tz_segment_parse": [_P, _P, _I, _I, _I, _P],
     "tz_pack_words": [_P] * 12 + [_I] * 3 + [_P],
     "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
+    "tz_crc32_scalar": [_P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _U, _P],
     "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
     "tz_inflate_lut": [_P, _P, _P, _I, _I, _I, _P, _P],
     "tz_inflate_decode": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -64,11 +66,13 @@ _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
                "tz_error_string": (ctypes.c_char_p, [_I])}
 
 # the CRC kernel counts its two modes apart: per-block forms, span forms;
+# a launch that also finishes the CRC counts as crc32_scalar and under the
+# mode its fold runs in;
 # pack_words' one launch is its two kernels (tile sums, then the words);
 # the probes' unpack counts each mode apart, their forms each dtype
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
-            "crc32_forms": 0, "crc32_spans": 0, "adler32": 0, "inflate_lut": 0,
-            "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
+            "crc32_forms": 0, "crc32_spans": 0, "crc32_scalar": 0, "adler32": 0,
+            "inflate_lut": 0, "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
             "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,
             "crc_forms_mm_i8": 0, "take_along": 0, "take_along_loop": 0, "flat_gather": 0,
             "scatter_max": 0, "shift_screen": 0, "vec_cond_while": 0, "fetch_rows": 0,
@@ -92,9 +96,10 @@ lib = Library("tpuzlib_torch", _nvcc, NVCC_FLAGS, sources, _BUILD_DIR, _SIGNATUR
 build = lib.build
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel, entry: str, device: torch.device, *args) -> None:
     """Call C entry point `entry` on `device`'s current stream; count one
-    launch of `kernel`.  Raises when the launch was refused."""
+    launch of `kernel` (a name, or a tuple of the names it counts under).
+    Raises when the launch was refused."""
     handle = lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -103,7 +108,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             "%s launch failed: %s" % (kernel, handle.tz_error_string(err).decode())
         )
-    LAUNCHES[kernel] += 1
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

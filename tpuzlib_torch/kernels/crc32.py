@@ -2,7 +2,7 @@
 
 Counterpart of tpuzlib/kernels/crc32.py: its numpy constants, the host
 combine tree and finish, `crc32_combine`, and `crc32_device`, which runs
-the forms kernel of crc32_cuda.py on the input tensor's device.
+crc32_cuda.crc32_device_scalar on the input tensor's device.
 
 The form L(data) of a run of bytes is the raw CRC register after folding
 them from register 0, with no pre- or post-XOR:
@@ -58,6 +58,16 @@ def byte_shift_matrix() -> np.ndarray:
 def shift_matrix(n_bytes: int) -> np.ndarray:
     """A^n: raw-register propagation through n zero data bytes."""
     return gf2.matpow(byte_shift_matrix(), n_bytes)
+
+
+@functools.lru_cache()
+def powers() -> np.ndarray:
+    """A^(2^k) for k < 64 as packed columns, (64, 32): every shift matrix
+    the device CRC applies is a product of these, A^n by the bits of n."""
+    out = [byte_shift_matrix()]
+    for _ in range(63):
+        out.append(gf2.matmul(out[-1], out[-1]))
+    return np.stack(out)
 
 
 @functools.lru_cache(maxsize=64)
@@ -138,21 +148,14 @@ def _finish(l_data: int, n: int, seed: int) -> int:
 
 
 def crc32_device(data, seed: int = 0) -> int:
-    """CRC-32 of a 1-D uint8 tensor, with the forms on the tensor's device.
+    """CRC-32 of a 1-D uint8 tensor, computed on the tensor's device.
 
-    From one span (256 KiB) up, the kernel gives one form per span;
-    below it, one per 1 KiB block.  The input is front-padded (virtually)
-    to whole spans or blocks; the tree over the few forms and the seed
-    finish run on the host, as tpuzlib's crc32_device_pallas does."""
-    from .crc32_cuda import crc32_forms
+    The forms, their tree and the seed finish all run there
+    (crc32_cuda.crc32_device_scalar: one kernel launch on a card, its
+    plain version on the CPU); the host reads one integer."""
+    from .crc32_cuda import crc32_device_scalar
 
-    n = data.numel()
-    if n == 0:
-        return int(seed) & _MASK32
-    tile = TILE if n >= SPAN else 1
-    block = DEVICE_BLOCK * tile
-    g = crc32_forms(data, (-n) % block, tile).cpu().numpy().view(np.uint32)
-    return _finish(_combine_blocks(g, block), n, seed)
+    return int(crc32_device_scalar(data, seed))
 
 
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
