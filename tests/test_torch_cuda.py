@@ -569,27 +569,45 @@ def test_inflate_decode_block_sizes(dev, case, threads):
     _check_decode(args, got)
 
 
+def _device_route(fn, n_bytes):
+    """fn()'s result, checking that the device route returned all of its
+    `n_bytes` and that nothing fell back to the host engine."""
+    before = dict(d2.COUNTS)
+    out = fn()
+    moved = {k: d2.COUNTS[k] - before[k]
+             for k in ("device_fallback", "device_mismatch_fallback", "device")}
+    assert moved == {"device_fallback": 0, "device_mismatch_fallback": 0, "device": n_bytes}
+    return out
+
+
 def test_inflate_on_card_matches_cpu(dev):
     """inflate() of zlib, gzip and raw streams, and inflate_device_v2's
-    pass-3 variants and forced repair, on the card and on the CPU."""
+    pass-3 variants and forced repair, on the card and on the CPU, each
+    inflate() through the device route with no fallback; a bad trailer
+    falls back to the host engine's verdict."""
     data = testing.mixed(3 << 18, 8)
     streams = [zlib.compress(data.tobytes(), 6),
                tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes(),
                _zlib_raw(data, 1).tobytes()]
     for wire in streams:
         _build.reset_launches()
-        got = tpuzlib_torch.inflate(wire, device=dev)
+        got = _device_route(lambda: tpuzlib_torch.inflate(wire, device=dev), len(data))
         assert _build.LAUNCHES["inflate_decode"] == _build.LAUNCHES["inflate_lut"] == 1
         assert got.tobytes() == data.tobytes()
-        assert np.array_equal(got, tpuzlib_torch.inflate(wire, device="cpu"))
+        assert np.array_equal(
+            got, _device_route(lambda: tpuzlib_torch.inflate(wire, device="cpu"), len(data)))
     raw = _zlib_raw(data, 6)
     for kw in ({"device_expand": True}, {"device_expand": False}, {"force_repair": True}):
         out = d2.inflate_device_v2(raw, device=dev, **kw)
         assert torch.is_tensor(out) == kw.get("device_expand", False)
         out = out.cpu().numpy() if torch.is_tensor(out) else out
         assert out.tobytes() == data.tobytes()
-    with pytest.raises(tpuzlib_torch.DeviceDeclined):
+    # a bad Adler-32: the card's output fails it, and the host engine,
+    # after one counted fallback, gives the verdict
+    before = d2.COUNTS["device_mismatch_fallback"]
+    with pytest.raises(ValueError, match="Data integrity check failed"):
         tpuzlib_torch.inflate(streams[0][:-1] + bytes([streams[0][-1] ^ 1]), device=dev)
+    assert d2.COUNTS["device_mismatch_fallback"] == before + 1
 
 
 def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):
@@ -602,8 +620,9 @@ def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):
                        (gz + tpuzlib_torch.deflate(data[::-1], format="gzip", device=dev).tobytes(),
                         data.tobytes()),
                        (_zlib_raw(data).tobytes() + b"\x01\x02trailing", data.tobytes())):
-        got = tpuzlib_torch.inflate(wire, device=dev)
-        assert got.tobytes() == want == tpuzlib_torch.inflate(wire, device="cpu").tobytes()
+        got = _device_route(lambda: tpuzlib_torch.inflate(wire, device=dev), len(want))
+        assert got.tobytes() == want == _device_route(
+            lambda: tpuzlib_torch.inflate(wire, device="cpu"), len(want)).tobytes()
     for wire in (z[:-2], gz[:-3]):
         with pytest.raises(ValueError, match="Unexpected EOF"):
             tpuzlib_torch.inflate(wire, device=dev)

@@ -148,7 +148,8 @@ def test_crc32_device_scalar_on_two_streams(dev):
     for i, d in enumerate(datas):
         assert {int(o) for o in outs[i]} == {zlib.crc32(d.tobytes(), i)}
     for st in streams:
-        assert int(crc32_cuda._ticket(dev, st.cuda_stream)) == 0
+        with torch.cuda.stream(st):
+            assert int(_build.ticket(dev)) == 0
 
 
 def test_public_crc32_on_card_takes_no_plain_path(dev, monkeypatch):

@@ -24,12 +24,14 @@ from tpuzlib.kernels import adler32 as jadler
 from tpuzlib.kernels import deflate_device as jdd
 from tpuzlib.kernels import deflate_device3 as jd3
 from tpuzlib_torch import DeflaterOptions
-from tpuzlib_torch.codec import bitsink, huffman, tables
+from tpuzlib_torch.api import inflate_api
+from tpuzlib_torch.codec import bitsink, engine, huffman, tables
 from tpuzlib_torch.codec import tokenize as tk
-from tpuzlib_torch.containers import headers
-from tpuzlib_torch.kernels import _build, adler32, crc32_probe, deflate_device as tdd
+from tpuzlib_torch.containers import headers, inflate_container
+from tpuzlib_torch.kernels import _build, adler32, adler32_cuda, crc32_probe, deflate_device as tdd
 from tpuzlib_torch.kernels import deflate_device3 as td3
 from tpuzlib_torch.kernels import gather_probe, inflate_cuda, inflate_prims, parse, screen
+from tpuzlib_torch.native import api as native_api
 from tpuzlib_torch.native import bindings
 
 # One intra-op thread: the suite runs in several worker processes at once,
@@ -71,9 +73,15 @@ def test_no_source_imports_jax_or_tpuzlib():
 
 def test_public_surface():
     assert sorted(tpuzlib_torch.__all__) == sorted(
-        ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "DeviceDeclined", "adler32",
-         "crc32", "mergeBuffers", "u8_view"])
+        ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater", "InflaterOptions",
+         "InflateResult", "DeviceDeclined", "adler32", "crc32", "mergeBuffers", "u8_view"])
     assert issubclass(tpuzlib_torch.DeviceDeclined, RuntimeError)
+    assert (tpuzlib_torch.Inflater, tpuzlib_torch.InflaterOptions, tpuzlib_torch.InflateResult) == (
+        inflate_api.Inflater, inflate_api.InflaterOptions, inflate_api.InflateResult)
+    # the host engine's modules are the port's own copies
+    assert engine.RawInflateEngine.__module__ == "tpuzlib_torch.codec.engine"
+    assert inflate_container.ContainerInflater.__module__ == "tpuzlib_torch.containers.inflate_container"
+    assert native_api.InflateStream.__module__ == "tpuzlib_torch.native.api"
     data = np.arange(10, dtype=np.uint16)
     for x in (b"abc", bytearray(b"xy"), memoryview(b"q"), data, np.zeros((2, 3), np.int32)):
         assert np.array_equal(tpuzlib_torch.u8_view(x), j_u8_view(x))
@@ -171,6 +179,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         parse.segment_parse(m, 16)
     with pytest.raises(ValueError):
+        adler32_cuda.adler32_device_scalar(b)
+    with pytest.raises(ValueError):
         td3.pack_words(m.reshape(2, 8), m, m, m, m, m.long(), m.long(), m.long(), m, 8)
     meta = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="meta")  # noqa: E731
     with pytest.raises(ValueError):
@@ -211,8 +221,8 @@ def test_wrappers_refuse_other_devices():
             call()
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
                                     "crc32_forms", "crc32_spans", "crc32_scalar", "adler32",
-                                    "inflate_lut", "inflate_decode", "crc_rowsum", "crc_unpack_u8",
-                                    "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
+                                    "adler32_scalar", "inflate_lut", "inflate_decode",
+                                    "crc_rowsum", "crc_unpack_u8", "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
                                     "crc_forms_mm_bf16", "crc_forms_mm_i8", "take_along",
                                     "take_along_loop", "flat_gather", "scatter_max",
                                     "shift_screen", "vec_cond_while", "fetch_rows",
@@ -265,7 +275,8 @@ def test_huffman_and_tokenize_match():
 def test_native_library_builds_and_loads():
     lib = bindings.lib()
     for name in ("tz_find_headers", "tz_tokenize_midblock", "tz_inflate_tokenize",
-                 "tz_expand_tokens"):
+                 "tz_expand_tokens", "tz_state_new", "tz_state_free", "tz_inflate_stream",
+                 "tz_inflate_raw", "tz_adler32", "tz_crc32"):
         assert callable(getattr(lib, name))
     so = bindings.build()
     assert os.path.dirname(so) == os.path.join(PKG, "native", "_build") and os.path.exists(so)

@@ -1,9 +1,10 @@
 """tpuzlib_torch.inflate on the CPU against tpuzlib.inflate and zlib:
 zlib, gzip and raw streams, gzip headers with every optional field, bytes
 after the stream (garbage, a second gzip member) that both ignore, and
-the errors: DeviceDeclined on a bad trailer and on a truncated stream,
-ValueError on a trailer cut short, NotImplementedError for preset
-dictionaries, ValueError on bad input.
+the verdicts: a bad trailer and a truncated stream fall back to the host
+engine (counted), which raises tpuzlib's ValueError; a trailer cut short
+raises it too; preset dictionaries decode on the host engine; ValueError
+on bad input.
 """
 
 import gzip
@@ -17,7 +18,8 @@ import torch
 import tpuzlib
 import tpuzlib_torch
 from tpuzlib.containers.inflate_container import ContainerInflater
-from tpuzlib_torch import DeviceDeclined, testing
+from tpuzlib_torch import testing
+from tpuzlib_torch.kernels.inflate_device2 import COUNTS
 from tpuzlib_torch.containers.inflate_container import parse_gzip_header, parse_zlib_header
 
 # One intra-op thread: the suite runs in several worker processes at once,
@@ -47,14 +49,36 @@ STREAMS = {
 }
 
 
+def _routed(fn):
+    """fn()'s result (or its ValueError) and what it moved in COUNTS: the
+    two fallbacks and the bytes the device route returned."""
+    before = dict(COUNTS)
+    try:
+        out = fn()
+    except ValueError as e:
+        out = e
+    return out, {k: COUNTS[k] - before[k]
+                 for k in ("device_fallback", "device_mismatch_fallback", "device")}
+
+
+def _on_device(n_bytes: int) -> dict:
+    """The COUNTS moves of calls whose `n_bytes` all came from the device
+    route, with no fallback."""
+    return {"device_fallback": 0, "device_mismatch_fallback": 0, "device": n_bytes}
+
+
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_inflate_matches_tpuzlib(name):
+    """Every stream is decoded by the device route (its plain version on
+    the CPU), not by the host engine behind it."""
     wire = STREAMS[name]
-    got = tpuzlib_torch.inflate(wire, device="cpu")
+    got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    assert counted == _on_device(len(DATA))
     assert isinstance(got, np.ndarray) and got.dtype == np.uint8
     assert got.tobytes() == DATA.tobytes() == np.asarray(tpuzlib.inflate(wire)).tobytes()
     for kind in (bytes, bytearray, memoryview):
-        assert tpuzlib_torch.inflate(kind(wire), device="cpu").tobytes() == got.tobytes()
+        again, counted = _routed(lambda: tpuzlib_torch.inflate(kind(wire), device="cpu"))
+        assert again.tobytes() == got.tobytes() and counted == _on_device(len(DATA))
 
 
 def test_headers_match_tpuzlib():
@@ -73,28 +97,29 @@ def test_headers_match_tpuzlib():
 
 
 def test_bad_trailers_decline():
+    """A trailer that fails its check: the device output is decoded again on
+    the host engine (one counted mismatch), which gives tpuzlib's verdict."""
     z, gz = STREAMS["zlib"], STREAMS["gzip (port)"]
     flip = lambda w, i: w[:i] + bytes([w[i] ^ 1]) + w[i + 1 :]  # noqa: E731
-    for wire, what in ((flip(z, len(z) - 1), "Adler-32"), (flip(gz, len(gz) - 5), "CRC-32"),
-                       (flip(gz, len(gz) - 1), "ISIZE")):
-        with pytest.raises(DeviceDeclined, match=what):
-            tpuzlib_torch.inflate(wire, device="cpu")
-        with pytest.raises(ValueError):
+    for wire, verdict in ((flip(z, len(z) - 1), "Data integrity check failed"),
+                          (flip(gz, len(gz) - 5), "Data integrity check failed"),
+                          (flip(gz, len(gz) - 1), "Data size check failed")):
+        err, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+        assert isinstance(err, ValueError) and str(err) == verdict
+        assert counted == {"device_fallback": 0, "device_mismatch_fallback": 1, "device": 0}
+        with pytest.raises(ValueError, match=verdict):
             tpuzlib.inflate(wire)
 
 
 def test_truncated_stream_declines():
-    """A stream cut inside its blocks declines (the port has no host engine
-    to settle it); a trailer cut to two bytes, after the whole stream,
-    raises tpuzlib's ValueError."""
+    """A stream cut inside its blocks: the device route declines it (one
+    counted fallback) and the host engine raises tpuzlib's ValueError; so
+    does a trailer cut to two bytes, after the whole stream."""
     z = STREAMS["zlib"]
-    with pytest.raises(DeviceDeclined):
-        tpuzlib_torch.inflate(z[: len(z) // 2], device="cpu")
-    with pytest.raises(ValueError):
-        tpuzlib.inflate(z[: len(z) // 2])
-    for wire in (z[:-4] + b"\x00\x00", z[:-2], STREAMS["gzip (port)"][:-3]):
-        with pytest.raises(ValueError, match="Unexpected EOF"):
-            tpuzlib_torch.inflate(wire, device="cpu")
+    for wire in (z[: len(z) // 2], z[:-4] + b"\x00\x00", z[:-2], STREAMS["gzip (port)"][:-3]):
+        err, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+        assert isinstance(err, ValueError) and str(err) == "Unexpected EOF during decompression"
+        assert counted == {"device_fallback": 1, "device_mismatch_fallback": 0, "device": 0}
         with pytest.raises(ValueError, match="Unexpected EOF"):
             tpuzlib.inflate(wire)
 
@@ -124,19 +149,38 @@ AFTER = {  # name -> (wire with bytes after its stream, the stream's bytes)
 @pytest.mark.parametrize("name", sorted(AFTER))
 def test_bytes_after_the_stream_are_ignored(name):
     """The trailer is read right after the final block, as tpuzlib reads it,
-    and whatever follows it is ignored."""
+    and whatever follows it is ignored: by the device route, with no
+    fallback to the host engine."""
     wire, want = AFTER[name]
-    got = tpuzlib_torch.inflate(wire, device="cpu")
+    got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    assert counted == _on_device(len(want))
     assert got.tobytes() == want == np.asarray(tpuzlib.inflate(wire)).tobytes()
 
 
 def test_dictionaries_not_supported():
+    """Preset dictionaries go to the host engine, with tpuzlib's bytes and
+    messages: a zlib stream with FDICT decodes with its dictionary and
+    raises without it or with another; a dictionary given for a stream
+    without FDICT is unused; a raw stream refuses one, as tpuzlib's
+    Inflater does."""
     c = zlib.compressobj(6, zlib.DEFLATED, 15, zdict=DATA[:512].tobytes())
     fdict = c.compress(DATA.tobytes()) + c.flush()
-    with pytest.raises(NotImplementedError, match="dictionar"):
+    cases = [(fdict, DATA[:512]), (fdict, bytearray(DATA[:512].tobytes())), (fdict, None),
+             (fdict, DATA[1:513]), (STREAMS["zlib"], DATA[:512]),
+             (STREAMS["gzip (python)"], DATA[:512]), (STREAMS["raw"], DATA[:512])]
+    for wire, dictionary in cases:
+        got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, dictionary, device="cpu"))
+        want, _ = _routed(lambda: tpuzlib.inflate(wire, dictionary))
+        assert not any(counted.values())
+        if isinstance(want, ValueError):
+            assert isinstance(got, ValueError) and str(got) == str(want)
+        else:
+            assert got.tobytes() == np.asarray(want).tobytes()
+    assert tpuzlib_torch.inflate(fdict, DATA[:512], device="cpu").tobytes() == DATA.tobytes()
+    with pytest.raises(ValueError, match="Custom dictionary required for this data"):
         tpuzlib_torch.inflate(fdict, device="cpu")
-    with pytest.raises(NotImplementedError, match="dictionar"):
-        tpuzlib_torch.inflate(STREAMS["zlib"], DATA[:512], device="cpu")
+    with pytest.raises(ValueError, match="Custom dictionary is not valid for this data"):
+        tpuzlib_torch.inflate(fdict, DATA[1:513], device="cpu")
 
 
 def test_bad_input():

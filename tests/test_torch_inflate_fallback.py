@@ -1,0 +1,128 @@
+"""inflate()'s fallback to the host engine, on the CPU.
+
+tpuzlib_torch.inflate(x, device="cpu") runs the device route with the
+kernels' plain versions, then the host engine where that route does not
+give verified bytes.  Held to tpuzlib.inflate (its host route: the
+speculative dispatch is switched off with TPUZLIB_SPECULATIVE=0 for the
+whole file) on 20 seeded bit flips, byte changes and truncations of raw,
+zlib and gzip streams: each pair gives the same bytes or the same
+ValueError message, and each call counts at most one fallback.  A stored
+stream of 64 MiB + 1 bytes, past the device decode's 2^29 bits, declines
+before any upload and decodes on the host, counted once.  An error that
+is not a verdict on the data (a RuntimeError from the device decode or
+from a checksum) propagates.
+"""
+
+import gzip
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import tpuzlib
+import tpuzlib_torch
+from tpuzlib_torch import testing
+from tpuzlib_torch.api import inflate_api
+from tpuzlib_torch.kernels import inflate_cuda
+from tpuzlib_torch.kernels import inflate_device2 as d2
+
+# One intra-op thread: the suite runs in several worker processes at once.
+torch.set_num_threads(1)
+
+DATA = testing.inflate_streams(1 << 13, seed=4)["L6"][1]
+WIRES = [testing.zlib_stream(DATA, 6, -15), zlib.compress(DATA.tobytes(), 6),
+         gzip.compress(DATA.tobytes(), 6, mtime=7)]
+FALLBACKS = ("device_fallback", "device_mismatch_fallback")
+
+
+@pytest.fixture(autouse=True)
+def _host_route(monkeypatch):
+    """tpuzlib.inflate on its sequential host route."""
+    monkeypatch.setenv("TPUZLIB_SPECULATIVE", "0")
+
+
+def _outcome(fn):
+    try:
+        return "bytes", np.asarray(fn()).tobytes()
+    except ValueError as e:
+        return "ValueError", str(e)
+
+
+def _corrupt(case: int) -> bytes:
+    """Case `case`'s stream: a bit flipped, a byte replaced or a cut, at a
+    seeded place of a raw, zlib or gzip stream."""
+    rng = np.random.default_rng(case)
+    wire = bytearray(WIRES[case % 3])
+    i = int(rng.integers(0, len(wire)))
+    kind = case // 3 % 3
+    if kind == 0:
+        wire[i] ^= 1 << int(rng.integers(0, 8))
+    elif kind == 1:
+        wire[i] = int(rng.integers(0, 256))
+    else:
+        del wire[i:]
+    return bytes(wire)
+
+
+@pytest.mark.parametrize("case", range(20))
+def test_corrupt_streams_match_tpuzlib(case):
+    wire = _corrupt(case)
+    before = dict(d2.COUNTS)
+    got = _outcome(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    counted = sum(d2.COUNTS[k] - before[k] for k in FALLBACKS)
+    assert got == _outcome(lambda: tpuzlib.inflate(wire))
+    assert counted <= 1
+    if got[0] == "bytes" and counted == 0:
+        assert d2.COUNTS["device"] - before["device"] == len(got[1])
+
+
+def test_stream_past_the_device_limit_decodes_on_the_host(monkeypatch):
+    """64 MiB + 1 random bytes stored (zlib level 0): 2^29 bits or more, so
+    the device route declines it before any upload (the decode is never
+    reached), and the host engine decodes it; one fallback."""
+    data = np.random.default_rng(64).integers(0, 256, (64 << 20) + 1, dtype=np.uint8)
+    wire = zlib.compress(data.tobytes(), 0)
+    assert len(wire) * 8 >= 1 << 29
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the device decode was reached")
+
+    monkeypatch.setattr(inflate_cuda, "cursor_decode", refuse)
+    before = dict(d2.COUNTS)
+    got = tpuzlib_torch.inflate(wire, device="cpu")
+    assert got.tobytes() == data.tobytes()
+    assert {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS} == {
+        "splice_repair": 0, "repair_bridge": 0, "device_fallback": 1,
+        "device_mismatch_fallback": 0, "device": 0}
+
+
+def test_runtime_errors_propagate(monkeypatch):
+    """Only verdicts on the data fall back: a RuntimeError from the device
+    decode, or from the trailer's checksum, reaches the caller."""
+    before = dict(d2.COUNTS)
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("a fault of the device path")
+
+    with monkeypatch.context() as m:
+        m.setattr(inflate_api, "decode_stream", boom)
+        for wire in WIRES:
+            with pytest.raises(RuntimeError, match="a fault of the device path"):
+                tpuzlib_torch.inflate(wire, device="cpu")
+    for name in ("adler32", "crc32"):
+        with monkeypatch.context() as m:
+            m.setattr(inflate_api, name, boom)
+            with pytest.raises(RuntimeError, match="a fault of the device path"):
+                tpuzlib_torch.inflate(WIRES[1 if name == "adler32" else 2], device="cpu")
+    assert d2.COUNTS == before
+
+
+def test_counts_keys():
+    assert set(d2.COUNTS) == {"splice_repair", "repair_bridge", "device_fallback",
+                              "device_mismatch_fallback", "device"}
+    # a stream the device route decodes counts its bytes, and no fallback
+    before = dict(d2.COUNTS)
+    assert tpuzlib_torch.inflate(WIRES[1], device="cpu").tobytes() == DATA.tobytes()
+    assert {k: d2.COUNTS[k] - before[k] for k in (*FALLBACKS, "device")} == {
+        "device_fallback": 0, "device_mismatch_fallback": 0, "device": len(DATA)}

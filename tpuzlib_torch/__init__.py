@@ -2,14 +2,19 @@
 
 The port of tpuzlib (JAX on a TPU) to PyTorch on an NVIDIA Hopper GPU.
 It mirrors tpuzlib's layout; its kernels are CUDA C++ under
-kernels/csrc/, built on first use.  Every entry point takes `device=`
-(default "cuda"): on a CUDA device the kernels run, on "cpu" their plain
-torch versions run.
+kernels/csrc/, built on first use.  Every one-shot entry point takes
+`device=` (default "cuda"): on a CUDA device the kernels run, on "cpu"
+their plain torch versions run.  The streaming Inflater is a host object,
+as tpuzlib's is.
 
 Public API:
     deflate, DeflaterOptions   one-shot raw / zlib / gzip compression
-    inflate, DeviceDeclined    one-shot raw / zlib / gzip decompression; the
-                               error for a stream the device path declines
+    inflate                    one-shot raw / zlib / gzip decompression: the
+                               device route, the host engine where it declines
+    Inflater, InflaterOptions, streaming decompression on the host engine,
+      InflateResult            its options and its verdict
+    DeviceDeclined             the error of a stream the device decode declines
+                               (inflate() falls back, and never raises it)
     DeviceDeflater             streaming compression, window on the device
     adler32, crc32             checksums on the device, chained by seed
     mergeBuffers, u8_view      buffer helpers
@@ -17,10 +22,11 @@ Public API:
 
 from .api.checksums import adler32, crc32
 from .api.deflate_api import DeflaterOptions, deflate
-from .api.inflate_api import inflate
+from .api.inflate_api import InflateResult, Inflater, InflaterOptions, inflate
 from .common import mergeBuffers, u8_view
 from .kernels.deflate_device3 import DeviceDeflater
 from .kernels.inflate_device2 import DeviceDeclined
 
-__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "DeviceDeclined", "adler32",
-           "crc32", "mergeBuffers", "u8_view"]
+__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater",
+           "InflaterOptions", "InflateResult", "DeviceDeclined", "adler32", "crc32",
+           "mergeBuffers", "u8_view"]

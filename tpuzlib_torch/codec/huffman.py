@@ -3,7 +3,8 @@
 Counterpart of tpuzlib/codec/huffman.py, carried here because importing
 anything from tpuzlib imports jax.  The device decoder reads canonical
 count tables (kernels/inflate_cuda.py) built from `_entry_fields`; the
-flat LUT serves the code-length code of a dynamic header.
+flat LUT serves the code-length code of a dynamic header and the host
+engine's vectorized decode (codec/engine.py, with the fixed-code LUTs).
 
 Entry layout (uint32), shared by the LUT and the decoder's tables:
     bits  0..14  value: literal byte, length base, or distance base
@@ -151,3 +152,22 @@ def build_lut(lengths: np.ndarray, kind: str) -> np.ndarray:
         idx = (base[:, None] + reps[None, :]).reshape(-1)
         lut[idx] = np.repeat(ent, len(reps))
     return lut
+
+
+_fixed_cache = {}
+
+
+def fixed_litlen_lut() -> np.ndarray:
+    if "lit" not in _fixed_cache:
+        from .tables import FIXED_LITLEN_LENGTHS
+
+        _fixed_cache["lit"] = build_lut(FIXED_LITLEN_LENGTHS, "litlen")
+    return _fixed_cache["lit"]
+
+
+def fixed_dist_lut() -> np.ndarray:
+    if "dist" not in _fixed_cache:
+        from .tables import FIXED_DIST_LENGTHS
+
+        _fixed_cache["dist"] = build_lut(FIXED_DIST_LENGTHS, "dist")
+    return _fixed_cache["dist"]

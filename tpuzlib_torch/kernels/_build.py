@@ -13,6 +13,7 @@ wrapper adds one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 
@@ -43,6 +44,7 @@ _ARGTYPES = {
     "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
     "tz_crc32_scalar": [_P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _U, _P],
     "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
+    "tz_adler32_scalar": [_P, _L, _L, _L, _L, _P, _P, _U, _P, _P],
     "tz_inflate_lut": [_P, _P, _P, _I, _I, _I, _P, _P],
     "tz_inflate_decode": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "tz_crc_rowsum": [_P, _L, _I, _I, _P, _P],
@@ -67,12 +69,13 @@ _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
 
 # the CRC kernel counts its two modes apart: per-block forms, span forms;
 # a launch that also finishes the CRC counts as crc32_scalar and under the
-# mode its fold runs in;
+# mode its fold runs in (one kernel, two modes); the Adler-32 scalar is a
+# kernel of its own and counts only as adler32_scalar;
 # pack_words' one launch is its two kernels (tile sums, then the words);
 # the probes' unpack counts each mode apart, their forms each dtype
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
             "crc32_forms": 0, "crc32_spans": 0, "crc32_scalar": 0, "adler32": 0,
-            "inflate_lut": 0, "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
+            "adler32_scalar": 0, "inflate_lut": 0, "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
             "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,
             "crc_forms_mm_i8": 0, "take_along": 0, "take_along_loop": 0, "flat_gather": 0,
             "scatter_max": 0, "shift_screen": 0, "vec_cond_while": 0, "fetch_rows": 0,
@@ -110,6 +113,19 @@ def launch(kernel, entry: str, device: torch.device, *args) -> None:
         )
     for name in (kernel,) if isinstance(kernel, str) else kernel:
         LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def ticket(device: torch.device) -> torch.Tensor:
+    """The ticket of `device`'s current stream, for a kernel whose last CUDA
+    block finishes its work (crc32_scalar, adler32_scalar): one int32, 0
+    between calls (that last CUDA block resets it), so calls on one stream
+    share it in turn and calls on two streams never do."""
+    return _ticket(device, torch.cuda.current_stream(device).cuda_stream)
 
 
 def reset_launches() -> None:

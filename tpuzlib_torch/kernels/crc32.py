@@ -1,7 +1,8 @@
 """CRC-32 (poly 0xEDB88320) as data-parallel GF(2) linear algebra.
 
 Counterpart of tpuzlib/kernels/crc32.py: its numpy constants, the host
-combine tree and finish, `crc32_combine`, and `crc32_device`, which runs
+combine tree and finish, `crc32_combine`, `crc32_host` (the native
+slice-by-8 fold, for the host engine), and `crc32_device`, which runs
 crc32_cuda.crc32_device_scalar on the input tensor's device.
 
 The form L(data) of a run of bytes is the raw CRC register after folding
@@ -145,6 +146,18 @@ def _finish(l_data: int, n: int, seed: int) -> int:
     raw_seed = (int(seed) & _MASK32) ^ _MASK32
     raw = l_data ^ gf2.apply(shift_matrix(n), raw_seed)
     return (raw ^ _MASK32) & _MASK32
+
+
+def crc32_host(data: np.ndarray, seed: int = 0) -> int:
+    """CRC-32 of a uint8 array by the native slice-by-8 fold (tpuzlib's
+    native branch; the port's native library is required)."""
+    from ..native import bindings
+
+    n = len(data)
+    if n == 0:
+        return int(seed) & _MASK32
+    data = np.ascontiguousarray(data)
+    return int(bindings.lib().tz_crc32(bindings.ptr(data), n, int(seed) & _MASK32))
 
 
 def crc32_device(data, seed: int = 0) -> int:

@@ -48,14 +48,6 @@ def _constants(device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    """The scalar's ticket on `stream` (its handle): one int32, 0 between
-    calls (the kernel's last CUDA block resets it), so calls on one stream
-    share it in turn and calls on two streams never do."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
 def _power_tables(device: torch.device) -> torch.Tensor:
     """A^(2^k) for k < 64 as byte lookup tables, int64 (64, 4, 256) on
     `device` (gf2.lookup_tables)."""
@@ -170,7 +162,7 @@ def crc32_device_scalar(data: torch.Tensor, seed: int = 0) -> torch.Tensor:
     forms = torch.empty(nb // tile, dtype=torch.int32, device=dev)
     crc = torch.empty((), dtype=torch.int64, device=dev)
     table, cols = _constants(dev)
-    ticket = _ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
+    ticket = _build.ticket(dev)
     _build.launch(
         ("crc32_scalar", _MODE[tile]), "tz_crc32_scalar", dev,
         data.data_ptr(), n, pad, table.data_ptr(), cols.data_ptr(), forms.data_ptr(),

@@ -74,8 +74,13 @@ META_CNT, META_END, META_ST, META_JSTOP, META_ANYC = 0, 1, 2, 3, 4
 META_FIRSTC, META_JENTRY, META_BP0, META_BPCUT, META_KCNT = 5, 6, 7, 8, 9
 META_EOB = 10
 
-# how often the splice repair ran, and how many bridges it decoded
-COUNTS = {"splice_repair": 0, "repair_bridge": 0}
+# how often the splice repair ran and how many bridges it decoded; how
+# often inflate() handed a stream to the host engine (the device route
+# declined it, or its output failed the container's checksum or ISIZE),
+# and the bytes the device route returned (api/inflate_api.py, under
+# tpuzlib's counter names)
+COUNTS = {"splice_repair": 0, "repair_bridge": 0, "device_fallback": 0,
+          "device_mismatch_fallback": 0, "device": 0}
 
 
 class DeviceDeclined(RuntimeError):

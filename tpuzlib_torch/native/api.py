@@ -1,0 +1,99 @@
+"""numpy-friendly wrappers over the native serial decoder.
+
+Counterpart of tpuzlib/native/api.py (its decoder: STATUS_*, inflate_raw,
+InflateStream); the LZ77 tokenizer and NATIVE_LEVELS come with the host
+deflate engine.  The library is built on first use (bindings.lib()) and
+is required: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+
+from . import bindings
+
+STATUS_OK = 0
+STATUS_NEED_MORE = 1
+STATUS_DATA_ERROR = 2
+STATUS_OVERFLOW = 3
+
+
+def inflate_raw(
+    data: np.ndarray,
+    start_bit: int = 0,
+    dictionary: np.ndarray | None = None,
+    size_hint: int | None = None,
+):
+    """Serial native raw-DEFLATE decode.
+
+    Returns (out_bytes, consumed_bits, status); status is STATUS_OK,
+    STATUS_NEED_MORE (truncated; out contains what was decodable) or
+    STATUS_DATA_ERROR.  Output capacity overflows RESUME from the
+    persistent C state (no re-decode) via InflateStream.
+
+    The inflate-side dictionary is clipped to the last 32K-1 bytes
+    (reference src/inflate.ts:489-492)."""
+    dict_arr = (
+        np.ascontiguousarray(dictionary[-((1 << 15) - 1):])
+        if dictionary is not None and len(dictionary)
+        else np.empty(0, dtype=np.uint8)
+    )
+    stream = InflateStream()
+    return stream.push(data, start_bit, dict_arr, size_hint=size_hint)
+
+
+class InflateStream:
+    """Resumable native decoder: Huffman tables + block mode persist in a
+    C-side state so streaming appends continue mid-block at symbol
+    granularity (the native analog of the reference's suspend/resume
+    contract, infblocks.ts:164-179)."""
+
+    def __init__(self):
+        lib = bindings.lib()
+        self._lib = lib
+        self._ptr = lib.tz_state_new()
+        self._finalizer = weakref.finalize(self, lib.tz_state_free, self._ptr)
+
+    def push(
+        self,
+        data: np.ndarray,
+        start_bit: int,
+        window: np.ndarray,
+        size_hint: int | None = None,
+    ):
+        """Decode from ``start_bit``; ``window`` preloads lookback context.
+
+        On output-capacity overflow the decode RESUMES from the C state at
+        the overflow bit position with a larger buffer (the already-decoded
+        prefix is kept, never re-decoded — reference streaming-resume
+        contract, infblocks.ts:164-179)."""
+        data = np.ascontiguousarray(data)
+        cap = max(size_hint or 0, 4 * len(data) + (1 << 16))
+        bit = start_bit
+        win = window
+        pieces: list[np.ndarray] = []
+        while True:
+            wlen = len(win)
+            dst = np.empty(wlen + cap, dtype=np.uint8)
+            if wlen:
+                dst[:wlen] = win
+            out_len, consumed = bindings.out_scalars(np.int64, np.int64)
+            status = self._lib.tz_inflate_stream(
+                self._ptr, bindings.ptr(data), len(data), bit, bindings.ptr(dst), len(dst),
+                wlen, bindings.ptr(out_len), bindings.ptr(consumed),
+            )
+            produced = dst[wlen : wlen + int(out_len[0])]
+            if status == STATUS_OVERFLOW:
+                # keep what was decoded, carry the last 32K as window, and
+                # resume mid-block from the C state with a larger buffer
+                pieces.append(produced.copy())
+                win = dst[: wlen + int(out_len[0])][-(1 << 15):].copy()
+                bit = int(consumed[0])
+                cap *= 2
+                continue
+            if not pieces:
+                return produced, int(consumed[0]), status
+            pieces.append(produced)
+            return np.concatenate(pieces), int(consumed[0]), status

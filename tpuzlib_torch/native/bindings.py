@@ -26,7 +26,18 @@ FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _P = ctypes.c_void_p
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
+    "tz_state_new": (_P, []),
+    "tz_state_free": (None, [_P]),
+    # state, src, src_len, start_bit, dst, dst_cap, dict_len, *out_len,
+    # *consumed_bits -> status (native/api.py STATUS_*)
+    "tz_inflate_stream": (ctypes.c_int, [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P]),
+    # the same from a fresh state: src, src_len, start_bit, dst, ...
+    "tz_inflate_raw": (ctypes.c_int, [_P, _I64, _I64, _P, _I64, _I64, _P, _P]),
+    # data, n, seed -> the checksum
+    "tz_adler32": (_U32, [_P, _I64, _U32]),
+    "tz_crc32": (_U32, [_P, _I64, _U32]),
     # src, src_len, start_bit, stop_bit, litlen, dist, cap, *end_bit,
     # *finished, *status
     "tz_inflate_tokenize": (_I64, [_P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _P]),

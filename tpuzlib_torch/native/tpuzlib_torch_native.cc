@@ -2,12 +2,17 @@
 //
 // Counterpart of the inflate entry points of tpuzlib/native/tpuzlib_native.cc,
 // copied with the helpers they call and nothing else:
+//   * tz_inflate_stream (with tz_state_new / tz_state_free) and
+//     tz_inflate_raw: the serial raw-DEFLATE decoder of the host engine
+//     (codec/engine.py, native/api.py), resumable mid-block from its state;
 //   * tz_find_headers (with tz_scan_headers_range): full-stream dynamic-block
 //     header discovery, the block planner's pass 1;
 //   * tz_tokenize_midblock: the splice repair's bridge decoder;
 //   * tz_inflate_tokenize: window-free tokenization of whole blocks (the
 //     open-end tail, and the confirmation probe of the header scan);
-//   * tz_expand_tokens: serial token-tape expansion (pass 3 on the host).
+//   * tz_expand_tokens: serial token-tape expansion (pass 3 on the host);
+//   * tz_adler32, tz_crc32: the host checksums (kernels/adler32.py,
+//     kernels/crc32.py), chained by seed.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -pthread (native/bindings.py), at
 // first use.  Exposed via ctypes.
@@ -153,9 +158,291 @@ void fixed_tables(uint32_t* lit, uint32_t* dist, int* lit_bits,
   *dist_bits = g_fixed_dec.fdist_bits;
 }
 
+// The resumable decoder's state: the block's decode tables and mode
+// persist across calls, so a stream fed in pieces continues mid-block.
+struct TzState {
+  uint32_t lit_lut[LUT_SIZE];
+  uint32_t dist_lut[LUT_SIZE];
+  int lit_bits;
+  int dist_bits;
+  int mode;  // 0=block header, 1=stored, 2=huffman, 3=done
+  int last;
+  int64_t stored_remaining;
+};
+
 }  // namespace
 
 extern "C" {
+
+void* tz_state_new() {
+  TzState* st = new TzState();
+  st->mode = 0;
+  st->last = 0;
+  st->stored_remaining = 0;
+  return st;
+}
+
+void tz_state_free(void* p) { delete (TzState*)p; }
+
+// error codes
+// 0 ok; 1 need more input (truncated); 2 data error; 3 dst overflow
+// On success or truncation, *out_len = bytes written, *consumed_bits set.
+int tz_inflate_stream(void* state, const uint8_t* src, int64_t src_len,
+                      int64_t start_bit, uint8_t* dst, int64_t dst_cap,
+                      int64_t dict_len, int64_t* out_len,
+                      int64_t* consumed_bits) {
+  // dst buffer layout: dst[0..dict_len) preloaded with dictionary bytes;
+  // new output begins at dict_len.  Window lookbacks go through dst.
+  // The state persists Huffman tables + block mode so streaming callers
+  // resume mid-block at symbol granularity (no partial-block re-decode).
+  TzState* st = (TzState*)state;
+  BitIn in(src, src_len * 8, start_bit);
+  int64_t out = dict_len;
+  uint32_t last = 0, btype = 0;
+  uint32_t* lit_lut = st->lit_lut;
+  uint32_t* dist_lut = st->dist_lut;
+  uint32_t lit_mask, dist_mask;
+  int64_t block_start = start_bit;
+  int64_t block_start_out = out;
+
+  if (st->mode == 3) { *out_len = 0; *consumed_bits = start_bit; return 0; }
+  if (st->mode == 1) goto resume_stored;
+  if (st->mode == 2) goto resume_huffman;
+
+  for (;;) {
+    block_start = in.pos;
+    block_start_out = out;
+    {
+    last = in.bits(1);
+    btype = in.bits(2);
+    if (!in.ok) { in.pos = block_start; break; }
+    if (btype == 3) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+    if (btype == 0) {
+      in.align();
+      {
+        uint32_t len = in.bits(16);
+        uint32_t nlen = in.bits(16);
+        if (!in.ok) { in.pos = block_start; break; }
+        if (len != (~nlen & 0xFFFF)) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+        st->stored_remaining = len;
+        st->last = (int)last;
+      }
+      st->mode = 1;
+resume_stored:
+      {
+        int64_t avail = src_len - (in.pos >> 3);
+        int64_t take = st->stored_remaining < avail ? st->stored_remaining : avail;
+        if (out + take > dst_cap) { *out_len = out - dict_len; *consumed_bits = in.pos; return 3; }
+        if (take > 0) {
+          memcpy(dst + out, src + (in.pos >> 3), (size_t)take);
+          out += take;
+          in.pos += take * 8;
+          st->stored_remaining -= take;
+        }
+        if (st->stored_remaining > 0) {
+          // need more input; resume in stored mode at a byte boundary
+          *out_len = out - dict_len;
+          *consumed_bits = in.pos;
+          return 1;
+        }
+        st->mode = 0;
+        if (st->last) { st->mode = 3; *out_len = out - dict_len; *consumed_bits = in.pos; return 0; }
+        continue;
+      }
+    } else {
+      if (btype == 1) {
+        fixed_tables(lit_lut, dist_lut, &st->lit_bits, &st->dist_bits);
+      } else {
+        uint32_t hlit = in.bits(5) + 257;
+        uint32_t hdist = in.bits(5) + 1;
+        uint32_t hclen = in.bits(4) + 4;
+        if (!in.ok) { in.pos = block_start; break; }
+        if (hlit > 286 || hdist > 30) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+        int32_t clc[19] = {0};
+        for (uint32_t i = 0; i < hclen; i++) clc[CLC_ORDER[i]] = (int32_t)in.bits(3);
+        if (!in.ok) { in.pos = block_start; break; }
+        static thread_local uint32_t clc_lut[LUT_SIZE];
+        int clc_bits;
+        if (build_lut(clc, 19, 2, clc_lut, &clc_bits) != 0) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+        const uint32_t clc_mask = (1u << clc_bits) - 1;
+        int32_t lengths[286 + 30] = {0};
+        uint32_t i = 0;
+        while (i < hlit + hdist) {
+          uint32_t ent = clc_lut[in.peek64() & clc_mask];
+          if (ent & F_INVALID) { *out_len = out - dict_len; *consumed_bits = block_start; return in.pos + 7 >= in.nbits ? 1 : 2; }
+          int nb = (ent >> 15) & 0xF;
+          if (in.pos + nb > in.nbits) { in.pos = block_start; goto need_more; }
+          uint32_t sym = ent & 0x7FFF;
+          in.pos += nb;
+          if (sym < 16) { lengths[i++] = (int32_t)sym; }
+          else if (sym == 16) {
+            if (i == 0) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+            uint32_t rep = 3 + in.bits(2);
+            if (!in.ok) { in.pos = block_start; goto need_more; }
+            if (i + rep > hlit + hdist) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+            int32_t prev = lengths[i - 1];
+            for (uint32_t r = 0; r < rep; r++) lengths[i++] = prev;
+          } else {
+            uint32_t rep = sym == 17 ? 3 + in.bits(3) : 11 + in.bits(7);
+            if (!in.ok) { in.pos = block_start; goto need_more; }
+            if (i + rep > hlit + hdist) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+            i += rep;  // zeros already there
+          }
+        }
+        if (lengths[256] == 0) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+        if (build_lut(lengths, (int)hlit, 0, lit_lut, &st->lit_bits) != 0) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+        if (build_lut(lengths + hlit, (int)hdist, 1, dist_lut, &st->dist_bits) != 0) { *out_len = out - dict_len; *consumed_bits = block_start; return 2; }
+      }
+      st->mode = 2;
+      st->last = (int)last;
+resume_huffman:
+      lit_mask = (1u << st->lit_bits) - 1;
+      dist_mask = (1u << st->dist_bits) - 1;
+      // symbol loop: a bounds-check-free fast loop while input has >=64
+      // spare bits and output >=266 spare bytes (one unaligned 64-bit
+      // load covers a whole len+dist token: 15+5+15+13 = 48 bits <= 57
+      // usable after sub-byte shift), then the careful suspend/resume
+      // path near the margins (reference infcodes.ts inflate_fast
+      // :57-301 vs the per-symbol slow path :314-676).
+      for (;;) {
+        {
+          const int64_t fast_in = in.nbits - 64;
+          const int64_t fast_out = dst_cap - 266;
+          while (in.pos <= fast_in && out <= fast_out) {
+            uint64_t w;
+            memcpy(&w, in.data + (in.pos >> 3), 8);
+            w >>= (in.pos & 7);
+            uint32_t ent = lit_lut[w & lit_mask];
+            if (ent & F_INVALID) {
+              *out_len = out - dict_len; *consumed_bits = in.pos; return 2;
+            }
+            int nb = (ent >> 15) & 0xF;
+            if (!(ent & (F_EOB | F_LEN))) {
+              dst[out++] = (uint8_t)(ent & 0xFF);
+              in.pos += nb;
+              // second literal from the same load (<=30 bits used)
+              w >>= nb;
+              ent = lit_lut[w & lit_mask];
+              if (!(ent & (F_INVALID | F_EOB | F_LEN))) {
+                dst[out++] = (uint8_t)(ent & 0xFF);
+                in.pos += (ent >> 15) & 0xF;
+              }
+              continue;
+            }
+            if (ent & F_EOB) { in.pos += nb; goto end_of_block; }
+            int eb = (ent >> 19) & 0xF;
+            int32_t length = (int32_t)(ent & 0x7FFF) +
+                             (int32_t)((w >> nb) & ((1u << eb) - 1));
+            int adv = nb + eb;
+            uint32_t dent = dist_lut[(w >> adv) & dist_mask];
+            if (dent & F_INVALID) {
+              *out_len = out - dict_len; *consumed_bits = in.pos; return 2;
+            }
+            int dnb = (dent >> 15) & 0xF;
+            int deb = (dent >> 19) & 0xF;
+            int32_t dist = (int32_t)(dent & 0x7FFF) +
+                           (int32_t)((w >> (adv + dnb)) & ((1u << deb) - 1));
+            in.pos += adv + dnb + deb;
+            if (dist > out) {
+              *out_len = out - dict_len; *consumed_bits = in.pos; return 2;
+            }
+            const uint8_t* from = dst + out - dist;
+            uint8_t* to = dst + out;
+            out += length;
+            if (dist >= 8) {
+              // 8-byte chunked copy; may write up to 7 bytes past the
+              // match end — the 266-byte output margin covers it
+              for (int32_t j = 0; j < length; j += 8) {
+                uint64_t v; memcpy(&v, from + j, 8); memcpy(to + j, &v, 8);
+              }
+            } else if (dist == 1) {
+              memset(to, from[0], (size_t)length);
+            } else {
+              for (int32_t j = 0; j < length; j++) to[j] = from[j];
+            }
+          }
+        }
+        // careful path (input or output margin exhausted): one symbol
+        {
+        uint64_t w = in.peek64();
+        uint32_t ent = lit_lut[w & lit_mask];
+        if (ent & F_INVALID) {
+          if (in.pos + MAX_BITS >= in.nbits) goto need_more_symbol;
+          *out_len = out - dict_len; *consumed_bits = in.pos; return 2;
+        }
+        int nb = (ent >> 15) & 0xF;
+        int eb = (ent >> 19) & 0xF;
+        if (in.pos + nb + eb > in.nbits) goto need_more_symbol;
+        if (ent & F_EOB) { in.pos += nb; break; }
+        if (!(ent & F_LEN)) {
+          if (out >= dst_cap) { *out_len = out - dict_len; *consumed_bits = in.pos; return 3; }
+          dst[out++] = (uint8_t)(ent & 0xFF);
+          in.pos += nb;
+          continue;
+        }
+        int32_t length = (int32_t)(ent & 0x7FFF) + (int32_t)((w >> nb) & ((1u << eb) - 1));
+        int adv = nb + eb;
+        uint32_t dent = dist_lut[(w >> adv) & dist_mask];
+        if (dent & F_INVALID) {
+          if (in.pos + adv + MAX_BITS >= in.nbits) goto need_more_symbol;
+          *out_len = out - dict_len; *consumed_bits = in.pos; return 2;
+        }
+        int dnb = (dent >> 15) & 0xF;
+        int deb = (dent >> 19) & 0xF;
+        if (in.pos + adv + dnb + deb > in.nbits) goto need_more_symbol;
+        int32_t dist = (int32_t)(dent & 0x7FFF) +
+                       (int32_t)((w >> (adv + dnb)) & ((1u << deb) - 1));
+        if (dist > out) { *out_len = out - dict_len; *consumed_bits = in.pos; return 2; }
+        if (out + length > dst_cap) {
+          // overflow BEFORE consuming the symbol: callers resume at
+          // consumed_bits with a larger buffer and must re-see this token
+          *out_len = out - dict_len; *consumed_bits = in.pos; return 3;
+        }
+        in.pos += adv + dnb + deb;
+        const uint8_t* from = dst + out - dist;
+        uint8_t* to = dst + out;
+        out += length;
+        if (dist >= length) {
+          memcpy(to, from, (size_t)length);
+        } else if (dist >= 8 && out + 8 <= dst_cap) {
+          for (int32_t j = 0; j < length; j += 8) {
+            uint64_t v; memcpy(&v, from + j, 8); memcpy(to + j, &v, 8);
+          }
+        } else {
+          for (int32_t j = 0; j < length; j++) to[j] = from[j];
+        }
+        }
+      }
+end_of_block:;
+    }
+    }
+    st->mode = 0;
+    if (st->last) { st->mode = 3; *out_len = out - dict_len; *consumed_bits = in.pos; return 0; }
+  }
+need_more:
+  // header-stage truncation: resume at the block start
+  st->mode = 0;
+  *out_len = out - dict_len;
+  *consumed_bits = block_start;
+  return 1;
+need_more_symbol:
+  // mid-block truncation: tables live in the state; resume at this symbol
+  *out_len = out - dict_len;
+  *consumed_bits = in.pos;
+  return 1;
+}
+
+int tz_inflate_raw(const uint8_t* src, int64_t src_len, int64_t start_bit,
+                   uint8_t* dst, int64_t dst_cap, int64_t dict_len,
+                   int64_t* out_len, int64_t* consumed_bits) {
+  static thread_local TzState st;
+  st.mode = 0;
+  st.last = 0;
+  st.stored_remaining = 0;
+  return tz_inflate_stream(&st, src, src_len, start_bit, dst, dst_cap,
+                           dict_len, out_len, consumed_bits);
+}
+
 
 // Window-free tokenization for speculative parallel inflate: decode
 // symbols from start_bit into a token tape (no output buffer, no window
@@ -474,6 +761,68 @@ int64_t tz_expand_tokens(const int32_t* litlen, const int32_t* dist,
     }
   }
   return out - dict_len;
+}
+
+// ---------------------------------------------------------------------------
+// Host checksums: serial-stream mirrors of the device kernels
+// (kernels/adler32.py, kernels/crc32.py).  Seed-chainable like the
+// reference API (adler32.ts:17, crc32.ts:17).
+// ---------------------------------------------------------------------------
+
+uint32_t tz_adler32(const uint8_t* p, int64_t n, uint32_t seed) {
+  constexpr uint32_t BASE = 65521;
+  constexpr int64_t NMAX = 5552;  // max bytes before s2 can overflow u32
+  uint32_t s1 = seed & 0xFFFF;
+  uint32_t s2 = (seed >> 16) & 0xFFFF;
+  int64_t i = 0;
+  while (i < n) {
+    int64_t blk = n - i < NMAX ? n - i : NMAX;
+    int64_t j = 0;
+    for (; j + 16 <= blk; j += 16) {
+      const uint8_t* q = p + i + j;
+      for (int k = 0; k < 16; k++) { s1 += q[k]; s2 += s1; }
+    }
+    for (; j < blk; j++) { s1 += p[i + j]; s2 += s1; }
+    s1 %= BASE;
+    s2 %= BASE;
+    i += blk;
+  }
+  return (s2 << 16) | s1;
+}
+
+namespace {
+struct CrcTables {
+  uint32_t t[8][256];
+  CrcTables() {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      t[0][i] = c;
+    }
+    for (int s = 1; s < 8; s++)
+      for (uint32_t i = 0; i < 256; i++)
+        t[s][i] = t[0][t[s - 1][i] & 0xFF] ^ (t[s - 1][i] >> 8);
+  }
+};
+const CrcTables g_crc;
+}  // namespace
+
+uint32_t tz_crc32(const uint8_t* p, int64_t n, uint32_t seed) {
+  uint32_t c = ~seed;
+  int64_t i = 0;
+  // slice-by-8
+  for (; i + 8 <= n; i += 8) {
+    uint32_t lo, hi;
+    memcpy(&lo, p + i, 4);
+    memcpy(&hi, p + i + 4, 4);
+    lo ^= c;
+    c = g_crc.t[7][lo & 0xFF] ^ g_crc.t[6][(lo >> 8) & 0xFF] ^
+        g_crc.t[5][(lo >> 16) & 0xFF] ^ g_crc.t[4][lo >> 24] ^
+        g_crc.t[3][hi & 0xFF] ^ g_crc.t[2][(hi >> 8) & 0xFF] ^
+        g_crc.t[1][(hi >> 16) & 0xFF] ^ g_crc.t[0][hi >> 24];
+  }
+  for (; i < n; i++) c = g_crc.t[0][(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return ~c;
 }
 
 }  // extern "C"
