@@ -97,7 +97,23 @@ tpuzlib_torch/kernels/csrc, then:
      dictionary through inflate(dictionary=) and the Inflater, requires
      tpuzlib's messages without it and with a wrong one, and decodes a
      raw stream with that dictionary on the host engine and by the
-     device decode.
+     device decode;
+  K  runs the host deflate engine at full size, after every launch count
+     of the kernels line has been read: K1 compresses the 32 MiB corpus
+     with the Deflater (zlib container, one append) at levels 1, 6 and 9
+     and, in the same run, with deflate() on the card, and prints each
+     one's warm MB/s (host clock, median of 3 after a warm-up), its bytes
+     and its ratio to zlib's at the level, and the engine's core count
+     (its bytes depend on it); zlib must decode both; K2 inflate()s the
+     Deflater's level-6 zlib and gzip streams on the card, every byte
+     from the device route (COUNTS["device"] grown by the output, no
+     fallback counted, decode launches); K3 decodes 8 MiB from ragged
+     appends (1 B, 7 B, 4 KiB, 1 MiB) on the device route, and 8 MiB
+     after a 32 KiB preset dictionary from deflate(dictionary=) on the
+     host engine, both also with zlib; K4 compresses the corpus into
+     4 MiB gzip members and decompresses them with their index, the
+     combined CRC-32 equal to zlib's and verified on the card by one
+     crc32_scalar launch.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -1165,6 +1181,129 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> None:
         raise SystemExit("phase J: %s" % ", ".join(bad))
 
 
+def phase_k(corpus, smi: str) -> None:
+    """The host deflate engine at full size: the Deflater beside the
+    device route's deflate() (K1), its streams through inflate()'s device
+    route (K2), ragged appends and a preset dictionary (K3), and the gzip
+    members with their verify on the card (K4)."""
+    import tpuzlib_torch
+    from tpuzlib_torch.codec import deflate_engine
+    from tpuzlib_torch.kernels import _build
+    from tpuzlib_torch.kernels import inflate_device2 as d2
+    from tpuzlib_torch.parallel import members
+
+    def deflater(data, steps=None, **options) -> bytes:
+        """The Deflater's stream of `data`, appended in `steps` in turn
+        (one append without)."""
+        d = tpuzlib_torch.Deflater(**options)
+        parts, off, k = [], 0, 0
+        steps = steps or [len(data)]
+        while off < len(data):
+            step = steps[k % len(steps)]
+            parts += d.append(data[off : off + step])
+            off, k = off + step, k + 1
+        return np.concatenate(parts + d.finish()).tobytes()
+
+    def warm(fn, reps=3):
+        """fn()'s result and the median host seconds of `reps` calls after
+        one warm-up."""
+        out = fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times)), times
+
+    def on_card(wire, want, dictionary=None):
+        """inflate() on the card: equal bytes, the COUNTS it moved and the
+        decode's launches."""
+        before = dict(d2.COUNTS)
+        launches = _build.LAUNCHES["inflate_decode"]
+        t0 = time.perf_counter()
+        out = tpuzlib_torch.inflate(wire, dictionary, device=DEVICE)
+        dt = time.perf_counter() - t0
+        moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS if d2.COUNTS[k] != before[k]}
+        return out.tobytes() == want, moved, _build.LAUNCHES["inflate_decode"] - launches, dt
+
+    bad = []
+    data = corpus.tobytes()
+    # K1: the Deflater (host engine, zlib container) and the device route's
+    # deflate() on the same 32 MiB, warm, in one run
+    host6 = None
+    for level in (1, 6, 9):
+        wire, host_s, host_runs = warm(lambda: deflater(corpus, level=level))
+        dev_out, dev_s, dev_runs = warm(lambda: tpuzlib_torch.deflate(corpus, level=level,
+                                                                      device=DEVICE).tobytes())
+        zlen = len(zlib.compress(data, level))
+        ok = zlib.decompress(wire) == data and zlib.decompress(dev_out) == data
+        emit({"phase": "K1", "card": smi, "level": level, "bytes_in": len(data),
+              "ncores": deflate_engine._ncores(), "host_bytes_out": len(wire),
+              "host_ratio_to_zlib": len(wire) / zlen, "host_warm_s": host_runs,
+              "host_MBps": len(data) / host_s / 1e6, "device_bytes_out": len(dev_out),
+              "device_ratio_to_zlib": len(dev_out) / zlen, "device_warm_s": dev_runs,
+              "device_MBps": len(data) / dev_s / 1e6, "zlib_bytes_out": zlen, "roundtrip": ok})
+        bad += [] if ok else ["K1 level %d" % level]
+        host6 = wire if level == 6 else host6
+
+    # K2: the Deflater's zlib (K1's level 6) and gzip streams through
+    # inflate()'s device route: every byte from the device, no fallback
+    gz6 = deflater(corpus, level=6, format="gzip", fileName="mixed.bin")
+    for name, wire in (("zlib L6", host6), ("gzip L6", gz6)):
+        ok, moved, decodes, dt = on_card(wire, data)
+        ok = (ok and moved.get("device") == len(data) and decodes > 0
+              and not any(moved.get(k) for k in ("device_fallback", "device_mismatch_fallback")))
+        emit({"phase": "K2", "run": name, "bytes_in": len(wire), "bytes_out": len(data),
+              "equal_and_device_route": ok, "counts": moved, "decode_launches": decodes,
+              "s": dt, "MBps": len(data) / dt / 1e6})
+        bad += [] if ok else ["K2 " + name]
+
+    # K3: ragged appends over 8 MiB, and 8 MiB after a 32 KiB preset
+    # dictionary through deflate(dictionary=)
+    zdict, part = corpus[: 32 << 10].tobytes(), corpus[: 8 << 20]
+    t0 = time.perf_counter()
+    ragged = deflater(part, [1, 7, 4 << 10, 1 << 20], level=6)
+    ragged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fdict = tpuzlib_torch.deflate(part, level=6, dictionary=zdict, device=DEVICE).tobytes()
+    fdict_s = time.perf_counter() - t0
+    for name, wire, dictionary, s_ in (("ragged appends", ragged, None, ragged_s),
+                                       ("deflate(dictionary=)", fdict, zdict, fdict_s)):
+        do = zlib.decompressobj(zdict=dictionary) if dictionary else zlib.decompressobj()
+        zok = do.decompress(wire) == part.tobytes() and do.eof
+        ok, moved, decodes, dt = on_card(wire, part.tobytes(), dictionary)
+        # an FDICT stream is the host engine's, the other the device route's
+        ok = ok and zok and not any(moved.get(k) for k in ("device_fallback",
+                                                             "device_mismatch_fallback"))
+        ok = ok and moved.get("device", 0) == (0 if dictionary else len(part))
+        emit({"phase": "K3", "run": name, "bytes_in": len(part), "bytes_out": len(wire),
+              "deflate_s": s_, "zlib_decodes": zok, "inflate_ok": ok, "counts": moved,
+              "decode_launches": decodes, "inflate_s": dt})
+        bad += [] if ok else ["K3 " + name]
+
+    # K4: gzip members of 4 MiB, decompressed with the index, verified on
+    # the card by one crc32_scalar launch
+    t0 = time.perf_counter()
+    wire, index = members.compress_members(corpus, level=6, member_size=4 << 20)
+    comp_s = time.perf_counter() - t0
+    scalar = _build.LAUNCHES["crc32_scalar"]
+    t0 = time.perf_counter()
+    out, crc = members.decompress_members(wire, index, verify=True, device=DEVICE)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    launched = _build.LAUNCHES["crc32_scalar"] - scalar
+    ok = out.tobytes() == data and crc == zlib.crc32(data) and launched == 1
+    emit({"phase": "K4", "members": len(index), "bytes_in": len(data), "bytes_out": len(wire),
+          "compress_s": comp_s, "compress_MBps": len(data) / comp_s / 1e6,
+          "decompress_s": dec_s, "decompress_MBps": len(data) / dec_s / 1e6,
+          "crc32_scalar_launches": launched, "ok": ok})
+    bad += [] if ok else ["K4"]
+    if bad:
+        raise SystemExit("phase K: %s" % ", ".join(bad))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1230,6 +1369,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_j(corpus, z6, gzip32)
     emit({"phase": "J", "s": time.perf_counter() - t0})
+    # after every launch count of the kernels line has been read
+    t0 = time.perf_counter()
+    phase_k(corpus, smi)
+    emit({"phase": "K", "s": time.perf_counter() - t0})
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

@@ -1,0 +1,108 @@
+"""The host deflate engine's streams decoded on the card, and the gzip
+members' verify on the card.
+
+Every test here is marked `cuda` and skips without a CUDA card.  The CPU
+tests (test_torch_deflate_engine.py, test_torch_deflater.py,
+test_torch_members.py) hold the Deflater, deflate(dictionary=) and the
+members to tpuzlib's bytes; these take their output through inflate() on
+the card and assert its route: every byte from the device decode, no
+fallback counted.  A preset dictionary's zlib stream goes to the host
+engine (inflate()'s rule for FDICT), and its raw body through the device
+decode with the dictionary.  decompress_members(verify=True) on the card
+takes one crc32_scalar launch.  On a machine with a card (and no JAX,
+which tests/conftest.py imports), from the repo root:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_deflate.py
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import tpuzlib_torch
+from tpuzlib_torch import testing
+from tpuzlib_torch.kernels import _build
+from tpuzlib_torch.kernels import inflate_device2 as d2
+from tpuzlib_torch.parallel import members
+
+pytestmark = pytest.mark.cuda
+
+KB = 1 << 10
+FALLBACKS = ("device_fallback", "device_mismatch_fallback")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _deflater(data, steps, **options) -> bytes:
+    d = tpuzlib_torch.Deflater(**options)
+    parts, off, k = [], 0, 0
+    while off < len(data):
+        parts += d.append(data[off : off + steps[k % len(steps)]])
+        off, k = off + steps[k % len(steps)], k + 1
+    return b"".join(b.tobytes() for b in parts + d.finish())
+
+
+def _on_card(wire, want, dev, dictionary=None, device_bytes=None):
+    """inflate() on the card gives `want`, with no fallback counted, the
+    device route's bytes counted as `device_bytes` (all of `want` unless
+    given), and decode launches where the device route ran."""
+    before = dict(d2.COUNTS)
+    launches = _build.LAUNCHES["inflate_decode"]
+    out = tpuzlib_torch.inflate(wire, dictionary, device=dev)
+    torch.cuda.synchronize()
+    assert out.tobytes() == want
+    moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS}
+    assert {k: moved[k] for k in FALLBACKS} == {k: 0 for k in FALLBACKS}
+    assert moved["device"] == (len(want) if device_bytes is None else device_bytes)
+    assert (_build.LAUNCHES["inflate_decode"] > launches) == (moved["device"] > 0)
+
+
+@pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_deflater_streams_take_the_device_route(dev, level, fmt):
+    data = testing.mixed(3 << 20, 40 + level)
+    for steps in ([len(data)], [1, 7, 4 * KB, 1 << 20]):
+        wire = _deflater(data, steps, level=level, format=fmt)
+        _on_card(wire, data.tobytes(), dev)
+
+
+@pytest.mark.parametrize("size", [3, 409, 40 * KB])
+def test_dictionary_streams_on_card(dev, size):
+    """deflate(dictionary=)'s FDICT stream through inflate(dictionary=)
+    (the host engine, nothing counted), and its raw body through the
+    device decode with the dictionary."""
+    zdict = testing.corpus("text", size, 5).tobytes()
+    data = np.concatenate([testing.corpus("text", 1 << 20, 6), testing.mixed(1 << 20, 7)])
+    for level in (1, 6, 9):
+        wire = tpuzlib_torch.deflate(data, level=level, dictionary=zdict, device=dev).tobytes()
+        assert zlib.decompressobj(zdict=zdict).decompress(wire) == data.tobytes()
+        _on_card(wire, data.tobytes(), dev, zdict, device_bytes=0)
+        ragged = _deflater(data, [1, 7, 4 * KB, 1 << 20], level=level, dictionary=zdict)
+        _on_card(ragged, data.tobytes(), dev, zdict, device_bytes=0)
+        raw = np.frombuffer(wire, np.uint8)[6:-4]
+        launches = _build.LAUNCHES["inflate_decode"]
+        out = d2.decode(raw, np.frombuffer(zdict, np.uint8), device=dev)
+        assert out.tobytes() == data.tobytes()
+        assert _build.LAUNCHES["inflate_decode"] > launches
+
+
+def test_decompress_members_verify_on_card(dev):
+    data = testing.mixed(5 << 20, 44)
+    wire, index = members.compress_members(data, member_size=1 << 20)
+    for idx in (None, index):
+        before = _build.LAUNCHES["crc32_scalar"]
+        out, crc = members.decompress_members(wire, idx, verify=True, device=dev)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["crc32_scalar"] == before + 1
+        assert out.tobytes() == data.tobytes() and crc == zlib.crc32(data.tobytes())
+    bad = bytearray(wire.tobytes())
+    bad[-8] ^= 1
+    with pytest.raises(ValueError, match="Data integrity check failed"):
+        members.decompress_members(bytes(bad), verify=True, device=dev)

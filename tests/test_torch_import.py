@@ -73,8 +73,9 @@ def test_no_source_imports_jax_or_tpuzlib():
 
 def test_public_surface():
     assert sorted(tpuzlib_torch.__all__) == sorted(
-        ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater", "InflaterOptions",
-         "InflateResult", "DeviceDeclined", "adler32", "crc32", "mergeBuffers", "u8_view"])
+        ["deflate", "Deflater", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater",
+         "InflaterOptions", "InflateResult", "DeviceDeclined", "adler32", "crc32", "mergeBuffers",
+         "u8_view"])
     assert issubclass(tpuzlib_torch.DeviceDeclined, RuntimeError)
     assert (tpuzlib_torch.Inflater, tpuzlib_torch.InflaterOptions, tpuzlib_torch.InflateResult) == (
         inflate_api.Inflater, inflate_api.InflaterOptions, inflate_api.InflateResult)
@@ -82,6 +83,7 @@ def test_public_surface():
     assert engine.RawInflateEngine.__module__ == "tpuzlib_torch.codec.engine"
     assert inflate_container.ContainerInflater.__module__ == "tpuzlib_torch.containers.inflate_container"
     assert native_api.InflateStream.__module__ == "tpuzlib_torch.native.api"
+    assert tpuzlib_torch.Deflater.__module__ == "tpuzlib_torch.api.deflate_api"
     data = np.arange(10, dtype=np.uint16)
     for x in (b"abc", bytearray(b"xy"), memoryview(b"q"), data, np.zeros((2, 3), np.int32)):
         assert np.array_equal(tpuzlib_torch.u8_view(x), j_u8_view(x))
@@ -131,6 +133,9 @@ def test_bitsink_matches():
 def test_zlib_headers_and_adler_match():
     for level in range(1, 10):
         assert headers.make_zlib_header(level) == jheaders.make_zlib_header(level)
+        for dict_id in (0, 1, 0xDEADBEEF):
+            assert (headers.make_zlib_header(level, dict_id)
+                    == jheaders.make_zlib_header(level, dict_id))
     assert headers.make_zlib_trailer(0x1FFFFFFFF) == jheaders.make_zlib_trailer(0x1FFFFFFFF)
     rng = np.random.default_rng(1)
     for n in (0, 1, 4095, (1 << 20) + 3, (3 << 20) - 1):
@@ -147,11 +152,14 @@ def test_deflate_options_validation():
         (dict(level=0), ValueError), (dict(level=10), ValueError), (dict(level=True), ValueError),
         (dict(level=6.0), ValueError), (dict(format="lz4"), ValueError),
         (dict(fileName=3), TypeError), (dict(format="raw", dictionary=b"ab"), TypeError),
-        (dict(dictionary=3.5), TypeError),
-        (dict(dictionary=b"abc"), NotImplementedError), (dict(format="gzip", fileName=3), TypeError),
+        (dict(dictionary=3.5), TypeError), (dict(format="gzip", fileName=3), TypeError),
     ):
         with pytest.raises(exc):
             tpuzlib_torch.deflate(data, device="cpu", **kw)
+    # a preset dictionary goes through the host engine: FDICT, its DICTID
+    out = tpuzlib_torch.deflate(data, dictionary=b"abc", device="cpu").tobytes()
+    assert out[1] & 0x20 and out[2:6] == zlib.adler32(b"abc").to_bytes(4, "big")
+    assert zlib.decompressobj(zdict=b"abc").decompress(out) == data
     with pytest.raises(TypeError):
         tpuzlib_torch.deflate(1.5, device="cpu")
     with pytest.raises(TypeError):

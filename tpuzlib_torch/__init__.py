@@ -4,11 +4,13 @@ The port of tpuzlib (JAX on a TPU) to PyTorch on an NVIDIA Hopper GPU.
 It mirrors tpuzlib's layout; its kernels are CUDA C++ under
 kernels/csrc/, built on first use.  Every one-shot entry point takes
 `device=` (default "cuda"): on a CUDA device the kernels run, on "cpu"
-their plain torch versions run.  The streaming Inflater is a host object,
-as tpuzlib's is.
+their plain torch versions run.  The streaming Deflater and Inflater are
+host objects, as tpuzlib's are, and so is a preset dictionary's deflate().
 
 Public API:
-    deflate, DeflaterOptions   one-shot raw / zlib / gzip compression
+    deflate, DeflaterOptions   one-shot raw / zlib / gzip compression: the device
+                               encoder, the host engine given a dictionary
+    Deflater                   streaming compression on the host engine
     inflate                    one-shot raw / zlib / gzip decompression: the
                                device route, the host engine where it declines
     Inflater, InflaterOptions, streaming decompression on the host engine,
@@ -21,12 +23,12 @@ Public API:
 """
 
 from .api.checksums import adler32, crc32
-from .api.deflate_api import DeflaterOptions, deflate
+from .api.deflate_api import Deflater, DeflaterOptions, deflate
 from .api.inflate_api import InflateResult, Inflater, InflaterOptions, inflate
 from .common import mergeBuffers, u8_view
 from .kernels.deflate_device3 import DeviceDeflater
 from .kernels.inflate_device2 import DeviceDeclined
 
-__all__ = ["deflate", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater",
+__all__ = ["deflate", "Deflater", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater",
            "InflaterOptions", "InflateResult", "DeviceDeclined", "adler32", "crc32",
            "mergeBuffers", "u8_view"]

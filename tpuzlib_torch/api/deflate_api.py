@@ -1,10 +1,16 @@
-"""Public compression API: DeflaterOptions / deflate().
+"""Public compression API: Deflater / DeflaterOptions / deflate().
 
-Counterpart of tpuzlib/api/deflate_api.py's option validation and its
-device route.  The port has no host engine: deflate() always runs the
-batched device encoder on the given device, and the container's checksum
-(Adler-32 for zlib, CRC-32 for gzip) on the same device.  An error in
-the encoder or a checksum propagates.
+Counterpart of tpuzlib/api/deflate_api.py.  The Deflater is a host
+object, as tpuzlib's is: the host deflate engine (codec/deflate_engine.py)
+compresses appended chunks, the native host checksums keep the running
+Adler-32 (zlib) or CRC-32 (gzip), and a preset dictionary goes into the
+zlib header as FDICT and its DICTID.
+
+deflate() runs the batched device encoder on the given device, and the
+container's checksum (Adler-32 for zlib, CRC-32 for gzip) on the same
+device; an error in either propagates.  With a preset dictionary it runs
+the Deflater instead, since the device encoder takes none (tpuzlib's
+device route declines them too).
 """
 
 from __future__ import annotations
@@ -14,9 +20,12 @@ from typing import Optional
 
 import numpy as np
 
+from ..codec.deflate_engine import DeflateEngine
 from ..common import mergeBuffers, u8_view
 from ..containers.headers import (make_gzip_header, make_gzip_trailer, make_zlib_header,
                                   make_zlib_trailer)
+from ..kernels.adler32 import adler32_host
+from ..kernels.crc32 import crc32_host
 from ..kernels.deflate_device3 import deflate_device_v3
 from .checksums import adler32, crc32
 
@@ -31,29 +40,102 @@ class DeflaterOptions:
     fileName: Optional[str] = None
 
 
-def _validate(options: DeflaterOptions) -> None:
-    level = options.level
-    if not isinstance(level, int) or isinstance(level, bool) or not 1 <= level <= 9:
-        raise ValueError("level must be between 1 and 9, inclusive")
-    if options.format not in FORMATS:
-        raise ValueError("container must be one of `raw`, `deflate`, `gzip`")
-    if options.fileName is not None and not isinstance(options.fileName, str):
-        raise TypeError("fileName must be a string")
-    if options.dictionary is not None:
-        if options.format != "deflate":
-            raise TypeError("Can only provide a dictionary for `deflate` containers.")
+class Deflater:
+    """Streaming compression on the host engine: append() chunks of any
+    size, then finish(); each returns a list of output buffers."""
+
+    def __init__(self, options: DeflaterOptions | None = None, **kwargs):
+        if options is None:
+            options = DeflaterOptions(**kwargs)
+        elif kwargs:
+            raise TypeError("pass either an options object or keyword options")
+        level = options.level
+        if not isinstance(level, int) or isinstance(level, bool) or not 1 <= level <= 9:
+            raise ValueError("level must be between 1 and 9, inclusive")
+        if options.format not in FORMATS:
+            raise ValueError("container must be one of `raw`, `deflate`, `gzip`")
+        if options.fileName is not None and not isinstance(options.fileName, str):
+            raise TypeError("fileName must be a string")
+        dictionary = options.dictionary
+        if dictionary is not None:
+            if options.format != "deflate":
+                raise TypeError("Can only provide a dictionary for `deflate` containers.")
+            try:
+                dictionary = u8_view(dictionary)
+            except TypeError:
+                raise TypeError("dictionary must be an ArrayBuffer or buffer view") from None
+        self.format = options.format
+        self.level = level
+        self.file_name = options.fileName
+        self.dictionary = dictionary
+        self.engine = DeflateEngine(level, dictionary)
+        self.checksum = 1 if self.format == "deflate" else 0
+        self.orig_size = 0
+        self.compressed_size = 0
+        self._started = False
+        self._finished = False
+
+    @property
+    def total_in(self) -> int:
+        """Bytes consumed so far."""
+        return self.orig_size
+
+    @property
+    def total_out(self) -> int:
+        """Compressed bytes produced so far."""
+        return self.compressed_size
+
+    def _header(self) -> np.ndarray:
+        if self.format == "deflate":
+            dict_id = adler32_host(self.dictionary) if self.dictionary is not None else None
+            return u8_view(make_zlib_header(self.level, dict_id))
+        if self.format == "gzip":
+            return u8_view(make_gzip_header(self.file_name, level=self.level))
+        return np.empty(0, dtype=np.uint8)
+
+    def append(self, data) -> list[np.ndarray]:
+        if self._finished:
+            raise RuntimeError("Deflater instances cannot be reused")
         try:
-            u8_view(options.dictionary)
+            view = u8_view(data)
         except TypeError:
-            raise TypeError("dictionary must be an ArrayBuffer or buffer view") from None
-        raise NotImplementedError(
-            "preset dictionaries are not supported: tpuzlib's device route declines them,"
-            " and the host engine that serves them is not ported to tpuzlib_torch"
-        )
+            raise TypeError("data must be an ArrayBuffer or buffer view") from None
+        buffers = []
+        if not self._started:
+            self._started = True
+            hdr = self._header()
+            if len(hdr):
+                buffers.append(hdr)
+        if self.format == "deflate":
+            self.checksum = adler32_host(view, self.checksum)
+        elif self.format == "gzip":
+            self.checksum = crc32_host(view, self.checksum)
+        self.orig_size += len(view)
+        out = self.engine.push(view)
+        if len(out):
+            buffers.append(out)
+        self.compressed_size += sum(len(b) for b in buffers)
+        return buffers
+
+    def finish(self) -> list[np.ndarray]:
+        if self._finished:
+            raise RuntimeError("Deflater instances cannot be reused")
+        if not self._started:
+            raise RuntimeError("Cannot call finish before at least 1 call to append")
+        self._finished = True
+        buffers = [self.engine.finish()]
+        if self.format == "deflate":
+            buffers.append(u8_view(make_zlib_trailer(self.checksum)))
+        elif self.format == "gzip":
+            buffers.append(u8_view(make_gzip_trailer(self.checksum, self.orig_size)))
+        buffers = [b for b in buffers if len(b)]
+        self.compressed_size += sum(len(b) for b in buffers)
+        return buffers
 
 
 def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kwargs) -> np.ndarray:
-    """One-shot compress `data` with the device encoder on `device`.
+    """One-shot compress `data`: with the device encoder on `device`, or,
+    given a preset dictionary, with the host engine.
 
     Options come as a DeflaterOptions or as its fields by keyword.
     Returns the container bytes as a uint8 array."""
@@ -61,19 +143,17 @@ def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kw
         view = u8_view(data)
     except TypeError:
         raise TypeError("data must be an ArrayBuffer or buffer view") from None
-    if options is None:
-        options = DeflaterOptions(**kwargs)
-    elif kwargs:
-        raise TypeError("pass either an options object or keyword options")
-    _validate(options)
-    body = deflate_device_v3(np.ascontiguousarray(view), level=options.level, device=device)
-    if options.format == "raw":
+    deflater = Deflater(options, **kwargs)  # validates the options
+    if deflater.dictionary is not None:
+        return mergeBuffers(deflater.append(view) + deflater.finish())
+    level, fmt = deflater.level, deflater.format
+    body = deflate_device_v3(np.ascontiguousarray(view), level=level, device=device)
+    if fmt == "raw":
         return body
-    if options.format == "gzip":
+    if fmt == "gzip":
         return mergeBuffers([
-            make_gzip_header(options.fileName, level=options.level), body,
+            make_gzip_header(deflater.file_name, level=level), body,
             make_gzip_trailer(crc32(view, device=device), len(view)),
         ])
-    return mergeBuffers([
-        make_zlib_header(options.level), body, make_zlib_trailer(adler32(view, device=device))
-    ])
+    return mergeBuffers([make_zlib_header(level), body,
+                         make_zlib_trailer(adler32(view, device=device))])

@@ -1,9 +1,11 @@
-"""RFC 1951 constants, and the per-level parse knobs the device encoder reads.
+"""RFC 1951 constants, the length and distance code maps, and the
+per-level parse knobs the device encoder reads.
 
-Counterpart of the constants of tpuzlib/codec/tables.py (the length and
-distance bases, the fixed trees the decoder reads) and of TOO_FAR /
-LEVELS in tpuzlib/codec/lz77.py.  The host codec's probe lists are not
-needed by the device encoder, so a level here carries only its lazy rule.
+Counterpart of tpuzlib/codec/tables.py (the length and distance bases,
+the fixed trees, length_to_code / dist_to_code) and of TOO_FAR / LEVELS
+in tpuzlib/codec/lz77.py.  The host engine's levels are
+native/api.NATIVE_LEVELS; a level here carries only the device
+encoder's lazy rule.
 """
 
 from __future__ import annotations
@@ -80,3 +82,44 @@ LEVELS = {
     8: LevelParams(lazy=True, max_lazy=258),
     9: LevelParams(lazy=True, max_lazy=258),
 }
+
+
+def length_to_code(length: np.ndarray) -> np.ndarray:
+    """Match length (3..258) -> length code (257..285), vectorized."""
+    return _LENGTH_CODE_LUT[np.asarray(length) - MIN_MATCH] + 257
+
+
+def dist_to_code(dist: np.ndarray) -> np.ndarray:
+    """Match distance (1..32768) -> distance code (0..29), vectorized."""
+    d = np.asarray(dist)
+    small = _DIST_CODE_LUT[np.minimum(d - 1, 255)]
+    large = _DIST_CODE_LUT[256 + np.minimum((d - 1) >> 7, 255)]
+    return np.where(d <= 256, small, large)
+
+
+def _build_length_code_lut() -> np.ndarray:
+    lut = np.zeros(256, dtype=np.int32)
+    for code in range(29):
+        base = LENGTH_BASE[code] - MIN_MATCH
+        span = 1 << LENGTH_EXTRA[code]
+        lut[base : base + span] = code
+    lut[255] = 28  # length 258 -> code 285
+    return lut
+
+
+def _build_dist_code_lut() -> np.ndarray:
+    # first 256 entries: dist-1 for dist 1..256; next 256: (dist-1)>>7 for larger
+    lut = np.zeros(512, dtype=np.int32)
+    for code in range(16):
+        base = DIST_BASE[code] - 1
+        span = 1 << DIST_EXTRA[code]
+        lut[base : base + span] = code
+    for code in range(16, 30):
+        lo = (DIST_BASE[code] - 1) >> 7
+        hi = (DIST_BASE[code] - 1 + (1 << DIST_EXTRA[code]) - 1) >> 7
+        lut[256 + lo : 256 + hi + 1] = code
+    return lut
+
+
+_LENGTH_CODE_LUT = _build_length_code_lut()
+_DIST_CODE_LUT = _build_dist_code_lut()

@@ -1,7 +1,8 @@
 """zlib (RFC 1950) and gzip (RFC 1952) header and trailer writers.
 
-Counterpart of tpuzlib/containers/headers.py; the preset-dictionary id
-comes with the dictionary port.
+Counterpart of tpuzlib/containers/headers.py: the zlib header with an
+optional preset-dictionary id, the gzip header with FNAME and MTIME, and
+the Adler-32 / CRC-32 + ISIZE trailers.
 """
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ import struct
 import time
 
 
-def make_zlib_header(level: int) -> bytes:
-    """RFC 1950 CMF/FLG header (windowBits=15, no preset dictionary).
+def make_zlib_header(level: int, dict_checksum: int | None = None) -> bytes:
+    """RFC 1950 CMF/FLG header (windowBits=15), with FDICT and the DICTID
+    (the dictionary's Adler-32) when `dict_checksum` is given.
 
     FLEVEL encodes the compression-level class: 0 for fastest .. 3 for
     maximum.
@@ -26,10 +28,15 @@ def make_zlib_header(level: int) -> bytes:
     else:
         flevel = 3
     flg = flevel << 6
+    if dict_checksum is not None:
+        flg |= 0x20  # FDICT
     rem = (cmf * 256 + flg) % 31
     if rem:
         flg += 31 - rem
-    return bytes([cmf, flg])
+    out = bytes([cmf, flg])
+    if dict_checksum is not None:
+        out += struct.pack(">I", dict_checksum)
+    return out
 
 
 def make_zlib_trailer(adler: int) -> bytes:

@@ -1,9 +1,10 @@
-"""numpy-friendly wrappers over the native serial decoder.
+"""numpy-friendly wrappers over the native library.
 
-Counterpart of tpuzlib/native/api.py (its decoder: STATUS_*, inflate_raw,
-InflateStream); the LZ77 tokenizer and NATIVE_LEVELS come with the host
-deflate engine.  The library is built on first use (bindings.lib()) and
-is required: a failed build raises.
+Counterpart of tpuzlib/native/api.py: the serial decoder (STATUS_*,
+inflate_raw, InflateStream), the host engine's per-level tokenizer
+settings (NATIVE_LEVELS) and the tokenizer's tape (tokenize).  The
+library is built on first use (bindings.lib()) and is required: a failed
+build raises.
 """
 
 from __future__ import annotations
@@ -13,6 +14,21 @@ import weakref
 import numpy as np
 
 from . import bindings
+
+# level -> (max_chain, max_lazy, nice_len, lazy); effort chosen so output
+# is never larger than zlib's at the same level on the reference corpus
+# (deeper chains than zlib's at equal level number)
+NATIVE_LEVELS = {
+    1: (8, 0, 16, 0),
+    2: (16, 0, 32, 0),
+    3: (32, 0, 64, 0),
+    4: (32, 8, 64, 1),
+    5: (64, 16, 128, 1),
+    6: (48, 24, 96, 1),
+    7: (512, 64, 258, 1),
+    8: (1024, 258, 258, 1),
+    9: (4096, 258, 258, 1),
+}
 
 STATUS_OK = 0
 STATUS_NEED_MORE = 1
@@ -97,3 +113,12 @@ class InflateStream:
                 return produced, int(consumed[0]), status
             pieces.append(produced)
             return np.concatenate(pieces), int(consumed[0]), status
+
+
+def tokenize(data: np.ndarray, ctx_len: int, level: int):
+    """Native hash-chain LZ77 tokenize of data[ctx_len:] after its context;
+    returns the token tape (litlen, dist)."""
+    from ..codec.emit_native import tokenize_full
+
+    litlen, dist, _, _, _ = tokenize_full(data, ctx_len, level)
+    return litlen, dist

@@ -1,4 +1,4 @@
-"""Build and load the host library of the inflate path (ctypes).
+"""Build and load the host library of the codec (ctypes).
 
 `lib()` compiles tpuzlib_torch_native.cc with g++ on first use into
 `_build/` next to this file, names the library by a hash of its source
@@ -23,6 +23,7 @@ _BUILD_DIR = os.path.join(_HERE, "_build")
 
 FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
+_INT = ctypes.c_int
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _P = ctypes.c_void_p
@@ -49,6 +50,16 @@ _SIGNATURES = {
     "tz_find_headers": (_I64, [_P, _I64, _I64, _I32, _P, _I64]),
     # litlen, dist, ntok, dst, dst_cap, dict_len
     "tz_expand_tokens": (_I64, [_P, _P, _I64, _P, _I64, _I64]),
+    # data, total, ctx_len, max_chain, max_lazy, nice_len, lazy, litlen, dist,
+    # lit_freq, dist_freq, stripe_out_end, stripe_tokens -> token count
+    "tz_deflate_tokenize": (_I64, [_P, _I64, _I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P,
+                                   _I64]),
+    # litlen, dist, ntok, lit_freq, dist_freq, stripe_out_end, nstripes,
+    # stripe_tokens, raw, raw_len, last, sync_flush, out, out_cap -> end bit
+    "tz_emit_chunk": (_I64, [_P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _I64, _INT, _INT, _P,
+                             _I64]),
+    # litlen, dist, ntok, ll, lcodes, dl, dcodes, out, out_cap, start_bit
+    "tz_emit_tokens": (_I64, [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64]),
 }
 
 # lib(): the loaded host library, built on first use; lib.build(): its path

@@ -1,1 +1,2 @@
-"""Host-side block discovery for the device inflate."""
+"""Host-side parallel layers: block discovery for the device inflate
+(speculative.py) and concatenated gzip members (members.py)."""
