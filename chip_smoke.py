@@ -86,8 +86,9 @@ tpuzlib_torch/kernels/csrc, then:
   J  runs the host engine at full size: J1 inflate()s python zlib's
      level-1 stream of the corpus seven times (224 MiB, more than 2^29
      bits), which the device route declines before any upload (one
-     counted device_fallback, no decode launch) and the host engine
-     decodes (its MB/s); J2 streams G's 32 MiB zlib stream through an
+     counted device_fallback, no decode launch) and the host route
+     decodes (its MB/s): on a host of 8 cores or more by the speculative
+     decode (its bytes counted as `speculative`), else by the Inflater; J2 streams G's 32 MiB zlib stream through an
      Inflater in 64 KiB appends and C's 32 MiB gzip in ragged ones (1 B,
      7 B, 4 KiB, 1 MiB), each verdict a success with its checksum (and
      ISIZE) matched and its totals right; J3 requires tpuzlib's verdicts
@@ -113,7 +114,26 @@ tpuzlib_torch/kernels/csrc, then:
      host engine, both also with zlib; K4 compresses the corpus into
      4 MiB gzip members and decompresses them with their index, the
      combined CRC-32 equal to zlib's and verified on the card by one
-     crc32_scalar launch.
+     crc32_scalar launch;
+  L  runs the speculative host inflate: L1 inflate()s J1's stream, the
+     device route declining it at its plan and the host route's
+     speculative decode giving its bytes (its trailer one adler32_scalar
+     launch), and prints its warm MB/s (host clock, median of 3 after a
+     warm-up) beside the sequential Inflater's on the same stream; L2
+     runs inflate_parallel_container on G's zlib and C's gzip stream and
+     on copies with a flipped Adler-32 or CRC-32 (tpuzlib's verdict), each
+     one checksum launch;
+  M  runs the mesh on one card: a world-size-1 NCCL group on a free
+     localhost port, destroyed at the end; dryrun_multichip(1) (one
+     sharded-deflate step at 256 KiB a rank, its stream round-tripped
+     through zlib and sharded_inflate); sharded_deflate of 8 MiB of the
+     corpus in one shard at levels 1 and 6 (zlib decodes it, its Adler-32
+     and CRC-32 are zlib's; warm MB/s, the step's ok flags); and
+     sharded_inflate of G's raw level-6 stream on the mesh (the corpus,
+     no fallback).  The launches of the encoder's four kernels, the two
+     checksum scalars and the decode's two kernels are counted over M
+     ("M launches"), each required.  L and M run after every launch count
+     of the kernels line has been read.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -1058,12 +1078,14 @@ def phase_i() -> tuple:
     return rows, {k: _build.LAUNCHES[kernel_of.get(k, k)] for k in rows}
 
 
-def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> None:
+def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> bytes:
     """The host engine at full size: a stream past the device decode's
     2^29 bits through inflate()'s counted fallback (J1), the streaming
     Inflater (J2), the verdicts of corrupt 32 MiB streams, each from the
-    device route first (J3), and preset dictionaries (J4)."""
+    device route first (J3), and preset dictionaries (J4).  Returns J1's
+    stream, which phase L decodes again."""
     import tpuzlib_torch
+    from tpuzlib_torch.api import inflate_api
     from tpuzlib_torch.codec.engine import RawInflateEngine
     from tpuzlib_torch.kernels import _build
     from tpuzlib_torch.kernels import inflate_device2 as d2
@@ -1087,18 +1109,23 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> None:
     # than 2^29 bits, which the device route declines before any upload
     big = np.tile(corpus, 7)
     t0 = time.perf_counter()
-    wire = zlib.compress(big.tobytes(), 1)
+    wire1 = zlib.compress(big.tobytes(), 1)
     zlib_s = time.perf_counter() - t0
-    if len(wire) * 8 < 1 << 29:
-        raise SystemExit("phase J1: the stream has %d bits, fewer than 2^29" % (len(wire) * 8))
-    out, moved, decodes, dt = counted(lambda: tpuzlib_torch.inflate(wire, device=DEVICE))
+    if len(wire1) * 8 < 1 << 29:
+        raise SystemExit("phase J1: the stream has %d bits, fewer than 2^29" % (len(wire1) * 8))
+    out, moved, decodes, dt = counted(lambda: tpuzlib_torch.inflate(wire1, device=DEVICE))
+    # the host route: the speculative decode where the dispatch applies
+    # (phase L times it beside the Inflater), else the Inflater
+    want = {"device_fallback": 1}
+    if inflate_api.speculative_applies(len(wire1)):
+        want["speculative"] = len(big)
     ok = (not isinstance(out, str) and out.tobytes() == big.tobytes()
-          and moved == {"device_fallback": 1} and decodes == 0)
-    emit({"phase": "J1", "bytes_in": len(wire), "bits": len(wire) * 8, "bytes_out": len(big),
+          and moved == want and decodes == 0)
+    emit({"phase": "J1", "bytes_in": len(wire1), "bits": len(wire1) * 8, "bytes_out": len(big),
           "equal": ok, "counts": moved, "decode_launches": decodes, "zlib_compress_s": zlib_s,
           "inflate_s": dt, "host_MBps": len(big) / dt / 1e6})
     bad += [] if ok else ["J1"]
-    del big, wire, out
+    del big, out
 
     # J2: the streaming Inflater over G's zlib stream in 64 KiB appends and
     # over C's gzip in ragged ones
@@ -1179,6 +1206,7 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> None:
         bad += [] if ok else ["J4 " + name]
     if bad:
         raise SystemExit("phase J: %s" % ", ".join(bad))
+    return wire1
 
 
 def phase_k(corpus, smi: str) -> None:
@@ -1204,19 +1232,6 @@ def phase_k(corpus, smi: str) -> None:
             off, k = off + step, k + 1
         return np.concatenate(parts + d.finish()).tobytes()
 
-    def warm(fn, reps=3):
-        """fn()'s result and the median host seconds of `reps` calls after
-        one warm-up."""
-        out = fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return out, float(np.median(times)), times
-
     def on_card(wire, want, dictionary=None):
         """inflate() on the card: equal bytes, the COUNTS it moved and the
         decode's launches."""
@@ -1234,8 +1249,8 @@ def phase_k(corpus, smi: str) -> None:
     # deflate() on the same 32 MiB, warm, in one run
     host6 = None
     for level in (1, 6, 9):
-        wire, host_s, host_runs = warm(lambda: deflater(corpus, level=level))
-        dev_out, dev_s, dev_runs = warm(lambda: tpuzlib_torch.deflate(corpus, level=level,
+        wire, host_s, host_runs = warm_s(lambda: deflater(corpus, level=level))
+        dev_out, dev_s, dev_runs = warm_s(lambda: tpuzlib_torch.deflate(corpus, level=level,
                                                                       device=DEVICE).tobytes())
         zlen = len(zlib.compress(data, level))
         ok = zlib.decompress(wire) == data and zlib.decompress(dev_out) == data
@@ -1304,6 +1319,174 @@ def phase_k(corpus, smi: str) -> None:
         raise SystemExit("phase K: %s" % ", ".join(bad))
 
 
+def warm_s(fn, reps: int = 3, warmup: bool = True):
+    """fn()'s result, the median host seconds of `reps` calls after one
+    warm-up (none where the caller warmed up already), and every call's
+    seconds (each call ends in a synchronize)."""
+    if warmup:
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times)), times
+
+
+def phase_l(corpus, wire1: bytes, z6: bytes, gzip32: np.ndarray, smi: str) -> None:
+    """The speculative host inflate: J1's 224 MiB stream through inflate()
+    (declined by the device route at its plan, then the speculative decode
+    of the host route, its trailer checked by one adler32_scalar launch)
+    beside the sequential Inflater on the same stream, warm; then
+    inflate_parallel_container on G's zlib and C's gzip stream, and a
+    flipped trailer's verdict."""
+    import tpuzlib_torch
+    from tpuzlib_torch.api import inflate_api
+    from tpuzlib_torch.kernels import _build
+    from tpuzlib_torch.kernels import inflate_device2 as d2
+    from tpuzlib_torch.parallel.speculative import inflate_parallel_container
+
+    bad = []
+    big = np.tile(corpus, 7).tobytes()
+    cores = inflate_api._ncores()
+    if not inflate_api.speculative_applies(len(wire1)):
+        raise SystemExit("phase L: the host has %d cores; the speculative dispatch needs %d"
+                         % (cores, inflate_api.SPECULATIVE_MIN_CORES))
+
+    def routed():
+        """inflate() of the stream, with what it moved in COUNTS and the
+        launches it made."""
+        before = dict(d2.COUNTS)
+        _build.reset_launches()
+        out = tpuzlib_torch.inflate(wire1, device=DEVICE)
+        torch.cuda.synchronize()
+        moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS if d2.COUNTS[k] != before[k]}
+        return out, moved, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    def sequential():
+        inf = tpuzlib_torch.Inflater()
+        parts = inf.append(wire1)
+        return np.concatenate(parts) if inf.finish().success else None
+
+    (out, moved, launched), spec_s, spec_runs = warm_s(routed)
+    ok = (out.tobytes() == big and moved == {"device_fallback": 1, "speculative": len(big)}
+          and launched == {"adler32_scalar": 1})
+    del out
+    seq, seq_s, seq_runs = warm_s(sequential)
+    ok = ok and seq is not None and seq.tobytes() == big
+    del seq
+    emit({"phase": "L1", "card": smi, "bytes_in": len(wire1), "bytes_out": len(big),
+          "cores": cores, "counts": moved, "launches": launched, "equal": ok,
+          "speculative_s": spec_s, "speculative_runs_s": spec_runs,
+          "speculative_MBps": len(big) / spec_s / 1e6, "inflater_s": seq_s,
+          "inflater_runs_s": seq_runs, "inflater_MBps": len(big) / seq_s / 1e6,
+          "speedup": seq_s / spec_s})
+    bad += [] if ok else ["L1"]
+    del big
+
+    want = corpus.tobytes()
+    flip = lambda w, i: w[:i] + bytes([w[i] ^ 1]) + w[i + 1 :]  # noqa: E731
+    gz = gzip32.tobytes()
+    for name, wire, verdict, scalar in (
+            ("zlib L6", z6, None, "adler32_scalar"), ("gzip (port's deflate)", gz, None,
+                                                      "crc32_scalar"),
+            ("zlib Adler-32 flipped", flip(z6, len(z6) - 1), "Data integrity check failed",
+             "adler32_scalar"),
+            ("gzip CRC-32 flipped", flip(gz, len(gz) - 5), "Data integrity check failed",
+             "crc32_scalar")):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            got = inflate_parallel_container(wire, device=DEVICE)
+        except ValueError as e:
+            got = str(e)
+        dt = time.perf_counter() - t0
+        launches = _build.LAUNCHES[scalar]
+        ok = (got == verdict if verdict else
+              not isinstance(got, str) and got.tobytes() == want)
+        ok = ok and launches == 1
+        emit({"phase": "L2", "run": name, "bytes_in": len(wire), "verdict": got if verdict else None,
+              "equal": ok, scalar + "_launches": launches, "s": dt})
+        bad += [] if ok else ["L2 " + name]
+    if bad:
+        raise SystemExit("phase L: %s" % ", ".join(bad))
+
+
+MESH_KERNELS = ("near_screen", "far_screen", "segment_parse", "pack_words", "crc32_scalar",
+                "adler32_scalar", "inflate_lut", "inflate_decode")
+
+
+def phase_m(corpus, raw6: np.ndarray, smi: str) -> None:
+    """The mesh on one card: a world-size-1 NCCL group (a free localhost
+    port, destroyed at the end), dryrun_multichip(1) at its 256 KiB shard,
+    sharded_deflate of 8 MiB of the corpus at levels 1 and 6 in one shard
+    (zlib decodes it; its Adler-32 and CRC-32 are zlib's; warm MB/s and the
+    step's ok flags), and sharded_inflate of G's raw level-6 stream on the
+    mesh (the input's bytes, no fallback).  The launches of the encoder's
+    four kernels, the checksum scalars and the decode's two kernels are
+    counted over the phase, every one required."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpuzlib_torch.entry import dryrun_multichip
+    from tpuzlib_torch.kernels import _build
+    from tpuzlib_torch.parallel import make_mesh, sharded_deflate, sharded_inflate
+    from tpuzlib_torch.parallel.pipeline import deflate_shards
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d" % port, rank=0,
+                            world_size=1)
+    try:
+        bad = []
+        mesh = make_mesh(1, "cuda")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        dryrun_multichip(1)
+        torch.cuda.synchronize()
+        emit({"phase": "M dryrun", "card": smi, "shard_len": 1 << 18, "ok": True,
+              "s": time.perf_counter() - t0})
+
+        data = corpus[: 8 << 20]
+        for level in (1, 6):
+            # the warm-up is deflate_shards, sharded_deflate's step and join
+            # without the zlib container, for the step's ok flags; the
+            # timed calls are sharded_deflate's, on the same built step
+            ok_flags = deflate_shards(data, mesh, level)[3].tolist()
+            (wire, adler, crc), sec, runs = warm_s(lambda: sharded_deflate(data, mesh, level),
+                                                   warmup=False)
+            # an ok flag of 0 (a cap overflowed: stored blocks) is printed,
+            # not required: it is the data's, as in tpuzlib's step
+            ok = (zlib.decompress(wire.tobytes()) == data.tobytes()
+                  and (adler, crc) == (zlib.adler32(data.tobytes()), zlib.crc32(data.tobytes())))
+            emit({"phase": "M deflate", "card": smi, "level": level, "bytes_in": len(data),
+                  "bytes_out": len(wire), "ratio_to_zlib": len(wire) / len(zlib.compress(
+                      data.tobytes(), level)), "ok_flags": ok_flags, "checksums_equal": ok,
+                  "s": sec, "runs_s": runs, "MBps": len(data) / sec / 1e6})
+            bad += [] if ok else ["M deflate level %d" % level]
+
+        t0 = time.perf_counter()
+        out = sharded_inflate(raw6, mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ok = out is not None and out.tobytes() == corpus.tobytes()
+        emit({"phase": "M inflate", "card": smi, "bytes_in": len(raw6), "fell_back": out is None,
+              "equal": ok, "s": dt, "MBps": len(corpus) / dt / 1e6})
+        bad += [] if ok else ["M inflate"]
+        torch.cuda.synchronize()
+        launched = {k: _build.LAUNCHES[k] for k in MESH_KERNELS}
+        emit({"phase": "M launches", **launched})
+        bad += ["M launched no %s" % k for k, v in launched.items() if not v]
+    finally:
+        dist.destroy_process_group()
+    if bad:
+        raise SystemExit("phase M: %s" % ", ".join(bad))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1367,12 +1550,19 @@ def main() -> int:
     rows.update(rows_i)
     launches.update(launches_i)
     t0 = time.perf_counter()
-    phase_j(corpus, z6, gzip32)
+    wire1 = phase_j(corpus, z6, gzip32)
     emit({"phase": "J", "s": time.perf_counter() - t0})
     # after every launch count of the kernels line has been read
     t0 = time.perf_counter()
     phase_k(corpus, smi)
     emit({"phase": "K", "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_l(corpus, wire1, z6, gzip32, smi)
+    emit({"phase": "L", "s": time.perf_counter() - t0})
+    del wire1
+    t0 = time.perf_counter()
+    phase_m(corpus, raw6, smi)
+    emit({"phase": "M", "s": time.perf_counter() - t0})
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

@@ -66,6 +66,8 @@ def test_no_source_imports_jax_or_tpuzlib():
     assert {os.path.join(PKG, "tools", n + ".py") for n in probes} <= set(files)
     kernels = ("crc32_probe", "gather_probe", "inflate_prims")
     assert {os.path.join(PKG, "kernels", n + ".py") for n in kernels} <= set(files)
+    hosts = ("parallel/mesh", "parallel/pipeline", "parallel/speculative", "utils/mem")
+    assert {os.path.join(PKG, n + ".py") for n in hosts} <= set(files)
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
@@ -294,14 +296,23 @@ def test_native_library_builds_and_loads():
 
 
 def test_reads_no_environment():
+    """No environment switch: the one read is tpuzlib's allocator opt-out
+    TPUZLIB_MALLOC_TUNE in utils/mem.py (the mesh's torchrun variables
+    are read by torch.distributed's env:// initialisation)."""
     pat = re.compile(r"os\.environ|getenv")
     seen = set()
     for root, _, names in os.walk(PKG):
         for n in names:
             if n.endswith(".py"):
-                seen.add(os.path.relpath(os.path.join(root, n), PKG))
+                rel = os.path.relpath(os.path.join(root, n), PKG)
+                seen.add(rel)
                 with open(os.path.join(root, n)) as f:
-                    assert not pat.search(f.read()), n
+                    text = f.read()
+                if rel == os.path.join("utils", "mem.py"):
+                    assert re.findall(r"os\.environ\.get\(\"(\w+)\"", text) == ["TPUZLIB_MALLOC_TUNE"]
+                    assert len(pat.findall(text)) == 1
+                else:
+                    assert not pat.search(text), n
     assert {"tools/__init__.py", "tools/probe_crc.py", "tools/probe_crc2.py",
             "tools/probe_crc3.py", "kernels/crc32_probe.py", "tools/probe_gather.py",
             "tools/probe_primitives.py", "tools/probe_inflate_prims.py",

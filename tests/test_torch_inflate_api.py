@@ -20,7 +20,7 @@ import tpuzlib_torch
 from tpuzlib.containers.inflate_container import ContainerInflater
 from tpuzlib_torch import testing
 from tpuzlib_torch.kernels.inflate_device2 import COUNTS
-from tpuzlib_torch.containers.inflate_container import parse_gzip_header, parse_zlib_header
+from tpuzlib_torch.containers.inflate_container import ContainerInflater as PortContainer
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and their OpenMP threads, one per core each, spin against one another.
@@ -82,18 +82,61 @@ def test_inflate_matches_tpuzlib(name):
 
 
 def test_headers_match_tpuzlib():
+    """The port's one header parser (ContainerInflater's, which the device
+    route reads) gives tpuzlib's header sizes, fields and verdicts."""
     for name, wire in STREAMS.items():
         buf = np.frombuffer(wire, np.uint8)
         if name.startswith("gzip"):
-            hdr = parse_gzip_header(buf, lambda b: zlib.crc32(b.tobytes()) & 0xFFFF)
-            assert hdr.size == ContainerInflater(raw=False)._try_parse_gzip_header(buf)
-            assert parse_gzip_header(buf[: hdr.size - 1], lambda b: 0) is None
+            ours, theirs = PortContainer(raw=False), ContainerInflater(raw=False)
+            size = ours._parse_header(buf)
+            assert size == theirs._try_parse_gzip_header(buf)
+            assert (ours.mtime, ours.file_name) == (theirs.mtime, theirs.file_name)
+            assert PortContainer(raw=False)._parse_header(buf[: size - 1]) is None
         elif name == "zlib":
-            assert parse_zlib_header(buf) == (2, None)
-    assert parse_gzip_header(np.frombuffer(STREAMS["gzip (all header fields)"], np.uint8),
-                             lambda b: zlib.crc32(b.tobytes()) & 0xFFFF).file_name == "name.txt"
+            assert PortContainer(raw=False)._parse_header(buf) == 2 == (
+                ContainerInflater(raw=False)._try_parse_header(buf))
+    named = PortContainer(raw=False)
+    named._parse_header(np.frombuffer(STREAMS["gzip (all header fields)"], np.uint8))
+    assert named.file_name == "name.txt"
     fdict = np.frombuffer(b"\x78\xbb" + struct.pack(">I", 0xDEADBEEF), np.uint8)
-    assert parse_zlib_header(fdict) == (6, 0xDEADBEEF) and parse_zlib_header(fdict[:5]) is None
+    c = PortContainer(raw=False)
+    assert c._parse_header(fdict) == 6 and c.dict_id == 0xDEADBEEF
+    assert PortContainer(raw=False)._parse_header(fdict[:5]) is None
+    with pytest.raises(Exception, match="required") as ours:
+        PortContainer(raw=False)._try_parse_header(fdict)
+    with pytest.raises(Exception, match="required") as theirs:
+        ContainerInflater(raw=False)._try_parse_header(fdict)
+    assert type(ours.value).__name__ == type(theirs.value).__name__ == "NeedDictionary"
+
+
+def test_device_route_reads_the_container_parser(monkeypatch):
+    """The device route takes each stream's header size from
+    ContainerInflater._parse_header; a header it refuses (a gzip header
+    CRC that does not match) and a zlib header with FDICT leave the
+    stream to the host engine, uncounted, which gives tpuzlib's verdict."""
+    seen = []
+    real = PortContainer._parse_header
+
+    def spy(self, buf):
+        seen.append(real(self, buf))
+        return seen[-1]
+
+    monkeypatch.setattr(PortContainer, "_parse_header", spy)
+    for name in ("zlib", "gzip (all header fields)"):
+        got, counted = _routed(lambda: tpuzlib_torch.inflate(STREAMS[name], device="cpu"))
+        assert got.tobytes() == DATA.tobytes() and counted == _on_device(len(DATA))
+        buf = np.frombuffer(STREAMS[name], np.uint8)
+        assert seen == [ContainerInflater(raw=False)._try_parse_header(buf)]
+        seen.clear()
+    bad_hcrc = bytearray(STREAMS["gzip (all header fields)"])
+    bad_hcrc[4] ^= 1  # MTIME, covered by the header CRC
+    c = zlib.compressobj(6, zlib.DEFLATED, 15, zdict=DATA[:512].tobytes())
+    fdict = c.compress(DATA.tobytes()) + c.flush()
+    for wire in (bytes(bad_hcrc), fdict):
+        got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+        want, _ = _routed(lambda: tpuzlib.inflate(wire))
+        assert isinstance(got, ValueError) and str(got) == str(want)
+        assert not any(counted.values())
 
 
 def test_bad_trailers_decline():

@@ -80,7 +80,9 @@ def test_corrupt_streams_match_tpuzlib(case):
 def test_stream_past_the_device_limit_decodes_on_the_host(monkeypatch):
     """64 MiB + 1 random bytes stored (zlib level 0): 2^29 bits or more, so
     the device route declines it before any upload (the decode is never
-    reached), and the host engine decodes it; one fallback."""
+    reached), and the host engine decodes it; one fallback.  The host has
+    one core here, so the host route takes the Inflater, not the
+    speculative decode (tests/test_torch_speculative.py)."""
     data = np.random.default_rng(64).integers(0, 256, (64 << 20) + 1, dtype=np.uint8)
     wire = zlib.compress(data.tobytes(), 0)
     assert len(wire) * 8 >= 1 << 29
@@ -89,12 +91,13 @@ def test_stream_past_the_device_limit_decodes_on_the_host(monkeypatch):
         raise AssertionError("the device decode was reached")
 
     monkeypatch.setattr(inflate_cuda, "cursor_decode", refuse)
+    monkeypatch.setattr(inflate_api, "_ncores", lambda: 1)
     before = dict(d2.COUNTS)
     got = tpuzlib_torch.inflate(wire, device="cpu")
     assert got.tobytes() == data.tobytes()
     assert {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS} == {
         "splice_repair": 0, "repair_bridge": 0, "device_fallback": 1,
-        "device_mismatch_fallback": 0, "device": 0}
+        "device_mismatch_fallback": 0, "device": 0, "speculative": 0}
 
 
 def test_runtime_errors_propagate(monkeypatch):
@@ -120,7 +123,7 @@ def test_runtime_errors_propagate(monkeypatch):
 
 def test_counts_keys():
     assert set(d2.COUNTS) == {"splice_repair", "repair_bridge", "device_fallback",
-                              "device_mismatch_fallback", "device"}
+                              "device_mismatch_fallback", "device", "speculative"}
     # a stream the device route decodes counts its bytes, and no fallback
     before = dict(d2.COUNTS)
     assert tpuzlib_torch.inflate(WIRES[1], device="cpu").tobytes() == DATA.tobytes()

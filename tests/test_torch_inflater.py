@@ -7,9 +7,9 @@ FCOMMENT, FHCRC and an mtime; a preset dictionary; bytes after the
 stream; cut and corrupted copies) go through both in pieces of every
 size; each append must give the same bytes or the same error, and
 finish() the same InflateResult, total_in and total_out.  The option
-checks and the reuse errors must give the same messages.  The device
-route's header parsers must agree with ContainerInflater's own where both
-parse the same header.  Every comparison is exact.
+checks and the reuse errors must give the same messages.
+ContainerInflater's header parsers, the port's only ones, must give
+tpuzlib's sizes, fields and errors.  Every comparison is exact.
 """
 
 import dataclasses
@@ -25,10 +25,7 @@ import tpuzlib
 import tpuzlib_torch
 from tpuzlib.containers.inflate_container import ContainerInflater as JContainer
 from tpuzlib_torch import Inflater, InflaterOptions, InflateResult, testing
-from tpuzlib_torch.codec.tokenize import DataError
-from tpuzlib_torch.containers.inflate_container import (ContainerInflater, NeedDictionary,
-                                                        parse_gzip_header, parse_zlib_header)
-from tpuzlib_torch.kernels.crc32 import crc32_host
+from tpuzlib_torch.containers.inflate_container import ContainerInflater, NeedDictionary
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -175,10 +172,11 @@ def test_option_and_reuse_errors_match_tpuzlib():
 
 
 def test_header_parsers_agree_with_the_container():
-    """parse_gzip_header / parse_zlib_header (the device route's) and
-    ContainerInflater's own parsers: the same size, mtime and name, None
-    at the same cuts, the same errors."""
-    crc16 = lambda b: crc32_host(b) & 0xFFFF  # noqa: E731
+    """ContainerInflater's header parsers, the port's only ones (the
+    device route and the speculative inflate read them too), against
+    tpuzlib's: the same size, mtime and name, None at the same cuts, the
+    same errors; the zlib parse keeps the DICTID and leaves NEED_DICT to
+    the append FSM, which raises tpuzlib's."""
     heads = [_gzip_header(), _gzip_header(extra=b"", name=b"", comment=b""),
              _gzip_header(mtime=0, extra=None, comment=None, hcrc=False),
              gzip.compress(b"x", mtime=5)[:10], _gzip_header(hcrc=False, name=b"\xe9t\xe9")]
@@ -186,31 +184,28 @@ def test_header_parsers_agree_with_the_container():
         buf = np.frombuffer(head + b"\x03\x00", np.uint8)
         for cut in range(len(buf) + 1):
             c, jc = ContainerInflater(raw=False), JContainer(raw=False)
-            got = parse_gzip_header(buf[:cut], crc16)
-            size = c._try_parse_gzip_header(buf[:cut])
-            assert size == jc._try_parse_gzip_header(buf[:cut])
-            assert (got is None and size is None) or got.size == size
-            if got is not None:
-                assert (got.mtime, got.file_name) == (c.mtime, c.file_name) == (jc.mtime,
-                                                                                 jc.file_name)
+            size = c._parse_header(buf[:cut])
+            assert size == jc._try_parse_header(buf[:cut])
+            if size is not None:
+                assert (c.mtime, c.file_name, c.trailer_len) == (jc.mtime, jc.file_name,
+                                                                 jc.trailer_len)
     bad = np.frombuffer(_flip(_gzip_header(), 21), np.uint8)
-    for parse in (lambda: parse_gzip_header(bad, crc16),
-                  lambda: ContainerInflater(raw=False)._try_parse_gzip_header(bad)):
-        with pytest.raises(DataError, match="header crc mismatch"):
+    for parse in (lambda: ContainerInflater(raw=False)._parse_header(bad),
+                  lambda: JContainer(raw=False)._try_parse_gzip_header(bad)):
+        with pytest.raises(ValueError, match="header crc mismatch"):
             parse()
-    for head in (b"\x1f\x8b\x07", b"\x1f\x8b\x08\xe0"):
+    for head in (b"\x1f\x8b\x07", b"\x1f\x8b\x08\xe0", b"\x79\x9c", b"\x88\x98", b"\x78\x9d"):
         buf = np.frombuffer(head + bytes(8), np.uint8)
-        want = _error(lambda: ContainerInflater(raw=False)._try_parse_gzip_header(buf))
-        assert want is not None and _error(lambda: parse_gzip_header(buf, crc16)) == want
+        want = _error(lambda: JContainer(raw=False)._try_parse_header(buf))
+        assert want is not None and _error(lambda: ContainerInflater(raw=False)._parse_header(buf)) == want
     fdict = np.frombuffer(_fdict(DATA[:10]), np.uint8)
     for buf, dictionary in ((np.frombuffer(STREAMS["zlib"][0], np.uint8), None),
                             (fdict, np.frombuffer(ZDICT, np.uint8)), (fdict[:5], None)):
-        got = parse_zlib_header(buf)
-        size = ContainerInflater(raw=False, dictionary=dictionary)._parse_zlib_header(buf)
-        assert (got is None and size is None) or got[0] == size
-    for head in (b"\x79\x9c", b"\x88\x98", b"\x78\x9d"):
-        buf = np.frombuffer(head, np.uint8)
-        want = _error(lambda: ContainerInflater(raw=False)._parse_zlib_header(buf))
-        assert want is not None and _error(lambda: parse_zlib_header(buf)) == want
-    with pytest.raises(NeedDictionary, match="required"):
-        ContainerInflater(raw=False)._parse_zlib_header(fdict)
+        c = ContainerInflater(raw=False, dictionary=dictionary)
+        size = c._try_parse_header(buf)
+        assert size == JContainer(raw=False, dictionary=dictionary)._try_parse_header(buf)
+        assert c.dict_id == (struct.unpack(">I", fdict[2:6].tobytes())[0] if size == 6 else None)
+    for dictionary, kind in ((None, "required"), (np.frombuffer(ZDICT[1:], np.uint8), "invalid")):
+        with pytest.raises(NeedDictionary, match=kind):
+            ContainerInflater(raw=False, dictionary=dictionary)._try_parse_header(fdict)
+        assert ContainerInflater(raw=False, dictionary=dictionary)._parse_header(fdict) == 6

@@ -27,6 +27,7 @@ from ..containers.headers import (make_gzip_header, make_gzip_trailer, make_zlib
 from ..kernels.adler32 import adler32_host
 from ..kernels.crc32 import crc32_host
 from ..kernels.deflate_device3 import deflate_device_v3
+from ..utils.mem import tune_malloc
 from .checksums import adler32, crc32
 
 FORMATS = ("raw", "deflate", "gzip")
@@ -139,6 +140,7 @@ def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kw
 
     Options come as a DeflaterOptions or as its fields by keyword.
     Returns the container bytes as a uint8 array."""
+    tune_malloc()  # large codec buffers must not be munmap'd per call
     try:
         view = u8_view(data)
     except TypeError:

@@ -9,28 +9,38 @@ loop (:87-153), NEED_DICT (:116-126), finish() verdict (:159-179),
 one-shot inflate() with container auto-detect (:189-228).
 
 inflate() decodes on `device` first (tpuzlib's `_inflate_device_oneshot`)
-and falls back to the host engine (tpuzlib's host route):
+and falls back to the host route (tpuzlib's): on a host with at least
+SPECULATIVE_MIN_CORES cores, a stream of at least SPECULATIVE_MIN_BYTES
+decodes by the speculative segment-parallel decode
+(parallel/speculative.py: the steps of inflate_parallel_container, its
+DICTID and trailer checked on `device`, its bytes counted as
+`speculative`); any other stream, and one whose speculative host decode
+fails with an error that is not a ValueError (logged), decodes on the
+host engine's Inflater:
 
 - gzip, zlib without FDICT and raw streams go to the device route, whose
   output is a host array (pass 3 on the host) and whose trailer checksum
   runs on `device`;
 - a zlib stream with FDICT, any stream given a dictionary, a malformed
-  header and one cut short go to the host engine directly;
+  header and one cut short go to the host route directly;
 - a stream the device route declines (DeviceDeclined, among them every
   stream of 2^29 bits or more), a DataError from its decode and a
   trailer cut short are counted as `device_fallback`; an output that
   fails its CRC-32, Adler-32 or ISIZE as `device_mismatch_fallback`, and
-  logged.  Each is decoded again from the start on the host engine,
+  logged.  Each is decoded again from the start on the host route,
   which renders tpuzlib's verdict (its ValueError messages).
   `device` counts the bytes the device route returned
   (kernels/inflate_device2.COUNTS).
 
-Deliberate differences from tpuzlib: its catch-all fallback (any
-exception of the device route) is not ported, so a CUDA error, a kernel
-build error or an out-of-memory error propagates; there is no size floor
+Deliberate differences from tpuzlib: its catch-all fallbacks are kept
+away from the card: that of the device route is not ported, and that of
+the speculative route covers its host decode, not its checksums on
+`device`; so a CUDA error, a kernel build error or an out-of-memory error
+propagates; there is no size floor
 (tpuzlib sends streams under 256 KiB to the host) and no environment
 switch; raw streams take the device route too (tpuzlib keeps them on the
-host).  The speculative host inflate is not ported yet.
+host); the speculative dispatch's thresholds are module constants, with
+no environment switch.
 """
 
 from __future__ import annotations
@@ -43,12 +53,26 @@ from typing import Optional
 
 import numpy as np
 
+from ..codec.deflate_engine import _ncores
 from ..codec.tokenize import DataError
 from ..common import mergeBuffers, u8_view
-from ..containers.inflate_container import (ContainerInflater, NeedDictionary,
-                                            parse_gzip_header, parse_zlib_header)
+from ..containers.inflate_container import ContainerInflater, NeedDictionary
 from ..kernels.inflate_device2 import COUNTS, DeviceDeclined, decode_stream
+from ..parallel.speculative import (check_dictionary, check_trailer, container_frame,
+                                    inflate_parallel)
+from ..utils.mem import tune_malloc
 from .checksums import adler32, crc32
+
+# the host route decodes a stream of at least SPECULATIVE_MIN_BYTES with
+# the speculative segment-parallel decode on a host with at least
+# SPECULATIVE_MIN_CORES usable cores (tpuzlib's dispatch,
+# tpuzlib/api/inflate_api.py:252-284; its TPUZLIB_SPECULATIVE switch is
+# not ported).  On the 8-core host of an H100 80GB HBM3 the speculative
+# decode of level-1 streams took 0.60x the Inflater's speed at 3.6 MB in,
+# 0.81x at 7.5 MB, 1.43x at 12.7 MB and 1.62x at 16.3 MB
+# (probes/speculative_breakdown.py), so tpuzlib's thresholds hold there.
+SPECULATIVE_MIN_CORES = 8
+SPECULATIVE_MIN_BYTES = 16 << 20
 
 
 @dataclass
@@ -189,20 +213,14 @@ def _inflate_device(input_: np.ndarray, device) -> np.ndarray | None:
     and which of them are counted)."""
     b0, b1 = int(input_[0]), int(input_[1])
     gzip = b0 == 0x1F and b1 == 0x8B
+    header = ContainerInflater(raw=not (gzip or _is_zlib(b0, b1)))
     try:
-        if gzip:
-            hdr = parse_gzip_header(
-                input_, lambda b: crc32(np.ascontiguousarray(b), device=device) & 0xFFFF)
-            start, n_trailer = (None if hdr is None else hdr.size), 8
-        elif _is_zlib(b0, b1):
-            hdr = parse_zlib_header(input_)
-            if hdr is not None and hdr[1] is not None:
-                return None  # FDICT: the dictionary is the host engine's
-            start, n_trailer = (None if hdr is None else hdr[0]), 4
-        else:
-            start, n_trailer = 0, 0
+        start = 0 if header.raw else header._parse_header(input_)
     except DataError:
         return None
+    if header.dict_id is not None:
+        return None  # FDICT: the dictionary is the host engine's
+    n_trailer = header.trailer_len
     if start is None or len(input_) < start + n_trailer:
         return None
     try:
@@ -235,8 +253,50 @@ def _inflate_device(input_: np.ndarray, device) -> np.ndarray | None:
     return out
 
 
-def _inflate_host(input_: np.ndarray, dictionary) -> np.ndarray:
-    """tpuzlib's host route: one Inflater over the whole input."""
+def speculative_applies(n_bytes: int) -> bool:
+    """Whether the host route decodes a stream of n_bytes by the
+    speculative decode on this host (tpuzlib's dispatch rule)."""
+    return _ncores() >= SPECULATIVE_MIN_CORES and n_bytes >= SPECULATIVE_MIN_BYTES
+
+
+class _HostFault(Exception):
+    """A speculative host step failed with an error that is not a
+    ValueError (logged): the Inflater decodes the stream instead."""
+
+
+def _on_host(fn, *args, **kwargs):
+    """fn(*args, **kwargs), a host step of the speculative route: a
+    ValueError is the verdict and propagates (it carries tpuzlib's
+    message), any other error is logged and becomes _HostFault."""
+    try:
+        return fn(*args, **kwargs)
+    except ValueError:
+        raise
+    except Exception as e:
+        logging.getLogger("tpuzlib_torch").warning(
+            "speculative inflate failed (%s: %s); falling back to the sequential path",
+            type(e).__name__, e)
+        raise _HostFault from e
+
+
+def _inflate_host(input_: np.ndarray, dictionary, device) -> np.ndarray:
+    """tpuzlib's host route: the speculative segment-parallel decode of a
+    large stream on a many-core host, else one Inflater over the whole
+    input.  Only the speculative route's host steps fall back to the
+    Inflater (_on_host); its DICTID and trailer checks on `device` do
+    not, so an error of the card propagates."""
+    if speculative_applies(len(input_)):
+        try:
+            frame = _on_host(container_frame, input_)
+            check_dictionary(frame, dictionary, device)
+            out = _on_host(inflate_parallel, input_[frame.start : frame.stop],
+                           dictionary=dictionary)
+            check_trailer(frame, out, device)
+        except _HostFault:
+            pass
+        else:
+            COUNTS["speculative"] += len(out)
+            return out
     method, flag = int(input_[0]), int(input_[1])
     gzip = method == 0x1F and flag == 0x8B
     inflater = Inflater(InflaterOptions(raw=not (gzip or _is_zlib(method, flag)),
@@ -262,9 +322,10 @@ def _inflate_host(input_: np.ndarray, dictionary) -> np.ndarray:
 def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
     """One-shot decompress `data`, detecting its container: gzip (1F 8B),
     zlib (first byte exactly 0x78 with a valid header check), else raw
-    DEFLATE.  Decodes on `device` first, and on the host engine where the
-    device route does not give the verified bytes.  Returns the bytes as
-    a uint8 array; raises tpuzlib's ValueError for bad data."""
+    DEFLATE.  Decodes on `device` first, and on the host where the device
+    route does not give the verified bytes.  Returns the bytes as a uint8
+    array; raises tpuzlib's ValueError for bad data."""
+    tune_malloc()  # large codec buffers must not be munmap'd per call
     input_ = u8_view(data)
     if len(input_) < 2:
         raise ValueError("data buffer is too small")
@@ -272,4 +333,4 @@ def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
         out = _inflate_device(input_, device)
         if out is not None:
             return out
-    return _inflate_host(input_, dictionary)
+    return _inflate_host(input_, dictionary, device)

@@ -1,5 +1,4 @@
-"""Streaming container-aware inflater (header FSM + engine + trailer), and
-the zlib (RFC 1950) and gzip (RFC 1952) header parsers of the device route.
+"""Streaming container-aware inflater (header FSM + engine + trailer).
 
 Counterpart of tpuzlib/containers/inflate_container.py.  ContainerInflater
 is tpuzlib's host object, copied: it feeds appended bytes through the
@@ -10,16 +9,18 @@ check (:214-218), DICTID -> NEED_DICT (:227-270), gzip
 MTIME/EXTRA/NAME/COMMENT/HCRC parsing (:277-401), trailer checksum + gzip
 ISIZE (:423-463), dictionary verification (:475-503).
 
-parse_zlib_header and parse_gzip_header are the same header checks as
-plain functions over a whole stream, for one-shot inflate's device route
-(api/inflate_api.py); where they and the class parse the same header,
-they agree (tests/test_torch_inflater.py).
+Its header parsers are the port's only ones for the two containers:
+one-shot inflate's device route (api/inflate_api.py) and the speculative
+host inflate (parallel/speculative.py) read a whole stream's header
+size, gzip fields and zlib DICTID through `_parse_header`,
+`_try_parse_gzip_header` and `_parse_zlib_header`, which leave the
+dictionary check (NEED_DICT) to the caller; the append FSM runs it in
+`_try_parse_header`.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import NamedTuple
 
 import numpy as np
 
@@ -27,74 +28,6 @@ from ..codec.engine import RawInflateEngine
 from ..codec.tokenize import DataError
 from ..kernels.adler32 import adler32_host
 from ..kernels.crc32 import crc32_host
-
-
-class GzipHeader(NamedTuple):
-    size: int  # header bytes
-    mtime: int
-    file_name: str
-
-
-def parse_zlib_header(buf: np.ndarray):
-    """(header bytes, DICTID or None) of a zlib stream; None when `buf`
-    ends inside the header.  Raises DataError on a malformed header."""
-    if len(buf) < 2:
-        return None
-    cmf, flg = int(buf[0]), int(buf[1])
-    if (cmf & 0x0F) != 8:
-        raise DataError("unknown compression method")
-    if (cmf >> 4) > 7:
-        raise DataError("invalid window size")
-    if ((cmf << 8) + flg) % 31 != 0:
-        raise DataError("incorrect header check")
-    if flg & 0x20:  # FDICT
-        if len(buf) < 6:
-            return None
-        return 6, struct.unpack(">I", buf[2:6].tobytes())[0]
-    return 2, None
-
-
-def parse_gzip_header(buf: np.ndarray, header_crc16=None):
-    """The GzipHeader of a gzip member; None when `buf` ends inside the
-    header.  header_crc16(bytes) -> the low 16 bits of their CRC-32, for a
-    header that carries FHCRC.  Raises DataError on a malformed header."""
-    if len(buf) < 10:
-        return None
-    cm, flg = int(buf[2]), int(buf[3])
-    if cm != 8:
-        raise DataError("unknown compression method")
-    if flg & 0xE0:
-        raise DataError("unknown header flags set")
-    mtime = struct.unpack("<I", buf[4:8].tobytes())[0]
-    file_name = ""
-    pos = 10
-    if flg & 0x04:  # FEXTRA
-        if len(buf) < pos + 2:
-            return None
-        xlen = struct.unpack("<H", buf[pos : pos + 2].tobytes())[0]
-        pos += 2
-        if len(buf) < pos + xlen:
-            return None
-        pos += xlen
-    if flg & 0x08:  # FNAME
-        end = np.flatnonzero(buf[pos:] == 0)
-        if len(end) == 0:
-            return None
-        file_name = buf[pos : pos + end[0]].tobytes().decode("latin-1", "replace")
-        pos += int(end[0]) + 1
-    if flg & 0x10:  # FCOMMENT
-        end = np.flatnonzero(buf[pos:] == 0)
-        if len(end) == 0:
-            return None
-        pos += int(end[0]) + 1
-    if flg & 0x02:  # FHCRC
-        if len(buf) < pos + 2:
-            return None
-        stored_hcrc = struct.unpack("<H", buf[pos : pos + 2].tobytes())[0]
-        if header_crc16(buf[:pos]) != stored_hcrc:
-            raise DataError("header crc mismatch")
-        pos += 2
-    return GzipHeader(pos, mtime, file_name)
 
 
 FMT_RAW = "raw"
@@ -128,6 +61,7 @@ class ContainerInflater:
         self.trailer_len = 0 if raw else None
         self.output_checksum = 1  # adler seed; switched to 0 for gzip/raw
         self._checksum_kind = None
+        self.dict_id = None  # a zlib header's DICTID (FDICT set)
 
     # -- public ---------------------------------------------------------------
 
@@ -187,6 +121,14 @@ class ContainerInflater:
 
     def _try_parse_header(self, buf: np.ndarray):
         """Returns consumed byte count, or None if more input is needed."""
+        size = self._parse_header(buf)
+        if size is not None and self.dict_id is not None:
+            self._use_dictionary()
+        return size
+
+    def _parse_header(self, buf: np.ndarray):
+        """The gzip or zlib header's size, or None when `buf` ends inside
+        it; a zlib DICTID is kept in dict_id, unchecked."""
         if len(buf) < 2:
             return None
         if buf[0] == 0x1F and buf[1] == 0x8B:
@@ -208,14 +150,17 @@ class ContainerInflater:
         if flg & 0x20:  # FDICT
             if len(buf) < 6:
                 return None
-            dict_id = struct.unpack(">I", buf[2:6].tobytes())[0]
-            if self.dictionary is None:
-                raise NeedDictionary("required")
-            if adler32_host(self.dictionary) != dict_id:
-                raise NeedDictionary("invalid")
-            self.engine.set_dictionary(self.dictionary)
+            self.dict_id = struct.unpack(">I", buf[2:6].tobytes())[0]
             return 6
         return 2
+
+    def _use_dictionary(self) -> None:
+        """NEED_DICT: the preset dictionary must be given and match DICTID."""
+        if self.dictionary is None:
+            raise NeedDictionary("required")
+        if adler32_host(self.dictionary) != self.dict_id:
+            raise NeedDictionary("invalid")
+        self.engine.set_dictionary(self.dictionary)
 
     def _try_parse_gzip_header(self, buf: np.ndarray):
         if len(buf) < 10:

@@ -1,7 +1,9 @@
 """Device inflate: cursor-parallel speculative decode of a raw DEFLATE stream.
 
 Counterpart of tpuzlib/kernels/inflate_device2.py on its Pallas-tokenizer
-path.  `inflate_device_v2(data, ...)` decodes a raw DEFLATE stream:
+path, and its mesh= branch (mesh_decode: the cursors shared among the
+ranks of a parallel/mesh.Mesh).  `inflate_device_v2(data, ...)` decodes
+a raw DEFLATE stream:
 
   pass 1 (host)   discover the block headers (a native scan, then a
                   python walk over the blocks) and lay K cursors over
@@ -77,10 +79,11 @@ META_EOB = 10
 # how often the splice repair ran and how many bridges it decoded; how
 # often inflate() handed a stream to the host engine (the device route
 # declined it, or its output failed the container's checksum or ISIZE),
-# and the bytes the device route returned (api/inflate_api.py, under
-# tpuzlib's counter names)
+# the bytes the device route returned (api/inflate_api.py, under
+# tpuzlib's counter names), and the bytes the host route's speculative
+# decode returned (a name of the port's: tpuzlib counts none)
 COUNTS = {"splice_repair": 0, "repair_bridge": 0, "device_fallback": 0,
-          "device_mismatch_fallback": 0, "device": 0}
+          "device_mismatch_fallback": 0, "device": 0, "speculative": 0}
 
 
 class DeviceDeclined(RuntimeError):
@@ -312,8 +315,9 @@ class Layout(NamedTuple):
 
 
 def plan_cursors(buf: np.ndarray, stride_bits: int | None = None,
-                 max_cursors: int | None = None) -> Layout:
-    """Pass 1: the block plan and the cursor layout of `buf`.  Raises
+                 max_cursors: int | None = None, kpad_multiple: int = 1) -> Layout:
+    """Pass 1: the block plan and the cursor layout of `buf`, its Kpad
+    cursors a multiple of `kpad_multiple` (a mesh's ranks).  Raises
     DeviceDeclined when the stream reaches MAX_STREAM_BITS (2^29 bits,
     64 MiB: the tapes' bit positions would pass their sentinel), or when
     the blocks do not plan or need too many cursors."""
@@ -335,6 +339,7 @@ def plan_cursors(buf: np.ndarray, stride_bits: int | None = None,
     # whole 128-cursor groups, a power of two of them
     groups = -(-cp.Kpad // 128)
     Kpad = 128 * (1 << max(0, (groups - 1).bit_length()))
+    Kpad = kpad_multiple * -(-Kpad // kpad_multiple)
     # non-first cursors also start one OVERLAP early, inside the previous
     # cursor's span: self-sync then has 2 * OVERLAP bits to land inside the
     # candidate window instead of one
@@ -927,21 +932,27 @@ def decode(data, dictionary=None, stride_bits: int | None = None, max_cursors: i
     cannot decode.
 
     dictionary: the history before the stream (a zlib preset dictionary);
-    keywords: device (default "cuda"); force_repair: run the splice repair
-    even where the splice validated; bridge_chunk: tokens per native
-    bridge call; max_bridges / max_row_batches: the repair's caps."""
+    keywords: device (default "cuda"); mesh: a parallel/mesh.Mesh whose
+    ranks share the decode (on their own devices; see mesh_decode);
+    force_repair: run the splice repair even where the splice validated;
+    bridge_chunk: tokens per native bridge call; max_bridges /
+    max_row_batches: the repair's caps."""
     return decode_stream(data, dictionary, stride_bits, max_cursors, device_expand, **kwargs)[0]
 
 
 def decode_stream(data, dictionary=None, stride_bits: int | None = None,
                   max_cursors: int | None = None, device_expand: bool = False, *, device="cuda",
-                  force_repair: bool = False, bridge_chunk: int = 1024, max_bridges: int = 64,
-                  max_row_batches: int = 64):
+                  mesh=None, force_repair: bool = False, bridge_chunk: int = 1024,
+                  max_bridges: int = 64, max_row_batches: int = 64):
     """decode(...) and the bit after the stream's final block: (bytes,
     end bit)."""
     buf = np.ascontiguousarray(np.asarray(data), dtype=np.uint8)
-    lay = plan_cursors(buf, stride_bits, max_cursors)
-    toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))
+    if mesh is None:
+        lay = plan_cursors(buf, stride_bits, max_cursors)
+        toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))
+    else:
+        lay = plan_cursors(buf, stride_bits, max_cursors, mesh.size)
+        toks = mesh_decode(lay.decode_args(buf, mesh.device), mesh)
     meta, comp, _ = splice_compact(toks, lay.stops, lay.bstart, lay.first, lay.last,
                                    lay.expect_eob, lay.active)
     meta_np = meta.cpu().numpy()
@@ -973,6 +984,27 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
     win[WINDOW - len(window):] = window
     return device_expand_all(tape, n, torch.from_numpy(win).to(comp.device),
                              8 * len(buf) + (1 << 16)), end
+
+
+def mesh_decode(a: inflate_cuda.DecodeArgs, mesh):
+    """The cursor decode sharded over a mesh (tpuzlib's mesh= tokenize,
+    inflate_device2.py:1354-1388): each rank decodes its slice of the
+    cursors on its device (the `inflate_decode` kernel on a card, its plain
+    version on the CPU), with the stream and the tables replicated; then
+    every rank gathers all six outputs in cursor order, as tpuzlib gathers
+    before its splice, so the splice, repair and expansion run unchanged
+    on every rank."""
+    import torch.distributed as dist
+
+    kc = a.cur.shape[1] // mesh.size
+    lo = mesh.rank * kc
+    mine = inflate_cuda.cursor_decode(a._replace(cur=a.cur[:, lo : lo + kc].contiguous()))
+    out = []
+    for t in mine:
+        parts = [torch.empty_like(t) for _ in range(mesh.size)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.group)
+        out.append(torch.cat(parts))
+    return tuple(out)
 
 
 def device_expand_all(tape: torch.Tensor, n: int, window: torch.Tensor, out_cap: int):

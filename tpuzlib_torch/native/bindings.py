@@ -50,6 +50,13 @@ _SIGNATURES = {
     "tz_find_headers": (_I64, [_P, _I64, _I64, _I32, _P, _I64]),
     # litlen, dist, ntok, dst, dst_cap, dict_len
     "tz_expand_tokens": (_I64, [_P, _P, _I64, _P, _I64, _I64]),
+    # src, src_len, limit_bits, allow_final, out_pos, cap
+    "tz_header_candidates": (_I64, [_P, _I64, _I64, _I32, _P, _I64]),
+    # litlen, dist, ntok -> output bytes
+    "tz_tape_out_len": (_I64, [_P, _P, _I64]),
+    # nseg, litlen pointers, dist pointers, ntok, seg_len, window, wlen, dst,
+    # nthreads -> output bytes or -2
+    "tz_expand_segments": (_I64, [_I32, _P, _P, _P, _P, _P, _I64, _P, _I32]),
     # data, total, ctx_len, max_chain, max_lazy, nice_len, lazy, litlen, dist,
     # lit_freq, dist_freq, stripe_out_end, stripe_tokens -> token count
     "tz_deflate_tokenize": (_I64, [_P, _I64, _I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P,

@@ -11,6 +11,9 @@
 //   * tz_inflate_tokenize: window-free tokenization of whole blocks (the
 //     open-end tail, and the confirmation probe of the header scan);
 //   * tz_expand_tokens: serial token-tape expansion (pass 3 on the host);
+//   * tz_header_candidates, tz_tape_out_len, tz_expand_segments: the
+//     speculative inflate's boundary search filter and its
+//     segment-parallel expansion (parallel/speculative.py);
 //   * tz_adler32, tz_crc32: the host checksums (kernels/adler32.py,
 //     kernels/crc32.py), chained by seed;
 // and the deflate entry points of the host engine (codec/deflate_engine.py):
@@ -459,6 +462,52 @@ int tz_inflate_raw(const uint8_t* src, int64_t src_len, int64_t start_bit,
 }
 
 
+// A dynamic block's header after its BFINAL and BTYPE bits: HLIT, HDIST,
+// HCLEN, the code-length code and its RLE of the code lengths, into the
+// two decode tables.  False where the header is malformed (a length count
+// out of range, a code-length code or tree that build_lut refuses, a bad
+// repeat, no end-of-block code) or runs past in.nbits; in.pos then is
+// undefined.  The rules are codec/tokenize.parse_dynamic_header's.
+static bool read_dynamic_tables(BitIn& in, uint32_t* lit_lut, int* lit_bits,
+                                uint32_t* dist_lut, int* dist_bits) {
+  uint32_t hlit = in.bits(5) + 257;
+  uint32_t hdist = in.bits(5) + 1;
+  uint32_t hclen = in.bits(4) + 4;
+  if (!in.ok || hlit > 286 || hdist > 30) return false;
+  int32_t clc[19] = {0};
+  for (uint32_t i = 0; i < hclen; i++) clc[CLC_ORDER[i]] = (int32_t)in.bits(3);
+  if (!in.ok) return false;
+  static thread_local uint32_t clc_lut[LUT_SIZE];
+  int clc_bits;
+  if (build_lut(clc, 19, 2, clc_lut, &clc_bits) != 0) return false;
+  const uint32_t clc_mask = (1u << clc_bits) - 1;
+  int32_t lengths[286 + 30] = {0};
+  uint32_t i = 0;
+  while (i < hlit + hdist) {
+    uint32_t ent = clc_lut[in.peek64() & clc_mask];
+    if (ent & F_INVALID) return false;
+    int nb = (ent >> 15) & 0xF;
+    if (in.pos + nb > in.nbits) return false;
+    uint32_t sym = ent & 0x7FFF;
+    in.pos += nb;
+    if (sym < 16) { lengths[i++] = (int32_t)sym; }
+    else if (sym == 16) {
+      if (i == 0) return false;
+      uint32_t rep = 3 + in.bits(2);
+      if (!in.ok || i + rep > hlit + hdist) return false;
+      int32_t prev = lengths[i - 1];
+      for (uint32_t r = 0; r < rep; r++) lengths[i++] = prev;
+    } else {
+      uint32_t rep = sym == 17 ? 3 + in.bits(3) : 11 + in.bits(7);
+      if (!in.ok || i + rep > hlit + hdist) return false;
+      i += rep;
+    }
+  }
+  return lengths[256] != 0 &&
+         build_lut(lengths, (int)hlit, 0, lit_lut, lit_bits) == 0 &&
+         build_lut(lengths + hlit, (int)hdist, 1, dist_lut, dist_bits) == 0;
+}
+
 // Window-free tokenization for speculative parallel inflate: decode
 // symbols from start_bit into a token tape (no output buffer, no window
 // needed), stopping at the first block boundary at/after stop_bit or at
@@ -494,45 +543,8 @@ int64_t tz_inflate_tokenize(const uint8_t* src, int64_t src_len,
     } else {
       if (btype == 1) {
         fixed_tables(lit_lut, dist_lut, &lit_bits, &dist_bits);
-      } else {
-        uint32_t hlit = in.bits(5) + 257;
-        uint32_t hdist = in.bits(5) + 1;
-        uint32_t hclen = in.bits(4) + 4;
-        if (!in.ok || hlit > 286 || hdist > 30) { *status = 2; *end_bit = block_start; return ntok; }
-        int32_t clc[19] = {0};
-        for (uint32_t i = 0; i < hclen; i++) clc[CLC_ORDER[i]] = (int32_t)in.bits(3);
-        if (!in.ok) { *status = 2; *end_bit = block_start; return ntok; }
-        static thread_local uint32_t clc_lut[LUT_SIZE];
-        int clc_bits;
-        if (build_lut(clc, 19, 2, clc_lut, &clc_bits) != 0) { *status = 2; *end_bit = block_start; return ntok; }
-        const uint32_t clc_mask = (1u << clc_bits) - 1;
-        int32_t lengths[286 + 30] = {0};
-        uint32_t i = 0;
-        while (i < hlit + hdist) {
-          uint32_t ent = clc_lut[in.peek64() & clc_mask];
-          if (ent & F_INVALID) { *status = 2; *end_bit = block_start; return ntok; }
-          int nb = (ent >> 15) & 0xF;
-          if (in.pos + nb > in.nbits) { *status = 2; *end_bit = block_start; return ntok; }
-          uint32_t sym = ent & 0x7FFF;
-          in.pos += nb;
-          if (sym < 16) { lengths[i++] = (int32_t)sym; }
-          else if (sym == 16) {
-            if (i == 0) { *status = 2; *end_bit = block_start; return ntok; }
-            uint32_t rep = 3 + in.bits(2);
-            if (!in.ok || i + rep > hlit + hdist) { *status = 2; *end_bit = block_start; return ntok; }
-            int32_t prev = lengths[i - 1];
-            for (uint32_t r = 0; r < rep; r++) lengths[i++] = prev;
-          } else {
-            uint32_t rep = sym == 17 ? 3 + in.bits(3) : 11 + in.bits(7);
-            if (!in.ok || i + rep > hlit + hdist) { *status = 2; *end_bit = block_start; return ntok; }
-            i += rep;
-          }
-        }
-        if (lengths[256] == 0 ||
-            build_lut(lengths, (int)hlit, 0, lit_lut, &lit_bits) != 0 ||
-            build_lut(lengths + hlit, (int)hdist, 1, dist_lut, &dist_bits) != 0) {
-          *status = 2; *end_bit = block_start; return ntok;
-        }
+      } else if (!read_dynamic_tables(in, lit_lut, &lit_bits, dist_lut, &dist_bits)) {
+        *status = 2; *end_bit = block_start; return ntok;
       }
       const uint32_t lit_mask = (1u << lit_bits) - 1;
       const uint32_t dist_mask = (1u << dist_bits) - 1;
@@ -649,6 +661,25 @@ int64_t tz_tokenize_midblock(const uint8_t* src, int64_t src_len,
   return ntok;
 }
 
+// The dynamic-block header's fields from its first bit (w): BTYPE 10,
+// HLIT and HDIST fields <= 29, BFINAL 0 unless allow_final.
+static inline bool header_prefilter(uint64_t w, int32_t allow_final) {
+  return ((w >> 1) & 3) == 2 && (allow_final || !(w & 1)) &&
+         ((w >> 3) & 31) <= 29 && ((w >> 8) & 31) <= 29;
+}
+
+// The code-length code (k: the 57 bits from the header's bit 17) is
+// complete, of two codes or more: a Kraft sum of exactly 2^7.
+static inline bool clc_complete(uint64_t w, uint64_t k) {
+  const int hclen = (int)((w >> 13) & 15) + 4;
+  int kraft = 0, nz = 0;
+  for (int j = 0; j < hclen; j++) {
+    const int lj = (int)((k >> (3 * j)) & 7);
+    if (lj) { kraft += 1 << (7 - lj); nz++; }
+  }
+  return kraft == 128 && nz >= 2;
+}
+
 // Full-stream dynamic-block header scan (the block planner's pass 1;
 // python counterpart: parallel/speculative.find_all_block_starts).
 // For every bit position: cheap field checks (BTYPE==10, HLIT/HDIST in
@@ -670,24 +701,12 @@ static int64_t tz_scan_headers_range(const uint8_t* src, int64_t src_len,
     const int s = (int)(bit & 7);
     uint64_t w0;
     memcpy(&w0, src + byte, 8);
-    const uint32_t w = (uint32_t)(w0 >> s);
-    if (((w >> 1) & 3) != 2) continue;
-    if (!allow_final && (w & 1)) continue;
-    const uint32_t hlit = (w >> 3) & 31;
-    const uint32_t hdist = (w >> 8) & 31;
-    if (hlit > 29 || hdist > 29) continue;
-    const int hclen = (int)((w >> 13) & 15) + 4;
+    if (!header_prefilter(w0 >> s, allow_final)) continue;
     // 19 CLC entries start at bit+17 and span <=57 bits: one u64 window
     const int64_t cb = bit + 17;
     uint64_t k0;
     memcpy(&k0, src + (cb >> 3), 8);
-    const uint64_t k = k0 >> (cb & 7);
-    int kraft = 0, nz = 0;
-    for (int j = 0; j < hclen; j++) {
-      const int lj = (int)((k >> (3 * j)) & 7);
-      if (lj) { kraft += 1 << (7 - lj); nz++; }
-    }
-    if (kraft != 128 || nz < 2) continue;
+    if (!clc_complete(w0 >> s, k0 >> (cb & 7))) continue;
     int32_t ll[64], dd[64];
     int64_t eb;
     int32_t fin, st;
@@ -776,6 +795,136 @@ int64_t tz_expand_tokens(const int32_t* litlen, const int32_t* dist,
     }
   }
   return out - dict_len;
+}
+
+// Candidate dynamic-block headers of the speculative inflate's boundary
+// search (parallel/speculative.find_block_start): every bit position in
+// [0, limit_bits) whose header passes the field checks and the
+// code-length-code Kraft test of find_block_start's prefilter (BFINAL 0
+// unless allow_final, BTYPE 10, HLIT and HDIST fields <= 29, a complete
+// code-length code of two codes or more; bits past src_len read as 0)
+// and then parses within src_len bytes (read_dynamic_tables).  Each
+// rejected position is one the python probe (codec/tokenize.
+// parse_dynamic_header) rejects too, so the caller probes and confirms
+// only these.  Returns the number written to out_pos; cap bounds it.
+int64_t tz_header_candidates(const uint8_t* src, int64_t src_len,
+                             int64_t limit_bits, int32_t allow_final,
+                             int64_t* out_pos, int64_t cap) {
+  static thread_local uint32_t lit_lut[LUT_SIZE];
+  static thread_local uint32_t dist_lut[LUT_SIZE];
+  const BitIn whole(src, src_len * 8, 0);
+  int64_t found = 0;
+  for (int64_t bit = 0; bit < limit_bits && found < cap; bit++) {
+    BitIn at = whole;
+    at.pos = bit;
+    const uint64_t w = at.peek64();
+    if (!header_prefilter(w, allow_final)) continue;
+    at.pos = bit + 17;
+    if (!clc_complete(w, at.peek64())) continue;
+    at.pos = bit + 3;
+    int lit_bits, dist_bits;
+    if (read_dynamic_tables(at, lit_lut, &lit_bits, dist_lut, &dist_bits)) {
+      out_pos[found++] = bit;
+    }
+  }
+  return found;
+}
+
+// Output bytes of a token tape (a literal 1, a match its length).
+int64_t tz_tape_out_len(const int32_t* litlen, const int32_t* dist, int64_t ntok) {
+  int64_t n = 0;
+  for (int64_t t = 0; t < ntok; t++) n += dist[t] ? litlen[t] : 1;
+  return n;
+}
+
+// Segment-parallel token-tape expansion (the speculative inflate's last
+// step; the same bytes as tz_expand_tokens of the joined tapes).  Segment
+// i's tape expands on its own thread into out[g_i, g_i + seg_len[i]) of a
+// 16-bit buffer, where a byte that a match copies from before g_i is a
+// marker, 256 + k for byte k of the 32 KiB window before g_i.  Then the
+// windows resolve one after another, 32 KiB each (window 0 is `window`,
+// the dictionary, zero before it), and each segment narrows to bytes
+// through its window, in parallel again.  dst holds the sum of seg_len.
+// Returns that sum, or -2 when a distance reaches before the window.
+static constexpr int64_t WIN = 1 << 15;
+
+static int64_t expand_marked(const int32_t* litlen, const int32_t* dist,
+                             int64_t ntok, uint16_t* out, int64_t g,
+                             int64_t wlen) {
+  int64_t q = 0;
+  for (int64_t t = 0; t < ntok; t++) {
+    const int32_t d = dist[t];
+    if (d == 0) { out[q++] = (uint16_t)litlen[t]; continue; }
+    const int32_t len = litlen[t];
+    uint16_t* to = out + q;
+    if (d > q) {
+      if (d > WIN || g + q - d < -wlen) return -2;
+      for (int32_t j = 0; j < len; j++) {
+        const int64_t from = q - d + j;
+        to[j] = from < 0 ? (uint16_t)(256 + WIN + from) : out[from];
+      }
+    } else if (d >= len) {
+      memcpy(to, to - d, (size_t)len * 2);
+    } else {
+      const uint16_t* from = to - d;
+      int32_t j = 0;
+      if (d >= 4) {
+        for (; j + 4 <= len; j += 4) { uint64_t v; memcpy(&v, from + j, 8); memcpy(to + j, &v, 8); }
+      }
+      for (; j < len; j++) to[j] = from[j];
+    }
+    q += len;
+  }
+  return q;
+}
+
+int64_t tz_expand_segments(int32_t nseg, const int64_t* litlen_ptrs,
+                           const int64_t* dist_ptrs, const int64_t* ntok,
+                           const int64_t* seg_len, const uint8_t* window,
+                           int64_t wlen, uint8_t* dst, int32_t nthreads) {
+  std::vector<int64_t> g(nseg + 1, 0);
+  for (int i = 0; i < nseg; i++) g[i + 1] = g[i] + seg_len[i];
+  const int64_t total = g[nseg];
+  std::unique_ptr<uint16_t[]> buf(new uint16_t[total > 0 ? total : 1]);
+  // tables[i][v]: v for a byte (v < 256), else window byte v - 256
+  std::vector<uint8_t> tables((size_t)nseg * (256 + WIN), 0);
+  const int nt = std::max(1, std::min<int>(nthreads, nseg));
+  auto on_threads = [&](auto fn) {
+    std::vector<std::thread> threads;
+    for (int t = 0; t < nt; t++) {
+      threads.emplace_back([&, t]() { for (int i = t; i < nseg; i += nt) fn(i); });
+    }
+    for (auto& th : threads) th.join();
+  };
+  std::vector<int64_t> got(nseg, 0);
+  on_threads([&](int i) {
+    got[i] = expand_marked((const int32_t*)litlen_ptrs[i], (const int32_t*)dist_ptrs[i],
+                           ntok[i], buf.get() + g[i], g[i], wlen);
+  });
+  for (int i = 0; i < nseg; i++) {
+    if (got[i] == -2) return -2;
+  }
+  for (int i = 0; i < nseg; i++) {
+    uint8_t* tab = tables.data() + (size_t)i * (256 + WIN);
+    for (int v = 0; v < 256; v++) tab[v] = (uint8_t)v;
+    if (i == 0) {
+      const int64_t n = std::min(wlen, WIN);
+      if (n) memcpy(tab + 256 + WIN - n, window + wlen - n, (size_t)n);
+      continue;
+    }
+    const uint8_t* prev = tab - (256 + WIN);
+    for (int64_t k = 0; k < WIN; k++) {
+      const int64_t p = g[i] - WIN + k;
+      tab[256 + k] = p >= g[i - 1] ? prev[buf[p]] : prev[256 + p - (g[i - 1] - WIN)];
+    }
+  }
+  on_threads([&](int i) {
+    const uint8_t* tab = tables.data() + (size_t)i * (256 + WIN);
+    const uint16_t* from = buf.get() + g[i];
+    uint8_t* to = dst + g[i];
+    for (int64_t q = 0; q < seg_len[i]; q++) to[q] = tab[from[q]];
+  });
+  return total;
 }
 
 // ---------------------------------------------------------------------------
