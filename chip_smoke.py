@@ -107,8 +107,8 @@ tpuzlib_torch/kernels/csrc, then:
      and its ratio to zlib's at the level, and the engine's core count
      (its bytes depend on it); zlib must decode both; K2 inflate()s the
      Deflater's level-6 zlib and gzip streams on the card, every byte
-     from the device route (COUNTS["device"] grown by the output, no
-     fallback counted, decode launches); K3 decodes 8 MiB from ragged
+     from the device route (the inflate.device counter grown by the
+     output, no fallback counted, decode launches); K3 decodes 8 MiB from ragged
      appends (1 B, 7 B, 4 KiB, 1 MiB) on the device route, and 8 MiB
      after a 32 KiB preset dictionary from deflate(dictionary=) on the
      host engine, both also with zlib; K4 compresses the corpus into
@@ -133,7 +133,22 @@ tpuzlib_torch/kernels/csrc, then:
      no fallback).  The launches of the encoder's four kernels, the two
      checksum scalars and the decode's two kernels are counted over M
      ("M launches"), each required.  L and M run after every launch count
-     of the kernels line has been read.
+     of the kernels line has been read;
+  N  profiles the two main paths with utils/trace.py, after M: N1 times a
+     warm level-6 zlib deflate() of the 32 MiB corpus with the telemetry
+     off and on, in turns (median of 7; the ratio is the cost of its
+     spans; reported, not gated); N2 runs one warm deflate() of it and
+     one warm inflate() of G's zlib stream, each inside trace.profile()
+     (a temporary directory, removed afterwards), and prints, per call,
+     the host wall ms, the card's busy ms (the union of its kernel, copy
+     and memset intervals), its idle share, the 8 device operations of
+     most time, each stage's host ms, the idle ms under each innermost
+     stage, and the 8 longest idle gaps with the stage open on the host
+     at their middle; then the stage telemetry and the counters, gated:
+     deflate.device and inflate.device equal to the bytes in and out, no
+     fallback; N3 runs one warm make_encode_batch_v3 batch with the
+     telemetry on under torch.cuda.set_sync_debug_mode("error"): its
+     overflow counter and the encoder upload and read back nothing.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -156,10 +171,15 @@ loops and lane arithmetic are each several calls), and theirs is null.
 
 from __future__ import annotations
 
+import collections
 import functools
+import glob
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -723,7 +743,8 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
     stream's raw DEFLATE payload by name."""
     import tpuzlib_torch
     from tpuzlib_torch.kernels import inflate_device2 as d2
-    from tpuzlib_torch.testing import corpus as make_corpus, zlib_stream
+    from tpuzlib_torch.testing import corpus as make_corpus, counters_since, zlib_stream
+    from tpuzlib_torch.utils import trace
 
     small = corpus[: 8 << 20]
     text = make_corpus("text", 8 << 20, seed=2)
@@ -771,7 +792,7 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
     ]
     bad = []
     for name, wire, want, fn, kw, repairs in runs:
-        before = dict(d2.COUNTS)
+        before = trace.get_counters()
         times, out, declined = [], None, False
         for _ in range(2):  # the second run is the warm one
             torch.cuda.synchronize()
@@ -786,22 +807,23 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
             if out is None:
                 declined = declined or "returned None"
         equal = not declined and out.tobytes() == want.tobytes()
-        counts = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS}
+        counts = counters_since(before)
         emit({"phase": "G2", "run": name, "bytes_in": len(wire), "bytes_out": len(want),
               "equal": equal, "declined": declined, "cold_s": times[0], "warm_s": times[1],
               "warm_MBps": len(want) / times[1] / 1e6, "counts": counts})
+        route = tuple(counts.get(k, 0) for k in ("inflate.device_fallback",
+                                                  "inflate.device_mismatch_fallback",
+                                                  "inflate.device"))
         if not equal:
             bad.append(name)
-        elif fn is inflate and (counts["device_fallback"], counts["device_mismatch_fallback"],
-                                counts["device"]) != (0, 0, 2 * len(want)):
+        elif fn is inflate and route != (0, 0, 2 * len(want)):
             # both calls' bytes must come from the device route: the host
             # engine behind it would hide a wrong decode
             bad.append("%s (fallbacks %d + %d, %d bytes from the device route, want 0 + 0, %d)"
-                       % (name, counts["device_fallback"], counts["device_mismatch_fallback"],
-                          counts["device"], 2 * len(want)))
-        elif repairs is not None and counts["splice_repair"] != 2 * repairs:
+                       % (name, *route, 2 * len(want)))
+        elif repairs is not None and counts.get("inflate.splice_repair", 0) != 2 * repairs:
             bad.append("%s (%d splice repairs in two calls, want %d)"
-                       % (name, counts["splice_repair"], 2 * repairs))
+                       % (name, counts.get("inflate.splice_repair", 0), 2 * repairs))
     if bad:
         raise SystemExit("phase G2: %s" % ", ".join(bad))
     return payload
@@ -1089,11 +1111,13 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> bytes:
     from tpuzlib_torch.codec.engine import RawInflateEngine
     from tpuzlib_torch.kernels import _build
     from tpuzlib_torch.kernels import inflate_device2 as d2
+    from tpuzlib_torch.testing import counters_since
+    from tpuzlib_torch.utils import trace
 
     def counted(fn):
-        """fn()'s result (or its ValueError's message), the COUNTS it moved,
-        the decode's launches and its host seconds."""
-        before = dict(d2.COUNTS)
+        """fn()'s result (or its ValueError's message), the counters it
+        moved, the decode's launches and its host seconds."""
+        before = trace.get_counters()
         _build.reset_launches()
         t0 = time.perf_counter()
         try:
@@ -1101,8 +1125,7 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> bytes:
         except ValueError as e:
             out = str(e)
         dt = time.perf_counter() - t0
-        moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS if d2.COUNTS[k] != before[k]}
-        return out, moved, _build.LAUNCHES["inflate_decode"], dt
+        return out, counters_since(before), _build.LAUNCHES["inflate_decode"], dt
 
     bad = []
     # J1: seven copies of the corpus at level 1: 224 MiB, a stream of more
@@ -1116,9 +1139,9 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> bytes:
     out, moved, decodes, dt = counted(lambda: tpuzlib_torch.inflate(wire1, device=DEVICE))
     # the host route: the speculative decode where the dispatch applies
     # (phase L times it beside the Inflater), else the Inflater
-    want = {"device_fallback": 1}
+    want = {"inflate.device_fallback": 1}
     if inflate_api.speculative_applies(len(wire1)):
-        want["speculative"] = len(big)
+        want["inflate.speculative"] = len(big)
     ok = (not isinstance(out, str) and out.tobytes() == big.tobytes()
           and moved == want and decodes == 0)
     emit({"phase": "J1", "bytes_in": len(wire1), "bits": len(wire1) * 8, "bytes_out": len(big),
@@ -1157,17 +1180,18 @@ def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> bytes:
     gz = gzip32.tobytes()
     for name, wire, verdict, counter in (
             ("zlib cut short", z6[: len(z6) // 2], "Unexpected EOF during decompression",
-             "device_fallback"),
+             "inflate.device_fallback"),
             ("gzip cut short", gz[: len(gz) - 100], "Unexpected EOF during decompression",
-             "device_fallback"),
+             "inflate.device_fallback"),
             ("zlib Adler-32 flipped", flip(z6, len(z6) - 1), "Data integrity check failed",
-             "device_mismatch_fallback"),
+             "inflate.device_mismatch_fallback"),
             ("gzip CRC-32 flipped", flip(gz, len(gz) - 5), "Data integrity check failed",
-             "device_mismatch_fallback"),
+             "inflate.device_mismatch_fallback"),
             ("gzip ISIZE flipped", flip(gz, len(gz) - 1), "Data size check failed",
-             "device_mismatch_fallback")):
+             "inflate.device_mismatch_fallback")):
         out, moved, decodes, dt = counted(lambda: tpuzlib_torch.inflate(wire, device=DEVICE))
-        fallbacks = {k: moved.get(k, 0) for k in ("device_fallback", "device_mismatch_fallback")}
+        fallbacks = {k: moved.get(k, 0) for k in ("inflate.device_fallback",
+                                                  "inflate.device_mismatch_fallback")}
         ok = out == verdict and fallbacks == {k: int(k == counter) for k in fallbacks}
         emit({"phase": "J3", "run": name, "bytes_in": len(wire), "verdict": out, "want": verdict,
               "counts": moved, "decode_launches": decodes, "s": dt, "ok": ok})
@@ -1217,8 +1241,9 @@ def phase_k(corpus, smi: str) -> None:
     import tpuzlib_torch
     from tpuzlib_torch.codec import deflate_engine
     from tpuzlib_torch.kernels import _build
-    from tpuzlib_torch.kernels import inflate_device2 as d2
     from tpuzlib_torch.parallel import members
+    from tpuzlib_torch.testing import counters_since
+    from tpuzlib_torch.utils import trace
 
     def deflater(data, steps=None, **options) -> bytes:
         """The Deflater's stream of `data`, appended in `steps` in turn
@@ -1233,15 +1258,15 @@ def phase_k(corpus, smi: str) -> None:
         return np.concatenate(parts + d.finish()).tobytes()
 
     def on_card(wire, want, dictionary=None):
-        """inflate() on the card: equal bytes, the COUNTS it moved and the
-        decode's launches."""
-        before = dict(d2.COUNTS)
+        """inflate() on the card: equal bytes, the counters it moved and
+        the decode's launches."""
+        before = trace.get_counters()
         launches = _build.LAUNCHES["inflate_decode"]
         t0 = time.perf_counter()
         out = tpuzlib_torch.inflate(wire, dictionary, device=DEVICE)
         dt = time.perf_counter() - t0
-        moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS if d2.COUNTS[k] != before[k]}
-        return out.tobytes() == want, moved, _build.LAUNCHES["inflate_decode"] - launches, dt
+        return (out.tobytes() == want, counters_since(before),
+                _build.LAUNCHES["inflate_decode"] - launches, dt)
 
     bad = []
     data = corpus.tobytes()
@@ -1268,8 +1293,9 @@ def phase_k(corpus, smi: str) -> None:
     gz6 = deflater(corpus, level=6, format="gzip", fileName="mixed.bin")
     for name, wire in (("zlib L6", host6), ("gzip L6", gz6)):
         ok, moved, decodes, dt = on_card(wire, data)
-        ok = (ok and moved.get("device") == len(data) and decodes > 0
-              and not any(moved.get(k) for k in ("device_fallback", "device_mismatch_fallback")))
+        ok = (ok and moved.get("inflate.device") == len(data) and decodes > 0
+              and not any(moved.get(k) for k in ("inflate.device_fallback",
+                                                 "inflate.device_mismatch_fallback")))
         emit({"phase": "K2", "run": name, "bytes_in": len(wire), "bytes_out": len(data),
               "equal_and_device_route": ok, "counts": moved, "decode_launches": decodes,
               "s": dt, "MBps": len(data) / dt / 1e6})
@@ -1290,9 +1316,9 @@ def phase_k(corpus, smi: str) -> None:
         zok = do.decompress(wire) == part.tobytes() and do.eof
         ok, moved, decodes, dt = on_card(wire, part.tobytes(), dictionary)
         # an FDICT stream is the host engine's, the other the device route's
-        ok = ok and zok and not any(moved.get(k) for k in ("device_fallback",
-                                                             "device_mismatch_fallback"))
-        ok = ok and moved.get("device", 0) == (0 if dictionary else len(part))
+        ok = ok and zok and not any(moved.get(k) for k in ("inflate.device_fallback",
+                                                             "inflate.device_mismatch_fallback"))
+        ok = ok and moved.get("inflate.device", 0) == (0 if dictionary else len(part))
         emit({"phase": "K3", "run": name, "bytes_in": len(part), "bytes_out": len(wire),
               "deflate_s": s_, "zlib_decodes": zok, "inflate_ok": ok, "counts": moved,
               "decode_launches": decodes, "inflate_s": dt})
@@ -1345,8 +1371,9 @@ def phase_l(corpus, wire1: bytes, z6: bytes, gzip32: np.ndarray, smi: str) -> No
     import tpuzlib_torch
     from tpuzlib_torch.api import inflate_api
     from tpuzlib_torch.kernels import _build
-    from tpuzlib_torch.kernels import inflate_device2 as d2
     from tpuzlib_torch.parallel.speculative import inflate_parallel_container
+    from tpuzlib_torch.testing import counters_since
+    from tpuzlib_torch.utils import trace
 
     bad = []
     big = np.tile(corpus, 7).tobytes()
@@ -1356,14 +1383,13 @@ def phase_l(corpus, wire1: bytes, z6: bytes, gzip32: np.ndarray, smi: str) -> No
                          % (cores, inflate_api.SPECULATIVE_MIN_CORES))
 
     def routed():
-        """inflate() of the stream, with what it moved in COUNTS and the
+        """inflate() of the stream, with the counters it moved and the
         launches it made."""
-        before = dict(d2.COUNTS)
+        before = trace.get_counters()
         _build.reset_launches()
         out = tpuzlib_torch.inflate(wire1, device=DEVICE)
         torch.cuda.synchronize()
-        moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS if d2.COUNTS[k] != before[k]}
-        return out, moved, {k: v for k, v in _build.LAUNCHES.items() if v}
+        return out, counters_since(before), {k: v for k, v in _build.LAUNCHES.items() if v}
 
     def sequential():
         inf = tpuzlib_torch.Inflater()
@@ -1371,7 +1397,8 @@ def phase_l(corpus, wire1: bytes, z6: bytes, gzip32: np.ndarray, smi: str) -> No
         return np.concatenate(parts) if inf.finish().success else None
 
     (out, moved, launched), spec_s, spec_runs = warm_s(routed)
-    ok = (out.tobytes() == big and moved == {"device_fallback": 1, "speculative": len(big)}
+    ok = (out.tobytes() == big
+          and moved == {"inflate.device_fallback": 1, "inflate.speculative": len(big)}
           and launched == {"adler32_scalar": 1})
     del out
     seq, seq_s, seq_runs = warm_s(sequential)
@@ -1487,6 +1514,162 @@ def phase_m(corpus, raw6: np.ndarray, smi: str) -> None:
         raise SystemExit("phase M: %s" % ", ".join(bad))
 
 
+def _op_name(name: str) -> str:
+    """A device operation's name up to its argument list, without its
+    namespaces, at most 120 characters (template arguments kept); a copy
+    or a memset by its whole name."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    for ns in ("void ", "(anonymous namespace)::", "at::native::", "at_cuda_detail::",
+               "cub::", "std::"):
+        name = name.replace(ns, "")
+    depth = 0
+    for i, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0 and i:
+            name = name[:i]
+            break
+    return name.strip()[:120]
+
+
+def trace_split(logdir: str, window: str) -> dict:
+    """The split of the call under the record_function span `window` in
+    logdir's Chrome trace (ts and dur in µs): its wall ms; the card's busy
+    ms, the union of its kernel, copy and memset intervals inside the
+    window, and idle share; the 8 device operations of most time; each
+    stage span's host ms; the idle ms under each innermost stage span; and
+    the 8 longest idle gaps, each with the innermost stage span open on
+    the host at its middle."""
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    (win,) = [e for e in spans if e["name"] == window]
+    w0, w1 = win["ts"], win["ts"] + win["dur"]
+    stages = [e for e in spans if e is not win and w0 <= e["ts"] <= w1]
+    ops = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and e["ts"] < w1 and e["ts"] + e["dur"] > w0]
+    busy = []
+    for a, b in sorted((max(e["ts"], w0), min(e["ts"] + e["dur"], w1)) for e in ops):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    edges = [w0] + [x for iv in busy for x in iv] + [w1]
+    gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
+
+    def open_at(t):
+        inner = [e for e in stages if e["ts"] <= t <= e["ts"] + e["dur"]]
+        return max(inner, key=lambda e: e["ts"])["name"] if inner else "(no stage)"
+
+    busy_us = sum(b - a for a, b in busy)
+    by_op, n_op = collections.Counter(), collections.Counter()
+    for e in ops:
+        by_op[_op_name(e["name"])] += e["dur"]
+        n_op[_op_name(e["name"])] += 1
+    stage_ms, idle_ms = collections.Counter(), collections.Counter()
+    for e in stages:
+        stage_ms[e["name"]] += e["dur"] / 1e3
+    for a, b in gaps:
+        idle_ms[open_at((a + b) / 2)] += (b - a) / 1e3
+    return {
+        "wall_ms": (w1 - w0) / 1e3, "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / (w1 - w0), "device_ops": len(ops),
+        "top_ops": [{"op": k, "ms": v / 1e3, "count": n_op[k]} for k, v in by_op.most_common(8)],
+        "stage_ms": dict(stage_ms.most_common()), "idle_ms_by_stage": dict(idle_ms.most_common()),
+        "longest_gaps": [{"ms": (b - a) / 1e3, "at_ms": (a - w0) / 1e3, "stage": open_at((a + b) / 2)}
+                         for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:8]],
+    }
+
+
+def phase_n(corpus, z6: bytes, smi: str) -> None:
+    """The main paths profiled through utils/trace.py: the telemetry's cost
+    (N1), the split of a warm deflate() and inflate() from a
+    trace.profile() capture with the counters gated (N2), and one encoder
+    batch under set_sync_debug_mode("error") with the telemetry on (N3)."""
+    import tpuzlib_torch
+    from tpuzlib_torch.kernels import deflate_device3 as d3
+    from tpuzlib_torch.utils import trace
+
+    bad = []
+    data = corpus.tobytes()
+
+    def deflate():
+        return tpuzlib_torch.deflate(corpus, level=LEVEL, device=DEVICE)
+
+    # N1: telemetry off and on, in turns, after a warm-up of each; the
+    # stages' host ms a call, from the telemetry of the calls with it on
+    trace.reset()
+    secs, reps = {False: [], True: []}, 8
+    for rep in range(reps):
+        for on in (False, True):
+            trace.enable(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            deflate()
+            torch.cuda.synchronize()
+            if rep:
+                secs[on].append(time.perf_counter() - t0)
+    trace.enable(False)
+    mbps = {on: len(data) / float(np.median(v)) / 1e6 for on, v in secs.items()}
+    emit({"phase": "N1", "card": smi, "bytes_in": len(data), "level": LEVEL,
+          "off_MBps": mbps[False], "on_MBps": mbps[True], "on_over_off": mbps[True] / mbps[False],
+          "off_s": secs[False], "on_s": secs[True],
+          "stage_ms_per_call": {k: v["seconds"] * 1e3 / reps
+                                for k, v in trace.get_telemetry().items()}})
+
+    # N2: one warm call of each main path inside trace.profile()
+    trace.reset()
+    trace.reset_counters()
+    tmp = tempfile.mkdtemp(prefix="tpuzlib_torch_profile_")
+    try:
+        for name, fn in (("deflate", deflate),
+                         ("inflate", lambda: tpuzlib_torch.inflate(z6, device=DEVICE))):
+            logdir = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            with trace.profile(logdir, device=DEVICE):
+                with torch.profiler.record_function("smoke." + name):
+                    out = fn()
+                    torch.cuda.synchronize()
+            ok = (zlib.decompress(out.tobytes()) if name == "deflate" else out.tobytes()) == data
+            emit({"phase": "N2", "call": name, "card": smi, "equal": ok,
+                  **trace_split(logdir, "smoke." + name)})
+            bad += [] if ok else ["N2 %s output" % name]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counters = trace.get_counters()
+    emit({"phase": "N2 telemetry", "stages": trace.get_telemetry(), "counters": counters})
+    want = {"deflate.device": len(data), "inflate.device": len(data)}
+    got = {k: counters.get(k, 0) for k in want}
+    fallbacks = {k: v for k, v in counters.items() if "fallback" in k and v}
+    if got != want or fallbacks:
+        bad.append("N2 counters %s, fallbacks %s; want %s and none" % (got, fallbacks, want))
+
+    # N3: one encoder batch, telemetry on, under set_sync_debug_mode("error")
+    enc = d3.make_encode_batch_v3(LEVEL, CHUNK, BATCH, d3.out_words_for(CHUNK))
+    args = first_batch(corpus, DEVICE)
+    want = [t.cpu() for t in enc(*args)]  # telemetry off, and a warm-up
+    trace.enable(True)
+    try:
+        enc(*args)
+        torch.cuda.synchronize()
+        trace.reset_counters()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = enc(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        overflow = trace.get_counters().get("deflate.ext_cap_overflow")
+    finally:
+        trace.enable(False)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    emit({"phase": "N3", "sync_debug_mode": "error", "passed": True, "same_as_off": same,
+          "ext_cap_overflow": overflow})
+    bad += [] if same and overflow is not None else ["N3"]
+    if bad:
+        raise SystemExit("phase N: %s" % ", ".join(bad))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1563,6 +1746,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_m(corpus, raw6, smi)
     emit({"phase": "M", "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_n(corpus, z6, smi)
+    emit({"phase": "N", "s": time.perf_counter() - t0})
 
     kernels = [{**rows[k], "launches": launches[k]} for k in rows]
     emit({"kernels": kernels})

@@ -24,6 +24,7 @@ from tpuzlib_torch.kernels import parse, screen
 from tpuzlib_torch.kernels import deflate_device3 as d3
 from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.kernels.deflate_device import segment_parse_xla
+from tpuzlib_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -572,9 +573,10 @@ def test_inflate_decode_block_sizes(dev, case, threads):
 def _device_route(fn, n_bytes):
     """fn()'s result, checking that the device route returned all of its
     `n_bytes` and that nothing fell back to the host engine."""
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     out = fn()
-    moved = {k: d2.COUNTS[k] - before[k]
+    counted = testing.counters_since(before)
+    moved = {k: counted.get("inflate." + k, 0)
              for k in ("device_fallback", "device_mismatch_fallback", "device")}
     assert moved == {"device_fallback": 0, "device_mismatch_fallback": 0, "device": n_bytes}
     return out
@@ -604,10 +606,10 @@ def test_inflate_on_card_matches_cpu(dev):
         assert out.tobytes() == data.tobytes()
     # a bad Adler-32: the card's output fails it, and the host engine,
     # after one counted fallback, gives the verdict
-    before = d2.COUNTS["device_mismatch_fallback"]
+    before = trace.get_counters()
     with pytest.raises(ValueError, match="Data integrity check failed"):
         tpuzlib_torch.inflate(streams[0][:-1] + bytes([streams[0][-1] ^ 1]), device=dev)
-    assert d2.COUNTS["device_mismatch_fallback"] == before + 1
+    assert testing.counters_since(before).get("inflate.device_mismatch_fallback") == 1
 
 
 def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):

@@ -26,7 +26,7 @@ import torch
 import tpuzlib_torch
 from tpuzlib_torch import testing
 from tpuzlib_torch.kernels import _build, adler32, adler32_cuda
-from tpuzlib_torch.kernels import inflate_device2 as d2
+from tpuzlib_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -163,18 +163,19 @@ def test_inflate_fallback_and_inflater_on_card(dev):
     z = zlib.compress(data.tobytes(), 6)
     gz = tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes()
     flip = lambda w, i: w[:i] + bytes([w[i] ^ 1]) + w[i + 1:]  # noqa: E731
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     assert tpuzlib_torch.inflate(z, device=dev).tobytes() == data.tobytes()
-    assert d2.COUNTS["device"] - before["device"] == len(data)
+    assert testing.counters_since(before).get("inflate.device") == len(data)
     for wire, verdict, counter in (
             (z[: len(z) // 2], "Unexpected EOF during decompression", "device_fallback"),
             (flip(z, len(z) - 1), "Data integrity check failed", "device_mismatch_fallback"),
             (flip(gz, len(gz) - 1), "Data size check failed", "device_mismatch_fallback")):
-        before = dict(d2.COUNTS)
+        before = trace.get_counters()
         with pytest.raises(ValueError, match=verdict):
             tpuzlib_torch.inflate(wire, device=dev)
-        assert {k: d2.COUNTS[k] - before[k] for k in ("device_fallback",
-                                                      "device_mismatch_fallback")} == {
+        moved = testing.counters_since(before)
+        assert {k: moved.get("inflate." + k, 0) for k in ("device_fallback",
+                                                          "device_mismatch_fallback")} == {
             k: int(k == counter) for k in ("device_fallback", "device_mismatch_fallback")}
     zdict = data[:32 << 10].tobytes()
     c = zlib.compressobj(6, zlib.DEFLATED, 15, zdict=zdict)

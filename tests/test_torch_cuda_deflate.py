@@ -26,11 +26,12 @@ from tpuzlib_torch import testing
 from tpuzlib_torch.kernels import _build
 from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.parallel import members
+from tpuzlib_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
 KB = 1 << 10
-FALLBACKS = ("device_fallback", "device_mismatch_fallback")
+FALLBACKS = ("inflate.device_fallback", "inflate.device_mismatch_fallback")
 
 
 @pytest.fixture
@@ -53,15 +54,16 @@ def _on_card(wire, want, dev, dictionary=None, device_bytes=None):
     """inflate() on the card gives `want`, with no fallback counted, the
     device route's bytes counted as `device_bytes` (all of `want` unless
     given), and decode launches where the device route ran."""
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     launches = _build.LAUNCHES["inflate_decode"]
     out = tpuzlib_torch.inflate(wire, dictionary, device=dev)
     torch.cuda.synchronize()
     assert out.tobytes() == want
-    moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS}
-    assert {k: moved[k] for k in FALLBACKS} == {k: 0 for k in FALLBACKS}
-    assert moved["device"] == (len(want) if device_bytes is None else device_bytes)
-    assert (_build.LAUNCHES["inflate_decode"] > launches) == (moved["device"] > 0)
+    moved = testing.counters_since(before)
+    assert {k: moved.get(k, 0) for k in FALLBACKS} == {k: 0 for k in FALLBACKS}
+    device = moved.get("inflate.device", 0)
+    assert device == (len(want) if device_bytes is None else device_bytes)
+    assert (_build.LAUNCHES["inflate_decode"] > launches) == (device > 0)
 
 
 @pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])

@@ -296,9 +296,13 @@ def test_native_library_builds_and_loads():
 
 
 def test_reads_no_environment():
-    """No environment switch: the one read is tpuzlib's allocator opt-out
-    TPUZLIB_MALLOC_TUNE in utils/mem.py (the mesh's torchrun variables
-    are read by torch.distributed's env:// initialisation)."""
+    """No environment switch: the reads are tpuzlib's allocator opt-out
+    TPUZLIB_MALLOC_TUNE in utils/mem.py and its telemetry switch
+    TPUZLIB_TRACE in utils/trace.py, which selects no route (the mesh's
+    torchrun variables are read by torch.distributed's env://
+    initialisation)."""
+    reads = {os.path.join("utils", "mem.py"): "TPUZLIB_MALLOC_TUNE",
+             os.path.join("utils", "trace.py"): "TPUZLIB_TRACE"}
     pat = re.compile(r"os\.environ|getenv")
     seen = set()
     for root, _, names in os.walk(PKG):
@@ -308,8 +312,8 @@ def test_reads_no_environment():
                 seen.add(rel)
                 with open(os.path.join(root, n)) as f:
                     text = f.read()
-                if rel == os.path.join("utils", "mem.py"):
-                    assert re.findall(r"os\.environ\.get\(\"(\w+)\"", text) == ["TPUZLIB_MALLOC_TUNE"]
+                if rel in reads:
+                    assert re.findall(r"os\.environ\.get\(\"(\w+)\"", text) == [reads[rel]]
                     assert len(pat.findall(text)) == 1
                 else:
                     assert not pat.search(text), n

@@ -19,7 +19,7 @@ import tpuzlib
 import tpuzlib_torch
 from tpuzlib.containers.inflate_container import ContainerInflater
 from tpuzlib_torch import testing
-from tpuzlib_torch.kernels.inflate_device2 import COUNTS
+from tpuzlib_torch.utils import trace
 from tpuzlib_torch.containers.inflate_container import ContainerInflater as PortContainer
 
 # One intra-op thread: the suite runs in several worker processes at once,
@@ -50,19 +50,20 @@ STREAMS = {
 
 
 def _routed(fn):
-    """fn()'s result (or its ValueError) and what it moved in COUNTS: the
-    two fallbacks and the bytes the device route returned."""
-    before = dict(COUNTS)
+    """fn()'s result (or its ValueError) and what it moved of the event
+    counters: the two fallbacks and the bytes the device route returned."""
+    before = trace.get_counters()
     try:
         out = fn()
     except ValueError as e:
         out = e
-    return out, {k: COUNTS[k] - before[k]
+    moved = testing.counters_since(before)
+    return out, {k: moved.get("inflate." + k, 0)
                  for k in ("device_fallback", "device_mismatch_fallback", "device")}
 
 
 def _on_device(n_bytes: int) -> dict:
-    """The COUNTS moves of calls whose `n_bytes` all came from the device
+    """The counter moves of calls whose `n_bytes` all came from the device
     route, with no fallback."""
     return {"device_fallback": 0, "device_mismatch_fallback": 0, "device": n_bytes}
 

@@ -17,6 +17,7 @@ from tpuzlib.kernels import inflate_pallas as JP
 from tpuzlib_torch import testing
 from tpuzlib_torch.kernels import inflate_cuda as PC
 from tpuzlib_torch.kernels import inflate_device2 as P
+from tpuzlib_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and their OpenMP threads, one per core each, spin against one another.
@@ -69,9 +70,9 @@ def test_forced_repair_matches(monkeypatch, name):
     _recorder(monkeypatch, P, pseen)
     monkeypatch.setenv("TPUZLIB_FORCE_REPAIR", "1")
     assert _jax(monkeypatch, buf).tobytes() == src.tobytes()
-    before = P.COUNTS["splice_repair"]
+    before = trace.get_counters()
     assert _port(buf, force_repair=True).tobytes() == src.tobytes()
-    assert P.COUNTS["splice_repair"] == before + 1
+    assert testing.counters_since(before).get("inflate.splice_repair") == 1
     assert _port(buf, force_repair=True, device_expand=True).tobytes() == src.tobytes()
     (jlo, jhi, jbridges, jends), (plo, phi, pbridges, pends) = jseen[0], pseen[0]
     assert np.array_equal(plo, jlo) and np.array_equal(phi, jhi) and pends == jends
@@ -82,9 +83,9 @@ def test_forced_repair_matches(monkeypatch, name):
 
 def test_repair_caps_and_bridge_chunk():
     buf, src = STREAMS["fixed"]  # its splice declines: the repair bridges
-    before = P.COUNTS["repair_bridge"]
+    before = trace.get_counters()
     assert _port(buf, bridge_chunk=64).tobytes() == src.tobytes()
-    assert P.COUNTS["repair_bridge"] > before
+    assert testing.counters_since(before).get("inflate.repair_bridge", 0) > 0
     assert _port(buf, max_bridges=0) is None
     with pytest.raises(P.DeviceDeclined, match="bridge cap"):
         P.decode(buf, stride_bits=STRIDE, max_cursors=MAXC, device="cpu", max_bridges=0)

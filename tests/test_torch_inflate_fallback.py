@@ -26,6 +26,7 @@ from tpuzlib_torch import testing
 from tpuzlib_torch.api import inflate_api
 from tpuzlib_torch.kernels import inflate_cuda
 from tpuzlib_torch.kernels import inflate_device2 as d2
+from tpuzlib_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -33,7 +34,7 @@ torch.set_num_threads(1)
 DATA = testing.inflate_streams(1 << 13, seed=4)["L6"][1]
 WIRES = [testing.zlib_stream(DATA, 6, -15), zlib.compress(DATA.tobytes(), 6),
          gzip.compress(DATA.tobytes(), 6, mtime=7)]
-FALLBACKS = ("device_fallback", "device_mismatch_fallback")
+FALLBACKS = ("inflate.device_fallback", "inflate.device_mismatch_fallback")
 
 
 @pytest.fixture(autouse=True)
@@ -68,13 +69,14 @@ def _corrupt(case: int) -> bytes:
 @pytest.mark.parametrize("case", range(20))
 def test_corrupt_streams_match_tpuzlib(case):
     wire = _corrupt(case)
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     got = _outcome(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
-    counted = sum(d2.COUNTS[k] - before[k] for k in FALLBACKS)
+    moved = testing.counters_since(before)
+    counted = sum(moved.get(k, 0) for k in FALLBACKS)
     assert got == _outcome(lambda: tpuzlib.inflate(wire))
     assert counted <= 1
     if got[0] == "bytes" and counted == 0:
-        assert d2.COUNTS["device"] - before["device"] == len(got[1])
+        assert moved.get("inflate.device", 0) == len(got[1])
 
 
 def test_stream_past_the_device_limit_decodes_on_the_host(monkeypatch):
@@ -92,18 +94,16 @@ def test_stream_past_the_device_limit_decodes_on_the_host(monkeypatch):
 
     monkeypatch.setattr(inflate_cuda, "cursor_decode", refuse)
     monkeypatch.setattr(inflate_api, "_ncores", lambda: 1)
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     got = tpuzlib_torch.inflate(wire, device="cpu")
     assert got.tobytes() == data.tobytes()
-    assert {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS} == {
-        "splice_repair": 0, "repair_bridge": 0, "device_fallback": 1,
-        "device_mismatch_fallback": 0, "device": 0, "speculative": 0}
+    assert testing.counters_since(before) == {"inflate.device_fallback": 1}
 
 
 def test_runtime_errors_propagate(monkeypatch):
     """Only verdicts on the data fall back: a RuntimeError from the device
     decode, or from the trailer's checksum, reaches the caller."""
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
 
     def boom(*args, **kwargs):
         raise RuntimeError("a fault of the device path")
@@ -118,14 +118,21 @@ def test_runtime_errors_propagate(monkeypatch):
             m.setattr(inflate_api, name, boom)
             with pytest.raises(RuntimeError, match="a fault of the device path"):
                 tpuzlib_torch.inflate(WIRES[1 if name == "adler32" else 2], device="cpu")
-    assert d2.COUNTS == before
+    assert trace.get_counters() == before
 
 
 def test_counts_keys():
-    assert set(d2.COUNTS) == {"splice_repair", "repair_bridge", "device_fallback",
-                              "device_mismatch_fallback", "device", "speculative"}
+    """The route's counters carry tpuzlib's names, in the one store of
+    utils/trace.py (the decode's own dict is gone)."""
+    assert not hasattr(d2, "COUNTS")
     # a stream the device route decodes counts its bytes, and no fallback
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     assert tpuzlib_torch.inflate(WIRES[1], device="cpu").tobytes() == DATA.tobytes()
-    assert {k: d2.COUNTS[k] - before[k] for k in (*FALLBACKS, "device")} == {
-        "device_fallback": 0, "device_mismatch_fallback": 0, "device": len(DATA)}
+    assert testing.counters_since(before) == {"inflate.device": len(DATA)}
+    # a trailer cut short, and a flipped Adler-32: one fallback each
+    for wire, name in ((WIRES[1][:-2], "inflate.device_fallback"),
+                       (WIRES[1][:-1] + bytes([WIRES[1][-1] ^ 1]),
+                        "inflate.device_mismatch_fallback")):
+        before = trace.get_counters()
+        assert _outcome(lambda: tpuzlib_torch.inflate(wire, device="cpu"))[0] == "ValueError"
+        assert testing.counters_since(before) == {name: 1}

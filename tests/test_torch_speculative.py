@@ -7,8 +7,8 @@ python zlib); both packages get the same n_segments and max_workers, so
 the boundaries find_block_start finds are the same targets' and are
 compared too.  inflate() with the dispatch forced: the port's constants
 patched, tpuzlib with TPUZLIB_SPECULATIVE=1; the same bytes or the same
-exception type and message, and the port's route asserted by
-COUNTS["speculative"].
+exception type and message, and the port's route asserted by the
+inflate.speculative counter.
 """
 
 import gzip
@@ -25,9 +25,9 @@ from tpuzlib.parallel import speculative as jsp
 from tpuzlib_torch import testing
 from tpuzlib_torch.api import checksums, deflate_api, inflate_api
 from tpuzlib_torch.codec import expand
-from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.kernels.inflate_device2 import DeviceDeclined
 from tpuzlib_torch.parallel import speculative as sp
+from tpuzlib_torch.utils import trace
 from tpuzlib_torch.utils import mem
 
 # One intra-op thread: the suite runs in several worker processes at once.
@@ -245,15 +245,15 @@ def forced(monkeypatch):
 @pytest.mark.parametrize("name", sorted(CONTAINER_CASES))
 def test_inflate_dispatch_matches_tpuzlib(name, forced):
     wire, dictionary = CONTAINER_CASES[name]
-    before = dict(d2.COUNTS)
+    before = trace.get_counters()
     got = _outcome(lambda: tpuzlib_torch.inflate(wire, dictionary, device="cpu"))
-    moved = {k: d2.COUNTS[k] - before[k] for k in d2.COUNTS}
+    moved = testing.counters_since(before)
     assert got == _outcome(lambda: tpuzlib.inflate(wire, dictionary))
     if got[0] == "bytes":
         # the speculative decode gave the bytes (a failure of it that is
         # not a ValueError would have left the count where it was)
-        assert moved["speculative"] == len(got[1]) > 0
-    assert moved["device"] == moved["device_mismatch_fallback"] == 0
+        assert moved.get("inflate.speculative", 0) == len(got[1]) > 0
+    assert moved.get("inflate.device", 0) == moved.get("inflate.device_mismatch_fallback", 0) == 0
 
 
 def test_dispatch_thresholds(monkeypatch):
@@ -264,10 +264,11 @@ def test_dispatch_thresholds(monkeypatch):
                                      (7, len(Z), False)):
         monkeypatch.setattr(inflate_api, "_ncores", lambda: cores)
         monkeypatch.setattr(inflate_api, "SPECULATIVE_MIN_BYTES", min_bytes)
-        before = d2.COUNTS["speculative"]
+        before = trace.get_counters()
         out = inflate_api._inflate_host(np.frombuffer(Z, np.uint8), None, "cpu")
         assert out.tobytes() == DATA.tobytes()
-        assert d2.COUNTS["speculative"] - before == (len(DATA) if routed else 0)
+        assert (testing.counters_since(before).get("inflate.speculative", 0)
+                == (len(DATA) if routed else 0))
 
 
 def test_speculative_failure_falls_back_logged(forced, monkeypatch, caplog):
@@ -279,10 +280,11 @@ def test_speculative_failure_falls_back_logged(forced, monkeypatch, caplog):
         raise RuntimeError("a fault of the speculative decode")
 
     monkeypatch.setattr(inflate_api, "inflate_parallel", boom)
-    before = d2.COUNTS["speculative"]
+    before = trace.get_counters()
     with caplog.at_level(logging.WARNING, logger="tpuzlib_torch"):
         out = tpuzlib_torch.inflate(Z, device="cpu")
-    assert out.tobytes() == DATA.tobytes() and d2.COUNTS["speculative"] == before
+    assert out.tobytes() == DATA.tobytes()
+    assert "inflate.speculative" not in testing.counters_since(before)
     assert any("speculative inflate failed (RuntimeError: a fault of the speculative decode)"
                in r.getMessage() for r in caplog.records)
 

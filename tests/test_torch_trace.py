@@ -1,0 +1,284 @@
+"""tpuzlib_torch.utils.trace against tpuzlib.utils.trace, on the CPU.
+
+The same calls give the same telemetry (but its seconds and MB/s) and
+the same counters; the Deflater and the Inflater record the same stages
+as tpuzlib's for the same ragged appends; the decode's repair counters
+(inflate.splice_repair, inflate.repair_bridge, inflate.repair_cap_exceeded)
+equal tpuzlib's on the same seeded streams (its Pallas decode in
+interpret mode, TPUZLIB_FORCE_REPAIR=1 for force_repair=True); and the
+encoder's deflate.ext_cap_overflow equals tpuzlib's under
+TPUZLIB_TRACE_EXT=1.  Then what the port alone has: its API counters,
+the stage names of deflate() and inflate(), profile() writing a Chrome
+trace, and a telemetry that records nothing while it is off.
+"""
+
+import functools
+import glob
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpuzlib
+import tpuzlib_torch
+from tpuzlib.kernels import deflate_device3 as jd3
+from tpuzlib.kernels import inflate_device2 as jd2
+from tpuzlib.utils import trace as jtrace
+from tpuzlib_torch import testing
+from tpuzlib_torch.kernels import deflate_device3 as td3
+from tpuzlib_torch.kernels import inflate_device2 as td2
+from tpuzlib_torch.utils import trace
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and their OpenMP threads, one per core each, spin against one another.
+torch.set_num_threads(1)
+
+STREAMS = testing.inflate_streams()
+STRIDE, MAXC = 1 << 13, 256
+CHUNK, BATCH = 1 << 14, 2
+DATA = testing.mixed(300 << 10, 31)
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    """Both packages' telemetry empty and off, restored afterwards."""
+    was = [m.telemetry_enabled() for m in (jtrace, trace)]
+    for m in (jtrace, trace):
+        m.enable(False)
+        m.reset()
+    yield
+    for m, on in zip((jtrace, trace), was):
+        m.enable(on)
+        m.reset()
+
+
+def _moved(before: dict, now: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def _shape(telemetry: dict) -> dict:
+    """Telemetry without its clock: {stage: (calls, bytes)}."""
+    return {k: (v["calls"], v["bytes"]) for k, v in telemetry.items()}
+
+
+def _stages(m):
+    with m.timed_stage("off", 5):
+        pass  # telemetry off: nothing recorded
+    m.enable()
+    for n in (0, 7, 1 << 20):
+        with m.timed_stage("a", n):
+            pass
+    with m.timed_stage("b"):
+        pass
+    with pytest.raises(KeyError):
+        with m.timed_stage("c", 3):
+            raise KeyError("a stage that raises still counts")
+    got = [m.telemetry_enabled(), m.get_telemetry()]
+    m.reset()
+    return got + [m.get_telemetry()]
+
+
+def _counters(m):
+    m.reset_counters()
+    m.count("x")
+    m.count("x", 41)
+    m.count("y", 0)
+    got = [m.get_counters()]
+    m.reset_counters()
+    m.count("z", 3)
+    return got + [m.get_counters()]
+
+
+def _both(m):
+    m.enable()
+    with m.timed_stage("s", 9):
+        m.count("n", 2)
+    m.enable(False)
+    with m.timed_stage("s", 9):
+        m.count("n", 2)
+    return [m.telemetry_enabled(), m.get_telemetry(), m.get_counters()["n"]]
+
+
+@pytest.mark.parametrize("drive", [_stages, _counters, _both], ids=lambda f: f.__name__[1:])
+def test_same_calls_same_telemetry(drive):
+    want, got = drive(jtrace), drive(trace)
+    for w, g in zip(want, got):
+        if isinstance(w, dict) and w and isinstance(next(iter(w.values())), dict):
+            assert _shape(g) == _shape(w)
+            assert all(set(v) == {"calls", "bytes", "seconds", "MBps"} for v in g.values())
+        else:
+            assert g == w
+
+
+def test_public_names():
+    names = ("enable", "telemetry_enabled", "reset", "get_telemetry", "timed_stage", "count",
+             "get_counters", "reset_counters", "profile")
+    assert all(callable(getattr(trace, n)) for n in names)
+    import tpuzlib.utils as ju
+    import tpuzlib_torch.utils as tu
+
+    assert tu.__all__ == ju.__all__ and all(hasattr(tu, n) for n in tu.__all__)
+
+
+def _feed(obj, data, steps) -> None:
+    """Append `data` to obj in pieces of `steps` in turn."""
+    off = k = 0
+    while off < len(data):
+        n = steps[k % len(steps)]
+        obj.append(data[off : off + n])
+        off, k = off + n, k + 1
+
+
+@pytest.mark.parametrize("steps", [[1 << 16], [1, 7, 4096, 65537]], ids=["64K", "ragged"])
+def test_deflater_and_inflater_stages_match(steps):
+    wire = tpuzlib_torch.deflate(DATA, level=6, device="cpu").tobytes()
+    got = {}
+    for pkg, m in ((tpuzlib, jtrace), (tpuzlib_torch, trace)):
+        m.enable()
+        d, i = pkg.Deflater(level=1), pkg.Inflater()
+        _feed(d, DATA, steps)
+        d.finish()
+        _feed(i, wire, steps)
+        assert i.finish().success
+        got[pkg.__name__] = _shape(m.get_telemetry())
+    assert got["tpuzlib_torch"] == got["tpuzlib"]
+    assert set(got["tpuzlib"]) == {"deflate.append", "deflate.finish", "inflate.append"}
+
+
+# (stream, the port's keywords, tpuzlib's environment)
+REPAIR_CASES = {
+    "L1 forced": ("L1", {"force_repair": True}, {"TPUZLIB_FORCE_REPAIR": "1"}),
+    "fixed": ("fixed", {}, {}),
+    "fixed forced": ("fixed", {"force_repair": True}, {"TPUZLIB_FORCE_REPAIR": "1"}),
+    "hidden stored forced": ("hidden stored", {"force_repair": True},
+                             {"TPUZLIB_FORCE_REPAIR": "1"}),
+    "fixed, bridge cap 0": ("fixed", {"max_bridges": 0}, {"TPUZLIB_REPAIR_MAX_BRIDGES": "0"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPAIR_CASES))
+def test_repair_counters_match(monkeypatch, case):
+    name, kw, env = REPAIR_CASES[case]
+    buf, src = STREAMS[name]
+    monkeypatch.setenv("TPUZLIB_PALLAS_TOK", "1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    before = jtrace.get_counters()
+    want = jd2.inflate_device_v2(buf, stride_bits=STRIDE, max_cursors=MAXC)
+    jmoved = _moved(before, jtrace.get_counters())
+    before = trace.get_counters()
+    try:
+        got = td2.decode(buf, stride_bits=STRIDE, max_cursors=MAXC, device="cpu", **kw)
+    except td2.DeviceDeclined:
+        got = None
+    assert (got is None) == (want is None)
+    assert got is None or got.tobytes() == src.tobytes()
+    assert testing.counters_since(before) == jmoved
+    assert jmoved  # every case counts: a repair, or a cap that declined
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tokens():
+    """tpuzlib's encoder truncated after its tokens, where it takes the
+    overflow count: one small program, traced (under TPUZLIB_TRACE_EXT=1)
+    at its first call."""
+    return jd3.make_encode_batch_v3(1, CHUNK, BATCH, td3.out_words_for(CHUNK), stage="tokens")
+
+
+@pytest.mark.parametrize("kind,overflow", [("text", True), ("random", False)])
+def test_ext_cap_overflow_matches(monkeypatch, kind, overflow):
+    args = td3.batch_arrays(testing.corpus(kind, 2 * CHUNK, 1), (0, 1), CHUNK, BATCH)
+    monkeypatch.setenv("TPUZLIB_TRACE_EXT", "1")
+    jtrace.reset_counters()
+    jax.block_until_ready(_jax_tokens()(*map(jnp.asarray, args)))
+    jax.effects_barrier()
+    want = jtrace.get_counters()
+    trace.enable()
+    trace.reset_counters()
+    enc = td3.make_encode_batch_v3(1, CHUNK, BATCH, td3.out_words_for(CHUNK))
+    enc(*map(torch.from_numpy, args))
+    got = trace.get_counters()
+    assert got == want and (got["deflate.ext_cap_overflow"] > 0) == overflow
+
+
+@pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
+def test_api_counters(fmt):
+    """deflate() counts its input as deflate.device (never a fallback:
+    it has none) and inflate() its output as inflate.device."""
+    before = trace.get_counters()
+    wire = tpuzlib_torch.deflate(DATA, format=fmt, device="cpu")
+    assert testing.counters_since(before) == {"deflate.device": len(DATA)}
+    before = trace.get_counters()
+    assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
+    assert testing.counters_since(before) == {"inflate.device": len(DATA)}
+    assert "deflate.device_fallback" not in trace.get_counters()
+
+
+def test_main_path_stages():
+    """deflate() and inflate() run their pieces under the stages that
+    chip_smoke.py's phase N reads, with the bytes each handles."""
+    trace.enable()
+    wire = tpuzlib_torch.deflate(DATA, level=6, device="cpu")
+    nbatch = -(-len(DATA) // (8 << 18))  # batches of 8 chunks of 256 KiB
+    t = trace.get_telemetry()
+    assert {k: t[k]["calls"] for k in t} == {
+        "deflate.layout": nbatch, "deflate.encode_batch": nbatch, "deflate.pull": nbatch,
+        "deflate.join": nbatch + 1, "deflate.checksum": 1}
+    assert t["deflate.layout"]["bytes"] == t["deflate.encode_batch"]["bytes"] == len(DATA)
+    assert t["deflate.checksum"]["bytes"] == len(DATA)
+    trace.reset()
+    assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
+    t = trace.get_telemetry()
+    assert set(t) == {"inflate.plan", "inflate.tokenize_dispatch", "inflate.pre_splice",
+                      "inflate.splice_pull", "inflate.token_splice", "inflate.comp_pull",
+                      "inflate.host_expand", "inflate.checksum"}
+    assert all(v["calls"] == 1 for v in t.values())
+    assert t["inflate.plan"]["bytes"] == len(wire) - 2 and t["inflate.checksum"]["bytes"] == len(DATA)
+    trace.reset()
+    raw = td2.decode(np.asarray(wire)[2:-4], device="cpu", device_expand=True, force_repair=True)
+    assert raw.numpy().tobytes() == DATA.tobytes()
+    assert {"inflate.repair_walk", "inflate.compact", "inflate.device_expand"} <= set(
+        trace.get_telemetry())
+    assert "inflate.host_expand" not in trace.get_telemetry()
+
+
+def test_profile_writes_a_trace(tmp_path):
+    logdir = str(tmp_path / "profile")
+    with trace.profile(logdir, device="cpu") as d:
+        assert d == logdir and trace.telemetry_enabled()
+        deflater = tpuzlib_torch.Deflater(level=6)
+        deflater.append(DATA[:100_000])
+        deflater.append(DATA[100_000:])
+        deflater.finish()
+    assert not trace.telemetry_enabled()
+    assert _shape(trace.get_telemetry()) == {"deflate.append": (2, len(DATA)),
+                                             "deflate.finish": (1, 0)}
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert sorted(spans) == ["deflate.append", "deflate.append", "deflate.finish"]
+
+
+def test_profile_never_drops_the_card(monkeypatch, tmp_path):
+    """Asked for a CUDA device it cannot trace, profile() raises, and
+    leaves the telemetry as it was."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cannot trace a CUDA device"):
+        with trace.profile(str(tmp_path), device="cuda"):
+            pass
+    assert not trace.telemetry_enabled() and not os.listdir(tmp_path)
+
+
+def test_telemetry_off_records_nothing():
+    before = trace.get_counters()
+    wire = tpuzlib_torch.deflate(DATA, device="cpu")
+    tpuzlib_torch.inflate(wire, device="cpu")
+    assert trace.get_telemetry() == {}
+    # the encoder's device counter is taken only while telemetry is on
+    assert "deflate.ext_cap_overflow" not in testing.counters_since(before)

@@ -11,6 +11,13 @@ container's checksum (Adler-32 for zlib, CRC-32 for gzip) on the same
 device; an error in either propagates.  With a preset dictionary it runs
 the Deflater instead, since the device encoder takes none (tpuzlib's
 device route declines them too).
+
+Telemetry (utils/trace.py) under tpuzlib's names: the Deflater's
+`deflate.append` and `deflate.finish` stages; deflate()'s
+`deflate.device` counter (the bytes the device encoder took) and its
+`deflate.checksum` stage (the trailer's checksum).  tpuzlib's
+`deflate.device_fallback` never counts here: deflate() has no fallback
+from the device encoder.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from ..containers.headers import (make_gzip_header, make_gzip_trailer, make_zlib
 from ..kernels.adler32 import adler32_host
 from ..kernels.crc32 import crc32_host
 from ..kernels.deflate_device3 import deflate_device_v3
+from ..utils import trace
 from ..utils.mem import tune_malloc
 from .checksums import adler32, crc32
 
@@ -112,7 +120,8 @@ class Deflater:
         elif self.format == "gzip":
             self.checksum = crc32_host(view, self.checksum)
         self.orig_size += len(view)
-        out = self.engine.push(view)
+        with trace.timed_stage("deflate.append", len(view)):
+            out = self.engine.push(view)
         if len(out):
             buffers.append(out)
         self.compressed_size += sum(len(b) for b in buffers)
@@ -124,7 +133,8 @@ class Deflater:
         if not self._started:
             raise RuntimeError("Cannot call finish before at least 1 call to append")
         self._finished = True
-        buffers = [self.engine.finish()]
+        with trace.timed_stage("deflate.finish"):
+            buffers = [self.engine.finish()]
         if self.format == "deflate":
             buffers.append(u8_view(make_zlib_trailer(self.checksum)))
         elif self.format == "gzip":
@@ -150,12 +160,13 @@ def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kw
         return mergeBuffers(deflater.append(view) + deflater.finish())
     level, fmt = deflater.level, deflater.format
     body = deflate_device_v3(np.ascontiguousarray(view), level=level, device=device)
+    trace.count("deflate.device", len(view))
     if fmt == "raw":
         return body
-    if fmt == "gzip":
-        return mergeBuffers([
-            make_gzip_header(deflater.file_name, level=level), body,
-            make_gzip_trailer(crc32(view, device=device), len(view)),
-        ])
-    return mergeBuffers([make_zlib_header(level), body,
-                         make_zlib_trailer(adler32(view, device=device))])
+    with trace.timed_stage("deflate.checksum", len(view)):
+        if fmt == "gzip":
+            head = make_gzip_header(deflater.file_name, level=level)
+            trailer = make_gzip_trailer(crc32(view, device=device), len(view))
+        else:
+            head, trailer = make_zlib_header(level), make_zlib_trailer(adler32(view, device=device))
+    return mergeBuffers([head, body, trailer])

@@ -14,9 +14,9 @@ SPECULATIVE_MIN_CORES cores, a stream of at least SPECULATIVE_MIN_BYTES
 decodes by the speculative segment-parallel decode
 (parallel/speculative.py: the steps of inflate_parallel_container, its
 DICTID and trailer checked on `device`, its bytes counted as
-`speculative`); any other stream, and one whose speculative host decode
-fails with an error that is not a ValueError (logged), decodes on the
-host engine's Inflater:
+`inflate.speculative`); any other stream, and one whose speculative host
+decode fails with an error that is not a ValueError (logged), decodes on
+the host engine's Inflater:
 
 - gzip, zlib without FDICT and raw streams go to the device route, whose
   output is a host array (pass 3 on the host) and whose trailer checksum
@@ -25,12 +25,17 @@ host engine's Inflater:
   header and one cut short go to the host route directly;
 - a stream the device route declines (DeviceDeclined, among them every
   stream of 2^29 bits or more), a DataError from its decode and a
-  trailer cut short are counted as `device_fallback`; an output that
-  fails its CRC-32, Adler-32 or ISIZE as `device_mismatch_fallback`, and
-  logged.  Each is decoded again from the start on the host route,
-  which renders tpuzlib's verdict (its ValueError messages).
-  `device` counts the bytes the device route returned
-  (kernels/inflate_device2.COUNTS).
+  trailer cut short are counted as `inflate.device_fallback`; an output
+  that fails its CRC-32, Adler-32 or ISIZE as
+  `inflate.device_mismatch_fallback`, and logged.  Each is decoded again
+  from the start on the host route, which renders tpuzlib's verdict (its
+  ValueError messages).  `inflate.device` counts the bytes the device
+  route returned.
+
+The counters are utils/trace.py's, under tpuzlib's names (the port's own
+`inflate.speculative` aside); the Inflater's appends run under the
+`inflate.append` stage, as tpuzlib's do, and the device route's trailer
+checksum under `inflate.checksum`.
 
 Deliberate differences from tpuzlib: its catch-all fallbacks are kept
 away from the card: that of the device route is not ported, and that of
@@ -57,9 +62,10 @@ from ..codec.deflate_engine import _ncores
 from ..codec.tokenize import DataError
 from ..common import mergeBuffers, u8_view
 from ..containers.inflate_container import ContainerInflater, NeedDictionary
-from ..kernels.inflate_device2 import COUNTS, DeviceDeclined, decode_stream
+from ..kernels.inflate_device2 import DeviceDeclined, decode_stream
 from ..parallel.speculative import (check_dictionary, check_trailer, container_frame,
                                     inflate_parallel)
+from ..utils import trace
 from ..utils.mem import tune_malloc
 from .checksums import adler32, crc32
 
@@ -149,7 +155,8 @@ class Inflater:
             raise ValueError("inflate error: bad input data")
         self._total_in += len(view)
         try:
-            out = self._container.push(view)
+            with trace.timed_stage("inflate.append", len(view)):
+                out = self._container.push(view)
         except NeedDictionary as nd:
             if nd.args[0] == "required":
                 raise ValueError("Custom dictionary required for this data")
@@ -226,30 +233,31 @@ def _inflate_device(input_: np.ndarray, device) -> np.ndarray | None:
     try:
         out, end = decode_stream(input_[start:], device=device)
     except (DeviceDeclined, DataError):
-        COUNTS["device_fallback"] += 1
+        trace.count("inflate.device_fallback")
         return None
     # the trailer starts at the first whole byte after the final block;
     # bytes after it are ignored (a second gzip member, trailing garbage)
     at = start + (end + 7) // 8
     if len(input_) < at + n_trailer:
-        COUNTS["device_fallback"] += 1
+        trace.count("inflate.device_fallback")
         return None
     trailer = input_[at : at + n_trailer].tobytes()
-    if gzip:
-        stored_crc, isize = struct.unpack("<II", trailer)
-        ok = crc32(out, device=device) == stored_crc and len(out) & 0xFFFFFFFF == isize
-    elif n_trailer:
-        ok = adler32(out, device=device) == struct.unpack(">I", trailer)[0]
-    else:
-        ok = True  # a raw stream carries no checksum
+    with trace.timed_stage("inflate.checksum", len(out)):
+        if gzip:
+            stored_crc, isize = struct.unpack("<II", trailer)
+            ok = crc32(out, device=device) == stored_crc and len(out) & 0xFFFFFFFF == isize
+        elif n_trailer:
+            ok = adler32(out, device=device) == struct.unpack(">I", trailer)[0]
+        else:
+            ok = True  # a raw stream carries no checksum
     if not ok:
         # a device-path mismatch cannot tell a corrupt stream from a fault
         # of the device path: the host engine settles it and gives the
         # verdict
-        COUNTS["device_mismatch_fallback"] += 1
+        trace.count("inflate.device_mismatch_fallback")
         _log_mismatch_fallback()
         return None
-    COUNTS["device"] += len(out)
+    trace.count("inflate.device", len(out))
     return out
 
 
@@ -295,7 +303,7 @@ def _inflate_host(input_: np.ndarray, dictionary, device) -> np.ndarray:
         except _HostFault:
             pass
         else:
-            COUNTS["speculative"] += len(out)
+            trace.count("inflate.speculative", len(out))
             return out
     method, flag = int(input_[0]), int(input_[1])
     gzip = method == 0x1F and flag == 0x8B

@@ -19,7 +19,19 @@ as tpuzlib's program on the same input:
 The four kernels (near / far screen, segment parse, pack words) run on
 a CUDA tensor; on a CPU tensor each wrapper runs its plain version.  The
 device of the input decides; there is no switch and no fallback.  No step
-reads a value back to the host, so a batch is enqueued without a sync.
+reads a value back to the host or uploads one from it, so a batch is
+enqueued without a sync (chip_smoke.py's phase N3 runs one under
+torch.cuda.set_sync_debug_mode("error")).
+
+Telemetry (utils/trace.py): while it is on, the encoder adds the count
+of chain-broken matches past the extension's cap into the device-resident
+counter `deflate.ext_cap_overflow` (tpuzlib counts it through a
+jax.debug.callback under TPUZLIB_TRACE_EXT=1), which only
+trace.get_counters() reads back; while it is off, the encoder's ops are
+unchanged.  deflate_device_v3 runs its phases as the stages
+deflate.layout (batch layout and upload), deflate.encode_batch (one a
+batch: the encoder's enqueue), deflate.pull (the results' read back) and
+deflate.join (the host bit join).
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import torch
 from ..codec.bitsink import BitSink
 from ..codec.tables import CLC_ORDER, LEVELS, MAX_MATCH, MIN_MATCH, TOO_FAR, WINDOW_SIZE
 from ..common import u8_view
+from ..utils import trace
 from . import _build
 from .deflate_device import CTX, SEG, _push_words, sym_fields_v2
 from .huffman_device import canonical_codes_device, package_merge_device
@@ -135,6 +148,10 @@ def lengths_from_keys(best, ws, lim16, limit, chid):
     # rest keep their 16-byte chain value.  The cap changes the bytes.
     need = (sc >= 16) & (d > 0) & ~link & (limit > 16)
     ext_cap = max(1024, total // 256)
+    if trace.telemetry_enabled():
+        # positions past the cap: a ratio regression is attributable
+        trace.count_on_device("deflate.ext_cap_overflow",
+                              torch.clamp(need.sum() - ext_cap, min=0))
     rank = torch.cumsum(need, 0) - 1
     slot = torch.where(need & (rank < ext_cap), rank, ext_cap)
     epos = torch.full((ext_cap + 1,), total, dtype=torch.int64, device=dev)
@@ -353,6 +370,13 @@ def out_words_for(chunk: int) -> int:
     return min(chunk + 4, (chunk * 10) // 32 + 64)
 
 
+def _const_rows(vals, rows: int, **kw) -> torch.Tensor:
+    """A (rows, len(vals)) tensor whose every row is `vals`, filled on
+    its device: the encoder uploads nothing, since a copy from pageable
+    host memory makes the host wait until the card has drained."""
+    return torch.stack([torch.full((rows,), v, **kw) for v in vals], 1)
+
+
 def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
                          ctx: int = CTX, stage: str = "full"):
     """encode(data u8[B, ctx+chunk], ctx_valid i32[B], n_valid i32[B],
@@ -390,7 +414,7 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         tok.scatter_(0, slot.reshape(-1), pay.reshape(-1))  # the last slot collects the rest
         tok = tok[:-1].reshape(B, T_CAP)
         eob_at = torch.clamp(M, max=T_CAP - 1)
-        tok[torch.arange(B, device=dev), eob_at] = 256
+        tok.scatter_(1, eob_at[:, None], 256)
         ok = (M + 1 < T_CAP).to(torch.int32)
         if stage == "compact":
             return tok, M.to(torch.int32), ok
@@ -459,14 +483,13 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         cl_codes = canonical_codes_device(cl_len)
         fbits = cl_len.gather(1, sym_c)
         fval = cl_codes.gather(1, sym_c) | (extra_val << fbits)
-        clo = torch.as_tensor(CLC_ORDER, device=dev)
         hdr_vals = torch.cat([
-            torch.tensor([[29, 29, 15]], **i64).expand(B, 3),
-            cl_len[:, clo],
+            _const_rows((29, 29, 15), B, **i64),  # HLIT, HDIST, HCLEN
+            torch.stack([cl_len[:, i] for i in CLC_ORDER], 1),
             torch.where(emit, fval, 0),
         ], 1)  # (B, 338)
         hdr_bits = torch.cat([
-            torch.tensor([[5, 5, 4]], **i64).expand(B, 3),
+            _const_rows((5, 5, 4), B, **i64),
             torch.full((B, 19), 3, **i64),
             torch.where(emit, fbits + extra_bits, 0),
         ], 1)
@@ -536,20 +559,27 @@ def deflate_device_v3(data: np.ndarray, level: int = 6, chunk: int = 1 << 18,
     enc = make_encode_batch_v3(level, chunk, batch, out_words_for(chunk))
 
     # enqueue every batch, then read the results back
+    # (each stage's bytes: the batch's input, or, for the pull, its results)
     results = []
     for g in range(0, nchunks, batch):
         group = range(g, min(g + batch, nchunks))
-        args = (torch.from_numpy(a).to(device) for a in batch_arrays(data, group, chunk, batch))
-        results.append((group, enc(*args)))
+        nin = min(g * chunk + len(group) * chunk, n) - g * chunk
+        with trace.timed_stage("deflate.layout", nin):
+            args = [torch.from_numpy(a).to(device) for a in batch_arrays(data, group, chunk, batch)]
+        with trace.timed_stage("deflate.encode_batch", nin):
+            results.append((group, nin, enc(*args)))
 
     sink = BitSink()
-    for group, (words, total_bits, ok) in results:
-        words, total_bits, ok = (t.cpu().numpy() for t in (words, total_bits, ok))
-        for bi, ci in enumerate(group):
-            lo, hi = ci * chunk, min(ci * chunk + chunk, n)
-            _push_chunk(sink, words[bi], total_bits[bi], ok[bi], data[lo:hi],
-                        ci == nchunks - 1, 3 + 32)
-    out, _, _ = sink.flush(final=True)
+    for group, nin, res in results:
+        with trace.timed_stage("deflate.pull", sum(t.numel() * t.element_size() for t in res)):
+            words, total_bits, ok = (t.cpu().numpy() for t in res)
+        with trace.timed_stage("deflate.join", nin):
+            for bi, ci in enumerate(group):
+                lo, hi = ci * chunk, min(ci * chunk + chunk, n)
+                _push_chunk(sink, words[bi], total_bits[bi], ok[bi], data[lo:hi],
+                            ci == nchunks - 1, 3 + 32)
+    with trace.timed_stage("deflate.join"):
+        out, _, _ = sink.flush(final=True)
     return out
 
 

@@ -43,6 +43,19 @@ after a sync flush) is decoded on the host, where tpuzlib declines the
 stream; and device_expand expands on the device also where the repair or
 the gap walk added host-decoded tokens (they are packed and spliced into
 the tape there), where tpuzlib expands on the host.
+
+Telemetry (utils/trace.py): decode_stream runs its pieces as stages named
+after tpuzlib's `_tick` keys: inflate.plan, inflate.tokenize_dispatch
+(tables, upload and the decode launches), inflate.pre_splice,
+inflate.splice_pull (the meta read), inflate.repair_walk and
+inflate.compact (where the repair runs), inflate.token_splice (the gap
+walk and the token pieces), inflate.comp_pull and inflate.host_expand
+(the token assembly and the native expansion), or inflate.device_expand.
+tpuzlib's `last_stage_ms` and its TPUZLIB_TIME_INFLATE print have no
+counterpart: these stages in the telemetry take their place.  The
+counters inflate.splice_repair, inflate.repair_bridge (bridges decoded)
+and inflate.repair_cap_exceeded (a repair cap declined the stream) are
+tpuzlib's.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from ..codec.expand import expand_host
 from ..codec.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
 from ..native import bindings
 from ..parallel.speculative import _tokenize_range, find_all_block_starts
+from ..utils import trace
 from . import inflate_cuda
 from .inflate_cuda import SENT_BP, ST_EOB, ST_ERR, ST_OOB, ST_STRIDE_END
 
@@ -75,15 +89,6 @@ C0 = 192  # boundary-intersection candidates (overlap bits / min symbol bits)
 META_CNT, META_END, META_ST, META_JSTOP, META_ANYC = 0, 1, 2, 3, 4
 META_FIRSTC, META_JENTRY, META_BP0, META_BPCUT, META_KCNT = 5, 6, 7, 8, 9
 META_EOB = 10
-
-# how often the splice repair ran and how many bridges it decoded; how
-# often inflate() handed a stream to the host engine (the device route
-# declined it, or its output failed the container's checksum or ISIZE),
-# the bytes the device route returned (api/inflate_api.py, under
-# tpuzlib's counter names), and the bytes the host route's speculative
-# decode returned (a name of the port's: tpuzlib counts none)
-COUNTS = {"splice_repair": 0, "repair_bridge": 0, "device_fallback": 0,
-          "device_mismatch_fallback": 0, "device": 0, "speculative": 0}
 
 
 class DeviceDeclined(RuntimeError):
@@ -590,6 +595,7 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
         nonlocal nrows
         if k not in row_cache:
             if nrows >= max_row_batches:
+                trace.count("inflate.repair_cap_exceeded")
                 raise DeviceDeclined("the splice repair exceeded its row-batch cap (%d)"
                                      % max_row_batches)
             base = min(k, Kpad - RG)
@@ -655,6 +661,7 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
             keep_hi[current] = cut_idx
             pos = bridge_pos
             if nbridge >= max_bridges:
+                trace.count("inflate.repair_cap_exceeded")
                 raise DeviceDeclined("the splice repair exceeded its bridge cap (%d)"
                                      % max_bridges)
             nbridge += 1
@@ -705,7 +712,7 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
             keep_lo[k2] = ii  # cursors between current and k2 stay dead
             current = k2
         block_end_bits.append(b_end)
-    COUNTS["repair_bridge"] += nbridge
+    trace.count("inflate.repair_bridge", nbridge)
     return keep_lo, keep_hi, bridge_ins, block_end_bits
 
 
@@ -947,43 +954,62 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
     """decode(...) and the bit after the stream's final block: (bytes,
     end bit)."""
     buf = np.ascontiguousarray(np.asarray(data), dtype=np.uint8)
-    if mesh is None:
-        lay = plan_cursors(buf, stride_bits, max_cursors)
-        toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))
-    else:
-        lay = plan_cursors(buf, stride_bits, max_cursors, mesh.size)
-        toks = mesh_decode(lay.decode_args(buf, mesh.device), mesh)
-    meta, comp, _ = splice_compact(toks, lay.stops, lay.bstart, lay.first, lay.last,
-                                   lay.expect_eob, lay.active)
-    meta_np = meta.cpu().numpy()
+    n_in = len(buf)
+    with trace.timed_stage("inflate.plan", n_in):
+        lay = plan_cursors(buf, stride_bits, max_cursors, 1 if mesh is None else mesh.size)
+    with trace.timed_stage("inflate.tokenize_dispatch", n_in):
+        if mesh is None:
+            toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))
+        else:
+            toks = mesh_decode(lay.decode_args(buf, mesh.device), mesh)
+    with trace.timed_stage("inflate.pre_splice", _nbytes(toks)):
+        meta, comp, _ = splice_compact(toks, lay.stops, lay.bstart, lay.first, lay.last,
+                                       lay.expect_eob, lay.active)
+    with trace.timed_stage("inflate.splice_pull", _nbytes(meta)):
+        meta_np = meta.cpu().numpy()
     M = int(meta_np[1])
     kcnt_np = _meta_vec(meta_np, lay.Kpad, META_KCNT)[: lay.K]
     repair = None
     if int(meta_np[0]) != 1 or force_repair:
         tok_pack, tok_bp = toks[0], toks[1]
-        keep_lo, keep_hi, bridge_ins, block_end_bits = repair = _repair_splice(
-            buf, lay, meta_np, tok_bp, flagged_rows(tok_pack, lay.Kpad),
-            bridge_chunk=bridge_chunk, max_bridges=max_bridges, max_row_batches=max_row_batches)
-        COUNTS["splice_repair"] += 1
-        M_r, comp, kcnt = compact_bounds(tok_pack, torch.from_numpy(keep_lo).to(tok_pack.device),
-                                         torch.from_numpy(keep_hi).to(tok_pack.device))
-        M = int(M_r)
-        kcnt_np = kcnt.cpu().numpy()[: lay.K]
+        with trace.timed_stage("inflate.repair_walk", n_in):
+            keep_lo, keep_hi, bridge_ins, block_end_bits = repair = _repair_splice(
+                buf, lay, meta_np, tok_bp, flagged_rows(tok_pack, lay.Kpad),
+                bridge_chunk=bridge_chunk, max_bridges=max_bridges,
+                max_row_batches=max_row_batches)
+        trace.count("inflate.splice_repair")
+        with trace.timed_stage("inflate.compact", _nbytes(tok_pack)):
+            M_r, comp, kcnt = compact_bounds(tok_pack,
+                                             torch.from_numpy(keep_lo).to(tok_pack.device),
+                                             torch.from_numpy(keep_hi).to(tok_pack.device))
+            M = int(M_r)
+            kcnt_np = kcnt.cpu().numpy()[: lay.K]
     else:
         block_end_bits = fast_block_ends(lay, meta_np)
-    insertions, tail, end = walk_blocks(buf, lay, block_end_bits)
+    with trace.timed_stage("inflate.token_splice", n_in):
+        insertions, tail, end = walk_blocks(buf, lay, block_end_bits)
+        pieces = token_pieces(lay, M, kcnt_np, insertions, tail,
+                              repair[2] if repair is not None else None)
 
     window = _window(dictionary)
-    pieces = token_pieces(lay, M, kcnt_np, insertions, tail,
-                          repair[2] if repair is not None else None)
     if not device_expand:
-        comph = comp[:M].cpu().numpy().view(np.uint32)
-        return expand_host(*host_tokens(comph, pieces), window), end
-    tape, n = device_tape(comp, M, pieces)
-    win = np.zeros(WINDOW, np.uint8)
-    win[WINDOW - len(window):] = window
-    return device_expand_all(tape, n, torch.from_numpy(win).to(comp.device),
-                             8 * len(buf) + (1 << 16)), end
+        with trace.timed_stage("inflate.comp_pull", 4 * M):
+            comph = comp[:M].cpu().numpy().view(np.uint32)
+        with trace.timed_stage("inflate.host_expand", 4 * M):
+            return expand_host(*host_tokens(comph, pieces), window), end
+    with trace.timed_stage("inflate.device_expand", 4 * M):
+        tape, n = device_tape(comp, M, pieces)
+        win = np.zeros(WINDOW, np.uint8)
+        win[WINDOW - len(window):] = window
+        return device_expand_all(tape, n, torch.from_numpy(win).to(comp.device),
+                                 8 * len(buf) + (1 << 16)), end
+
+
+def _nbytes(x) -> int:
+    """Bytes of a tensor, or of a tuple of them."""
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    return sum(_nbytes(t) for t in x)
 
 
 def mesh_decode(a: inflate_cuda.DecodeArgs, mesh):

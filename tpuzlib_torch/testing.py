@@ -17,6 +17,7 @@ any code lengths, also ones zlib never writes.  `pack_words_inputs` makes
 the bit pack's inputs for the cases of PACK_CASES.
 `device_deflater_from_numpy` builds a DeviceDeflater from streaming state
 held in numpy, so a stream begun elsewhere can be finished by the port.
+`counters_since` gives the event counters a call moved.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from .codec import huffman
 from .codec.bitsink import BitSink
 from .codec.tables import CLC_ORDER, DIST_EXTRA, LENGTH_EXTRA
 from .kernels.deflate_device3 import DeviceDeflater
+from .utils import trace
 
 _LETTERS = np.frombuffer(b"etaoinshrdlcumwfgypbvkjxqz", np.uint8)
 _LETTER_P = np.array([12.7, 9.1, 8.2, 7.5, 7.0, 6.7, 6.3, 6.1, 6.0, 4.3, 4.0, 2.8, 2.8,
@@ -292,3 +294,10 @@ def device_deflater_from_numpy(level, chunk, batch, ctx, ctx_valid, pending,
     d._pending = np.array(pending, dtype=np.uint8)
     d._sink = BitSink(int(carry_val), int(carry_bits))
     return d
+
+
+def counters_since(before: dict) -> dict:
+    """The event counters (utils/trace.get_counters()) that moved since the
+    snapshot `before`, each by how much."""
+    now = trace.get_counters()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}

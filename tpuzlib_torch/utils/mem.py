@@ -5,8 +5,8 @@ allocation above 128 KiB and munmap()s it on free, so every large codec
 buffer is faulted in again on every call.  tune_malloc() raises the mmap
 threshold so large buffers come from the (never-returned) heap and are
 faulted in once a process.  inflate() and deflate() call it first; set
-TPUZLIB_MALLOC_TUNE=0 to disable it (tpuzlib's opt-out variable, the
-port's only environment read).
+TPUZLIB_MALLOC_TUNE=0 to disable it (tpuzlib's opt-out variable; the
+port reads one other, TPUZLIB_TRACE, in utils/trace.py).
 """
 
 from __future__ import annotations
