@@ -71,16 +71,26 @@ tpuzlib_torch/kernels/csrc, then:
      runs;
   I  holds the gather and primitive probe kernels (gather_probe.cu,
      inflate_prims.cu) to their plain versions: take_along on (64, 4352)
-     along axis 1 and on (4352, 128) and the encoder batch's
-     (8 x 2304, 128) along axis 0, take_along_loop on (4352, 128) x 64,
-     flat_gather, shift_screen and scatter_max on 8 chunks of (2304, 128)
+     along axis 1 (x's row staged in shared memory) and on (64, 65536)
+     (take_along_axis1_wide: rows past the staged limit, gathered
+     through the read-only cache), and on (4352, 128) and the encoder
+     batch's (8 x 2304, 128) along axis 0, take_along_loop on (4352, 128)
+     x 64, flat_gather (from the tools' 128 KiB table, staged, and from a
+     256 KiB one, flat_gather_large, through the cache), shift_screen and
+     scatter_max on 8 chunks of (2304, 128)
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
      tools/probe_primitives.py:48 sizes them, in the main path's batch of
      8), the inflate primitives at 8,192 lanes (G1's cursor count); an
      "I device" line a row gives its device time (and its library call's)
      of bare launches queued behind a sleep kernel, since these wrapper
-     calls are held by their host time; the "I launch floor" line gives
-     take_along on a (1, 1) input timed both ways; then runs the four probes of tpuzlib_torch/tools
+     calls are held by their host time, and for the gathers their design,
+     their ms over library_ms and the 32-byte sectors their cache gathers
+     read; a row with a library call also times it and its kernel's
+     wrapper over 200 calls after 20, in turns (steady_ms,
+     library_steady_ms: these host-held calls vary too much over 10); the "I launch floor" line gives take_along on a (1, 1) input
+     timed both ways and over torch.gather's; the "I launch probe" line
+     gives the host µs of each piece of a call (probes/launch_breakdown.py:
+     the earlier path re-created, this one's, torch.gather); then runs the four probes of tpuzlib_torch/tools
      (probe_gather, probe_primitives, probe_inflate_prims,
      probe_inflate_prims2), over which their launches are counted;
   J  runs the host engine at full size: J1 inflate()s python zlib's
@@ -988,7 +998,7 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
     return out, {k: _build.LAUNCHES[k] for k in out}
 
 
-def phase_i() -> tuple:
+def phase_i(smi: str) -> tuple:
     """The gather and primitive probe kernels against their plain versions
     (exact) at the shapes named in the module docstring, the launch floor,
     then the four probes, over which the kernels' launches are counted.
@@ -997,6 +1007,7 @@ def phase_i() -> tuple:
     from tpuzlib_torch.kernels import _build, gather_probe as gp, inflate_cuda, inflate_prims as ip
     from tpuzlib_torch.tools import (probe_gather, probe_inflate_prims, probe_inflate_prims2,
                                      probe_primitives)
+    from probes import launch_breakdown
 
     rng = np.random.default_rng(9)
 
@@ -1006,29 +1017,46 @@ def phase_i() -> tuple:
     gsrc, isrc = ("tpuzlib_torch/kernels/csrc/%s.cu" % n for n in ("gather_probe", "inflate_prims"))
     chunks, lanes = (BATCH, 2304, 128), 8192
     cases, library, kernel_of = {}, {}, {}
-    # take_along: one element gathered a lane
-    for name, shape, axis, replaces in (
-        ("take_along_axis1", (64, 4352), 1, "tools/probe_gather.py:54"),
-        ("take_along_axis0", (4352, 128), 0, "tools/probe_gather.py:75"),
-        ("take_along_axis0_batch8", (BATCH * 2304, 128), 0, "tools/probe_gather.py:75"),
+    # take_along: one element gathered a lane; the axis-1 rows up to
+    # staged_words() wide are staged in shared memory, wider ones (the
+    # _wide row, 256 KiB) gathered through the read-only cache, as are the
+    # sublane (axis 0) gathers; x_sector_bytes: a 32-byte sector read a
+    # gather through the cache
+    staged = gp.staged_words()
+    design = {}
+    for name, xshape, ishape, axis, replaces in (
+        ("take_along_axis1", (64, 4352), (64, 4352), 1, "tools/probe_gather.py:54"),
+        ("take_along_axis1_wide", (64, 65536), (64, 65536), 1, "tools/probe_gather.py:54"),
+        ("take_along_axis0", (4352, 128), (4352, 128), 0, "tools/probe_gather.py:75"),
+        ("take_along_axis0_batch8", (BATCH * 2304, 128), (BATCH * 2304, 128), 0,
+         "tools/probe_gather.py:75"),
     ):
-        x, idx = ints(shape), ints(shape, 0, shape[axis])
+        x, idx = ints(xshape), ints(ishape, 0, xshape[axis])
         idx64 = idx.long()
         cases[name] = (lambda x=x, idx=idx, axis=axis: gp.take_along(x, idx, axis),
                        lambda x=x, idx=idx, axis=axis: gp.take_along_plain(x, idx, axis),
                        gsrc, replaces, (x, idx), idx.numel())
         library[name] = lambda x=x, idx64=idx64, axis=axis: torch.gather(x, axis, idx64)
         kernel_of[name] = "take_along"
+        design[name] = "staged" if axis == 1 and xshape[1] <= staged else "ldg"
     x, idx = ints((4352, 128)), ints((4352, 128), 0, 4352)
     cases["take_along_loop"] = (lambda: gp.take_along_loop(x, idx, 0, 64),
                                 lambda: gp.take_along_loop_plain(x, idx, 0, 64), gsrc,
                                 "tools/probe_gather.py:96", (x, idx), 64 * x.numel())
-    table, fidx = ints((256, 128)), ints(chunks, 0, 32768)
-    fidx64 = fidx.long()
-    cases["flat_gather"] = (lambda: gp.flat_gather(table, fidx),
-                            lambda: gp.flat_gather_plain(table, fidx), gsrc,
-                            "tools/probe_primitives.py:176", (table, fidx), fidx.numel())
-    library["flat_gather"] = lambda: torch.take(table, fidx64)
+    # flat_gather: the tools' 128 KiB table staged in shared memory; a 256
+    # KiB one (_large) past the staged limit, gathered through the cache
+    for name, tshape in (("flat_gather", (256, 128)), ("flat_gather_large", (512, 128))):
+        table = ints(tshape)
+        fidx = ints(chunks, 0, table.numel())
+        fidx64 = fidx.long()
+        cases[name] = (lambda table=table, fidx=fidx: gp.flat_gather(table, fidx),
+                       lambda table=table, fidx=fidx: gp.flat_gather_plain(table, fidx), gsrc,
+                       "tools/probe_primitives.py:176", (table, fidx), fidx.numel())
+        library[name] = lambda table=table, fidx64=fidx64: torch.take(table, fidx64)
+        kernel_of[name] = "flat_gather"
+        design[name] = "staged" if table.numel() <= staged else "ldg"
+    if sorted(design.values()) != ["ldg"] * 4 + ["staged"] * 2:
+        raise SystemExit("phase I: the gather rows do not cover both designs: %s" % design)
     sx = ints(chunks)
     cases["shift_screen"] = (lambda: gp.shift_screen(sx, 16), lambda: gp.shift_screen_plain(sx, 16),
                              gsrc, "tools/probe_primitives.py:208", (sx,), 16 * sx.numel())
@@ -1076,12 +1104,27 @@ def phase_i() -> tuple:
         row["device_pct_of_bound"] = 100 * row["bound_ms"] / row["device_ms"]
         if name in library:
             row["library_device_ms"] = device_ms(library[name])
+            # ms and library_ms are 10 calls each, and these calls are
+            # held by their host time, ~0.01 ms: 200 calls in turns
+            # resolve the two
+            kern, lib = cases[name][0], library[name]
+            steady = [cuda_ms(f, 200, 20) for f in (kern, lib, kern, lib)]
+            row["steady_ms"], row["library_steady_ms"] = steady[0::2], steady[1::2]
+            row["steady_over_library"] = sum(steady[0::2]) / sum(steady[1::2])
+        if name in design:
+            row["design"] = design[name]
+            row["over_library"] = row["ms"] / row["library_ms"]
+            if design[name] == "ldg":
+                row["x_sector_bytes"] = 32 * cases[name][4][1].numel()
         emit({"phase": "I device", **{k: row[k] for k in ("name", "ms", "device_ms", "bound_ms",
                                                            "device_pct_of_bound", "library_ms")},
-              "library_device_ms": row.get("library_device_ms")})
+              "library_device_ms": row.get("library_device_ms"),
+              **{k: row[k] for k in ("design", "over_library", "x_sector_bytes", "steady_ms",
+                                     "library_steady_ms", "steady_over_library") if k in row}})
     axis0 = ("tools/probe_primitives.py:188 k_tala0, tools/probe_inflate_prims.py:50 k_a, "
              "tools/probe_inflate_prims2.py:115 k_i (table_lookup)")
     rows["take_along_axis1"]["also_replaces"] = "tools/probe_primitives.py:167 k_tala"
+    rows["take_along_axis1_wide"]["also_replaces"] = "tools/probe_primitives.py:167 k_tala"
     rows["take_along_axis0"]["also_replaces"] = axis0
     rows["take_along_axis0_batch8"]["also_replaces"] = axis0
     for name, kernel in kernel_of.items():
@@ -1089,9 +1132,16 @@ def phase_i() -> tuple:
     one = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
     one64 = one.long()
     floor, lib_floor = lambda: gp.take_along(one, one, 1), lambda: torch.gather(one, 1, one64)
+    floor_ms, lib_floor_ms = cuda_ms(floor), cuda_ms(lib_floor)
     emit({"phase": "I launch floor", "kernel": "take_along", "shape": [1, 1],
-          "ms": cuda_ms(floor), "device_ms": device_ms(floor),
-          "library_ms": cuda_ms(lib_floor), "library_device_ms": device_ms(lib_floor)})
+          "ms": floor_ms, "device_ms": device_ms(floor), "library_ms": lib_floor_ms,
+          "library_device_ms": device_ms(lib_floor), "over_library": floor_ms / lib_floor_ms})
+    # the host µs of each piece of a call, the earlier path beside this one's
+    rows_us = launch_breakdown.breakdown()
+    emit({"phase": "I launch probe", "nvidia_smi": smi, **launch_breakdown.summary(rows_us),
+          "us": {k: round(v["us"], 3) for k, v in rows_us.items()},
+          "us_range": {k: [round(v["us_min"], 3), round(v["us_max"], 3)]
+                       for k, v in rows_us.items()}})
 
     _build.reset_launches()
     for probe in (probe_gather, probe_primitives, probe_inflate_prims, probe_inflate_prims2):
@@ -1728,7 +1778,7 @@ def main() -> int:
     rows.update(rows_h)
     launches.update(launches_h)
     t0 = time.perf_counter()
-    rows_i, launches_i = phase_i()
+    rows_i, launches_i = phase_i(smi)
     emit({"phase": "I", "s": time.perf_counter() - t0})
     rows.update(rows_i)
     launches.update(launches_i)

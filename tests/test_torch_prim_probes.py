@@ -128,6 +128,42 @@ def test_take_along_loop_matches_loop_cost(axis, shape, iters):
     _equal(gp.take_along_loop(_t(x), _t(idx), axis, iters), want)
 
 
+# The widest axis-1 row, or flat table, that the card's kernels stage in
+# shared memory on an H100 (gather_probe.staged_words(): 232,448 bytes a
+# block may opt in to, over 4); the plain versions are held at it and one
+# word either side, as the card tests hold the kernels.
+H100_STAGED_WORDS = 232448 // 4
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 127, 129])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_ragged_widths_match_the_tools_gathers(axis, width):
+    """Index rows whose width is not a multiple of 4 (the card's kernel
+    takes them an element at a time), with every index rule."""
+    rng = np.random.default_rng(width * 2 + axis)
+    shape = (9, width)
+    n = shape[axis]
+    x = rng.integers(I32.min, I32.max, shape, dtype=np.int32)
+    idx = rng.integers(-n, n, shape, dtype=np.int32)
+    e = _edge_indices(n)
+    idx.reshape(-1)[: min(idx.size, e.size)] = e[: idx.size]
+    want = _call(_gather_kernel(axis), shape, jnp.int32, x, idx)
+    _equal(gp.take_along(_t(x), _t(idx), axis), want)
+
+
+@pytest.mark.parametrize("step", [-1, 0, 1])
+def test_take_along_at_the_staged_width_matches_the_lane_gather(step):
+    """Rows of x at the H100's staged width and one word either side."""
+    xc = H100_STAGED_WORDS + step
+    rng = np.random.default_rng(xc)
+    x = rng.integers(I32.min, I32.max, (2, xc), dtype=np.int32)
+    idx = rng.integers(-xc, xc, (2, 13), dtype=np.int32)
+    idx[0, :9] = _edge_indices(xc)
+    idx[1, 0] = xc - 1
+    want = _call(_gather_kernel(1), idx.shape, jnp.int32, x, idx)
+    _equal(gp.take_along(_t(x), _t(idx), 1), want)
+
+
 # ---- tools/probe_primitives.py ---------------------------------------------
 
 # tools/probe_primitives.py:176-178
@@ -144,6 +180,20 @@ def test_flat_gather_matches_k_flatgather():
     want = _call(k_flatgather, idx.shape, jnp.int32, table, idx)
     assert list(want[0, :7]) == [table[7, 127], table[7, 127], table[7, 127], table[7, 127],
                                  table[0, 0], table[0, 0], table[0, 0]]
+    _equal(gp.flat_gather(_t(table), _t(idx)), want)
+
+
+@pytest.mark.parametrize("step", [-1, 0, 1])
+@pytest.mark.parametrize("ishape", [(3,), (2, 1), (5, 7), (2, 3, 5)])
+def test_flat_gather_at_the_staged_size_matches_k_flatgather(step, ishape):
+    """Tables at the H100's staged size and one word either side, fewer
+    than 4 indices, a width not a multiple of 4, 3-D indices."""
+    T = H100_STAGED_WORDS + step
+    rng = np.random.default_rng(T + len(ishape))
+    table = rng.integers(I32.min, I32.max, (T,), dtype=np.int32)
+    idx = rng.integers(-2 * T, 2 * T, ishape, dtype=np.int32)
+    idx.reshape(-1)[:8] = [T - 1, T, -1, -T - 1, I32.min, I32.max, 0, -T][: idx.size]
+    want = _call(k_flatgather, idx.shape, jnp.int32, table, idx)
     _equal(gp.flat_gather(_t(table), _t(idx)), want)
 
 

@@ -22,7 +22,9 @@ class Library:
     """compiler(): the compiler's path, asked only when a build is needed;
     flags: its flags (the output and the sources follow them); sources():
     the files hashed into the name, of which all but headers are compiled;
-    signatures: entry point -> (restype, argtypes)."""
+    signatures: entry point -> (restype, argtypes).  Once loaded, `fns`
+    maps each entry point of `signatures` to its bound ctypes function,
+    read without the lock."""
 
     def __init__(self, name: str, compiler: Callable[[], str], flags: list,
                  sources: Callable[[], list], build_dir: str, signatures: dict):
@@ -30,6 +32,7 @@ class Library:
         self.sources, self.build_dir, self.signatures = sources, build_dir, signatures
         self._lock = threading.Lock()
         self._handle = None
+        self.fns = None
 
     def build(self) -> str:
         """Compile unless a library of these exact sources and flags
@@ -57,13 +60,17 @@ class Library:
         return so_path
 
     def __call__(self) -> ctypes.CDLL:
-        """The loaded library, built on first use."""
-        with self._lock:
-            if self._handle is None:
-                handle = ctypes.CDLL(self.build())
-                for name, (restype, argtypes) in self.signatures.items():
-                    fn = getattr(handle, name)
-                    fn.restype = restype
-                    fn.argtypes = argtypes
-                self._handle = handle
-            return self._handle
+        """The loaded library, built on first use: the lock is taken only
+        until it is loaded."""
+        if self._handle is None:
+            with self._lock:
+                if self._handle is None:
+                    handle = ctypes.CDLL(self.build())
+                    fns = {}
+                    for name, (restype, argtypes) in self.signatures.items():
+                        fn = fns[name] = getattr(handle, name)
+                        fn.restype = restype
+                        fn.argtypes = argtypes
+                    self.fns = fns
+                    self._handle = handle
+        return self._handle

@@ -6,6 +6,12 @@ under `_build/` next to this file; it is built on first use and loaded
 with ctypes (`_clib.Library`).  Every C entry point launches on the stream it is given and
 returns `cudaGetLastError()`; `launch` raises when that is not 0.
 
+`launch` is the path of every kernel call, so it does as little as
+aten's own launch: the entry points are resolved once, when the library
+is loaded; the stream is PyTorch's current stream on the tensor's device,
+read as a raw handle on every call; the device guard is entered only for
+a device other than the current one.
+
 `LAUNCHES` counts, per kernel, the launches that reached the card: each
 wrapper adds one where it launches its kernel and nowhere else.
 """
@@ -65,7 +71,9 @@ _ARGTYPES = {
     "tz_window64": [_P, _P, _P, _P, _P, _I, _P, _P],
 }
 _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
-               "tz_error_string": (ctypes.c_char_p, [_I])}
+               "tz_error_string": (ctypes.c_char_p, [_I]),
+               # the widest source the gathers stage in shared memory, in words
+               "tz_gather_staged_words": (_I, [])}
 
 # the CRC kernel counts its two modes apart: per-block forms, span forms;
 # a launch that also finishes the CRC counts as crc32_scalar and under the
@@ -98,34 +106,61 @@ def _nvcc() -> str:
 lib = Library("tpuzlib_torch", _nvcc, NVCC_FLAGS, sources, _BUILD_DIR, _SIGNATURES)
 build = lib.build
 
+# PyTorch's current stream of a device as a raw cudaStream_t (what torch's
+# generated code reads), and the current device's index; a CPU build of
+# torch has neither, and never launches
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                      lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", lambda: torch.cuda.current_device())
 
-def launch(kernel, entry: str, device: torch.device, *args) -> None:
-    """Call C entry point `entry` on `device`'s current stream; count one
-    launch of `kernel` (a name, or a tuple of the names it counts under).
-    Raises when the launch was refused."""
-    handle = lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(handle, entry)(*args, stream)
-    if err != 0:
+
+def device_index(device) -> int:
+    """The CUDA index of `device`: an int, or a torch.device (the current
+    device where it names none)."""
+    if device.__class__ is int:
+        return device
+    index = device.index
+    return _current_device() if index is None else index
+
+
+def launch(kernel, entry: str, device, *args) -> None:
+    """Call C entry point `entry` on `device`'s current stream (`device`: a
+    CUDA index or a torch.device); count one launch of `kernel` (a name,
+    or a tuple of the names it counts under).  Raises when the launch was
+    refused."""
+    fns = lib.fns
+    if fns is None:
+        lib()
+        fns = lib.fns
+    index = device_index(device)
+    if index == _current_device():
+        err = fns[entry](*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fns[entry](*args, _raw_stream(index))
+    if err:
         raise RuntimeError(
-            "%s launch failed: %s" % (kernel, handle.tz_error_string(err).decode())
+            "%s launch failed: %s" % (kernel, fns["tz_error_string"](err).decode())
         )
-    for name in (kernel,) if isinstance(kernel, str) else kernel:
-        LAUNCHES[name] += 1
+    if kernel.__class__ is str:
+        LAUNCHES[kernel] += 1
+    else:
+        for name in kernel:
+            LAUNCHES[name] += 1
 
 
 @functools.lru_cache(maxsize=None)
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    return torch.zeros(1, dtype=torch.int32, device=device)
+def _ticket(index: int, stream: int) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
 
 
-def ticket(device: torch.device) -> torch.Tensor:
+def ticket(device) -> torch.Tensor:
     """The ticket of `device`'s current stream, for a kernel whose last CUDA
     block finishes its work (crc32_scalar, adler32_scalar): one int32, 0
     between calls (that last CUDA block resets it), so calls on one stream
     share it in turn and calls on two streams never do."""
-    return _ticket(device, torch.cuda.current_stream(device).cuda_stream)
+    index = device_index(device)
+    return _ticket(index, _raw_stream(index))
 
 
 def reset_launches() -> None:
@@ -136,9 +171,9 @@ def reset_launches() -> None:
 def on_cpu(t: torch.Tensor) -> bool:
     """True for a CPU tensor (the caller runs its plain version), False for
     a CUDA tensor (the caller launches its kernel); raises otherwise."""
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return True
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError("no kernel for tensors on %s" % t.device)
     return False
 

@@ -22,47 +22,197 @@
 //
 // Bounds (H100 SXM): every kernel reads each input once and writes each
 // output once, a few integer steps an element; at the tools' sizes (a few
-// MiB at most) that is microseconds, below the launch itself.  Designs,
-// simple first: one thread an output element, neighbouring threads on
-// neighbouring elements, so that the index reads and the output writes
-// coalesce and the gathers fall in L1 or L2 (the tools' arrays fit in L2).
+// MiB at most) that is microseconds, about the launch itself.
+//
+// take_along and flat_gather stream their indices in and their outputs
+// out, and gather in between.  What bounds them is the memory system's
+// requests, not its bytes: a gather of 4 bytes at a random place costs a
+// 32-byte sector of L2 (a sublane gather's x, at most 9.4 MiB in the
+// tools, stays in the 50 MB L2), and a warp's 32 gathers through L1 cost
+// up to 32 wavefronts.  Their designs:
+//   - a thread takes 4 indices as one 16-byte load, issues 4 independent
+//     gathers and stores 4 outputs as one 16-byte store, where the index
+//     row's width is a multiple of 4 and every pointer is 16-byte aligned
+//     (else one element at a time), and loads its next indices while it
+//     gathers (one load ahead);
+//   - take_along walks a 2-D grid, rows on y and a row's columns on x, so
+//     no element pays a division, with 32-bit offsets where x and idx hold
+//     fewer than 2^31 elements;
+//   - where a gather's whole source fits one block's shared memory (an
+//     axis-1 row of x, or flat_gather's table: up to 227 KB on the H100),
+//     the block stages it with cp.async while its first indices load, and
+//     reads the gathers from shared memory, a few bank conflicts a warp;
+//     flat_gather runs a persistent grid of one or two blocks an SM that
+//     stage the table once; take_along a block per row in turn;
+//   - wider rows, larger tables and the sublane gather (axis 0: rows are
+//     random within a column) gather through the read-only cache (__ldg);
+//   - the grids are sized from the card's SM count.
+// Measured on an H100 (probes/gather_breakdown.py): staging makes the lane
+// gather 1.3x and flat_gather 1.7x faster than a thread an element; the
+// sublane gather is unchanged, held by its x sectors (2.36 M of 32 bytes
+// from L2 on the encoder batch's (18,432, 128), ~3.5 TB/s of L2 traffic).
+// The design is chosen by shape in the entry points (the staged one up to
+// tz_gather_staged_words()), never by what fails.
+//
+// The other kernels, simple first: one thread an output element,
+// neighbouring threads on neighbouring elements, so that the index reads
+// and the output writes coalesce and the gathers fall in L1 or L2.
 // take_along_loop keeps its sum in a register and adds as unsigned, so
 // that the int32 wrap is defined.  scatter_max has each thread atomicMax
 // its value into the zeroed output.  shift_screen stages a block's words
 // and the `steps` words before them (wrapping within the chunk) in shared
 // memory, and each thread reads its predecessors there.
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
+#include <utility>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGrid = 1 << 16;  // blocks of a grid-stride launch
+constexpr int kStagedThreads = 512;  // the staged designs' largest block
+constexpr int kSmThreads = 2048;     // resident threads an SM
+constexpr int kMaxDevices = 64;
 
 __host__ __device__ __forceinline__ unsigned grid_for(long long n) {
   const long long blocks = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks < kMaxGrid ? blocks : kMaxGrid);
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ---- the streams and the staging -------------------------------------------------
+
+// unit u of p: 4 indices from one 16-byte load where Vec, else one in .x
+template <bool Vec>
+__device__ __forceinline__ int4 load_unit(const int32_t* p, long long u) {
+  if (Vec) return __ldg(reinterpret_cast<const int4*>(p) + u);
+  return make_int4(__ldg(p + u), 0, 0, 0);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the block copies src[0, n) into dst, 16 bytes a copy from a 16-byte
+// aligned src where vec (the last n % 4 words 4 bytes each), else 4;
+// asynchronous until cp_async_wait_all() and __syncthreads()
+__device__ __forceinline__ void stage(int32_t* dst, const int32_t* src, int n, bool vec) {
+  int done = 0;
+  if (vec) {
+    done = n & ~3;
+    for (int k = threadIdx.x * 4; k < done; k += blockDim.x * 4) cp_async16(dst + k, src + k);
+  }
+  for (int k = done + threadIdx.x; k < n; k += blockDim.x) cp_async4(dst + k, src + k);
+}
+
+// ---- take_along ------------------------------------------------------------------
+
+// jnp's rule: the place of index i in [0, span), or -1 where it gives fill
+__device__ __forceinline__ int take_index(int i, int span) {
+  if (i < 0) i += span;  // no overflow: span <= INT32_MAX
+  return static_cast<unsigned>(i) < static_cast<unsigned>(span) ? i : -1;
+}
+
+// x[i, c] (Axis 0) or xrow[i] (Axis 1) through the read-only cache, or
+// fill; the load is issued for every index (place 0 where fill), so that
+// a thread's four gathers go out together
+template <int Axis, typename Off>
+__device__ __forceinline__ int32_t ldg_at(const int32_t* x, const int32_t* xrow, int xc, int span,
+                                          int i, int c, int fill) {
+  const int j = take_index(i, span);
+  const int k = j < 0 ? 0 : j;
+  const int32_t v = __ldg(Axis == 0 ? x + static_cast<Off>(k) * xc + c : xrow + k);
+  return j < 0 ? fill : v;
+}
+
+__device__ __forceinline__ int32_t smem_at(const int32_t* row, int span, int i, int fill) {
+  const int j = take_index(i, span);
+  const int32_t v = row[j < 0 ? 0 : j];
+  return j < 0 ? fill : v;
+}
+
 // out (ir, ic) from x (xr, xc): out[r, c] = x[idx[r, c], c] (Axis 0) or
 // x[r, idx[r, c]] (Axis 1); ic == xc for Axis 0, ir == xr for Axis 1.
-template <int Axis>
+// Gathers through the read-only cache.  Rows walk y (blockIdx.y,
+// threadIdx.y), a row's units x (4 columns where Vec, else 1).
+template <int Axis, bool Vec, typename Off>
 __global__ void __launch_bounds__(kThreads)
-take_along_kernel(const int32_t* __restrict__ x, int xr, int xc, const int32_t* __restrict__ idx,
-                  int ir, int ic, int fill, int32_t* __restrict__ out) {
-  const long long n = static_cast<long long>(ir) * ic;
+take_along_ldg(const int32_t* __restrict__ x, int xr, int xc, const int32_t* __restrict__ idx,
+               int ir, int ic, int fill, int32_t* __restrict__ out) {
   const int span = Axis == 0 ? xr : xc;
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < n;
-       e += static_cast<long long>(gridDim.x) * kThreads) {
-    int i = idx[e];
-    if (i < 0) i += span;  // no overflow: span <= INT32_MAX
-    int32_t v = fill;
-    if (i >= 0 && i < span) {
-      const long long r = e / ic, c = e - r * ic;
-      v = __ldg(x + (Axis == 0 ? static_cast<long long>(i) * xc + c : r * xc + i));
+  const unsigned units = Vec ? static_cast<unsigned>(ic) >> 2 : static_cast<unsigned>(ic);
+  const unsigned ustep = gridDim.x * blockDim.x, rstep = gridDim.y * blockDim.y;
+  for (unsigned r = blockIdx.y * blockDim.y + threadIdx.y; r < static_cast<unsigned>(ir);
+       r += rstep) {
+    const int32_t* irow = idx + static_cast<Off>(r) * ic;
+    int32_t* orow = out + static_cast<Off>(r) * ic;
+    const int32_t* xrow = Axis == 1 ? x + static_cast<Off>(r) * xc : x;
+    for (unsigned u = blockIdx.x * blockDim.x + threadIdx.x; u < units; u += ustep) {
+      const int4 iv = load_unit<Vec>(irow, u);
+      if (Vec) {
+        const int c = static_cast<int>(u) * 4;
+        int4 ov;
+        ov.x = ldg_at<Axis, Off>(x, xrow, xc, span, iv.x, c, fill);
+        ov.y = ldg_at<Axis, Off>(x, xrow, xc, span, iv.y, c + 1, fill);
+        ov.z = ldg_at<Axis, Off>(x, xrow, xc, span, iv.z, c + 2, fill);
+        ov.w = ldg_at<Axis, Off>(x, xrow, xc, span, iv.w, c + 3, fill);
+        reinterpret_cast<int4*>(orow)[u] = ov;
+      } else {
+        orow[u] = ldg_at<Axis, Off>(x, xrow, xc, span, iv.x, static_cast<int>(u), fill);
+      }
     }
-    out[e] = v;
+  }
+}
+
+// Axis 1 with x's row in shared memory (xc words): block b takes rows b,
+// b + gridDim.x, ...; it stages the row (16-byte copies where xvec: x
+// 16-byte aligned and xc % 4 == 0) while each thread loads its first
+// unit of indices, then gathers from shared memory, the next unit's
+// indices in flight.
+template <bool Vec, typename Off>
+__global__ void __launch_bounds__(kStagedThreads)
+take_along_staged(const int32_t* __restrict__ x, int xc, bool xvec,
+                  const int32_t* __restrict__ idx, int ir, int ic, int fill,
+                  int32_t* __restrict__ out) {
+  extern __shared__ int4 staged4[];
+  int32_t* row = reinterpret_cast<int32_t*>(staged4);
+  const unsigned units = Vec ? static_cast<unsigned>(ic) >> 2 : static_cast<unsigned>(ic);
+  for (unsigned r = blockIdx.x; r < static_cast<unsigned>(ir); r += gridDim.x) {
+    const int32_t* irow = idx + static_cast<Off>(r) * ic;
+    int32_t* orow = out + static_cast<Off>(r) * ic;
+    __syncthreads();  // every read of the previous row is done
+    stage(row, x + static_cast<Off>(r) * xc, xc, xvec);
+    unsigned u = threadIdx.x;
+    int4 next = u < units ? load_unit<Vec>(irow, u) : make_int4(0, 0, 0, 0);
+    cp_async_wait_all();
+    __syncthreads();
+    for (; u < units; u += blockDim.x) {
+      const int4 iv = next;
+      if (u + blockDim.x < units) next = load_unit<Vec>(irow, u + blockDim.x);
+      if (Vec) {
+        int4 ov;
+        ov.x = smem_at(row, xc, iv.x, fill);
+        ov.y = smem_at(row, xc, iv.y, fill);
+        ov.z = smem_at(row, xc, iv.z, fill);
+        ov.w = smem_at(row, xc, iv.w, fill);
+        reinterpret_cast<int4*>(orow)[u] = ov;
+      } else {
+        orow[u] = smem_at(row, xc, iv.x, fill);
+      }
+    }
   }
 }
 
@@ -90,15 +240,61 @@ take_along_loop_kernel(const int32_t* __restrict__ x, int xr, int xc,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flat_gather_kernel(const int32_t* __restrict__ table, long long T,
+// table.reshape(-1)[idx] with flat_gather's clamp: i < 0 counts from the
+// end, then [0, T - 1]
+__device__ __forceinline__ long long flat_index(int i, long long T) {
+  long long j = i;
+  if (j < 0) j += T;
+  return j < 0 ? 0 : (j >= T ? T - 1 : j);
+}
+
+// out[e] = table[idx[e]] over the flat idx (n), clamped.  Staged: the
+// table (T words, 16-byte copies where tvec: the table 16-byte aligned)
+// in shared memory, copied once by each block of a persistent grid while
+// its threads load their first indices; else gathered through the
+// read-only cache.  Units of 4 indices where Vec (the last n % 4 one at a
+// time), else of 1; each thread has its next unit in flight.
+template <bool Staged, bool Vec>
+__global__ void __launch_bounds__(kStagedThreads, 2)
+flat_gather_kernel(const int32_t* __restrict__ table, long long T, bool tvec,
                    const int32_t* __restrict__ idx, long long n, int32_t* __restrict__ out) {
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < n;
-       e += static_cast<long long>(gridDim.x) * kThreads) {
-    long long i = idx[e];
-    if (i < 0) i += T;
-    i = i < 0 ? 0 : (i >= T ? T - 1 : i);
-    out[e] = __ldg(table + i);
+  extern __shared__ int4 staged4[];
+  int32_t* staged = reinterpret_cast<int32_t*>(staged4);
+  const long long units = Vec ? n >> 2 : n;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (Staged) stage(staged, table, static_cast<int>(T), tvec);
+  long long u = first;
+  int4 next = u < units ? load_unit<Vec>(idx, u) : make_int4(0, 0, 0, 0);
+  if (Staged) {
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  const int ts = static_cast<int>(Staged ? T : 1);  // a staged table fits an int
+  auto at = [&](int i) {
+    if (Staged) {
+      const int j = i < 0 ? i + ts : i;  // no overflow: ts < 2^16
+      return staged[j < 0 ? 0 : (j >= ts ? ts - 1 : j)];
+    }
+    return __ldg(table + flat_index(i, T));
+  };
+  for (; u < units; u += step) {
+    const int4 iv = next;
+    if (u + step < units) next = load_unit<Vec>(idx, u + step);
+    if (Vec) {
+      int4 ov;
+      ov.x = at(iv.x);
+      ov.y = at(iv.y);
+      ov.z = at(iv.z);
+      ov.w = at(iv.w);
+      reinterpret_cast<int4*>(out)[u] = ov;
+    } else {
+      out[u] = at(iv.x);
+    }
+  }
+  if (Vec && first < (n & 3)) {  // the last n % 4 elements
+    const long long e = (n & ~3LL) + first;
+    out[e] = at(__ldg(idx + e));
   }
 }
 
@@ -143,21 +339,144 @@ shift_screen_kernel(const int32_t* __restrict__ x, long long n, int steps,
   out[static_cast<long long>(blockIdx.y) * n + p] = acc;
 }
 
+// ---- the card --------------------------------------------------------------------
+
+struct Card {
+  int sms;            // streaming multiprocessors
+  int smem_block;     // dynamic shared memory a block may opt in to, bytes
+  int smem_sm;        // shared memory an SM holds, bytes
+  int smem_reserved;  // shared memory the system keeps a block, bytes
+};
+
+// the current device's Card, read once a device; the staged kernels are
+// allowed its whole smem_block on first use
+cudaError_t current_card(const Card** out) {
+  static Card cards[kMaxDevices];
+  static std::atomic<bool> ready[kMaxDevices];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev].load(std::memory_order_relaxed)) {
+      Card c{};
+      const std::pair<int*, cudaDeviceAttr> attrs[] = {
+          {&c.sms, cudaDevAttrMultiProcessorCount},
+          {&c.smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin},
+          {&c.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor},
+          {&c.smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock}};
+      for (const auto& a : attrs)
+        if ((err = cudaDeviceGetAttribute(a.first, a.second, dev)) != cudaSuccess) return err;
+      const void* staged[] = {
+          reinterpret_cast<const void*>(take_along_staged<true, int>),
+          reinterpret_cast<const void*>(take_along_staged<true, long long>),
+          reinterpret_cast<const void*>(take_along_staged<false, int>),
+          reinterpret_cast<const void*>(take_along_staged<false, long long>),
+          reinterpret_cast<const void*>(flat_gather_kernel<true, true>),
+          reinterpret_cast<const void*>(flat_gather_kernel<true, false>)};
+      for (const void* k : staged)
+        if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        c.smem_block)) != cudaSuccess)
+          return err;
+      cards[dev] = c;
+      ready[dev].store(true, std::memory_order_release);
+    }
+  }
+  *out = &cards[dev];
+  return cudaSuccess;
+}
+
+// the staged design serves a source (an axis-1 row of x, a flat table) of
+// `words` int32 where it fits one block's shared memory
+bool staged_fits(const Card& c, long long words) { return words * 4 <= c.smem_block; }
+
+// blocks of `threads` that fit an SM beside each other, each holding
+// `bytes` of shared memory, at most `most`
+int blocks_an_sm(const Card& c, int threads, long long bytes, int most) {
+  long long k = c.smem_sm / (bytes + c.smem_reserved);
+  if (k > kSmThreads / threads) k = kSmThreads / threads;
+  if (k > most) k = most;
+  return k < 1 ? 1 : static_cast<int>(k);
+}
+
+int pow2_at_least(unsigned n, int lo, int hi) {
+  int p = lo;
+  while (p < hi && static_cast<unsigned>(p) < n) p *= 2;
+  return p;
+}
+
+// f(std::integral_constant<bool, vec>{}, Off{}) with Off int where narrow
+template <typename F>
+void with_modes(bool vec, bool narrow, F&& f) {
+  if (vec) {
+    if (narrow) f(std::true_type{}, int{});
+    else f(std::true_type{}, 0LL);
+  } else {
+    if (narrow) f(std::false_type{}, int{});
+    else f(std::false_type{}, 0LL);
+  }
+}
+
 }  // namespace
+
+// The most int32 words of a source (an axis-1 row of x, a flat table)
+// that take_along and flat_gather stage in shared memory on the current
+// device (a wider one is gathered through the read-only cache), or a
+// negative cudaError_t where the card cannot be read.
+extern "C" int tz_gather_staged_words() {
+  const Card* c = nullptr;
+  const cudaError_t err = current_card(&c);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return c->smem_block / 4;
+}
 
 // x: int32 (xr, xc); idx: int32 (ir, ic), ic == xc for axis 0, ir == xr
 // for axis 1; out: int32 (ir, ic).
 extern "C" int tz_take_along(const void* x, int xr, int xc, const void* idx, int ir, int ic,
                              int axis, int fill, void* out, void* stream) {
-  const long long n = static_cast<long long>(ir) * ic;
-  if (n <= 0 || (axis == 0 ? ic != xc : ir != xr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (xr <= 0 || xc <= 0 || ir <= 0 || ic <= 0 || axis < 0 || axis > 1 ||
+      (axis == 0 ? ic != xc : ir != xr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Card* c = nullptr;
+  const cudaError_t err = current_card(&c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* xs = static_cast<const int32_t*>(x);
   const auto* is = static_cast<const int32_t*>(idx);
   auto* o = static_cast<int32_t*>(out);
-  if (axis == 0) take_along_kernel<0><<<grid_for(n), kThreads, 0, s>>>(xs, xr, xc, is, ir, ic, fill, o);
-  else if (axis == 1) take_along_kernel<1><<<grid_for(n), kThreads, 0, s>>>(xs, xr, xc, is, ir, ic, fill, o);
-  else return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = ic % 4 == 0 && aligned16(idx) && aligned16(out);
+  const bool narrow = static_cast<long long>(xr) * xc < (1LL << 31) &&
+                      static_cast<long long>(ir) * ic < (1LL << 31);
+  const unsigned units = vec ? static_cast<unsigned>(ic) / 4 : static_cast<unsigned>(ic);
+  if (axis == 1 && staged_fits(*c, xc)) {
+    const int threads = pow2_at_least(units, 32, kStagedThreads);
+    const long long bytes = 4LL * xc;
+    const long long most = static_cast<long long>(c->sms) * blocks_an_sm(*c, threads, bytes, 32);
+    const unsigned blocks = static_cast<unsigned>(ir < most ? ir : most);
+    const bool xvec = xc % 4 == 0 && aligned16(x);
+    with_modes(vec, narrow, [&](auto v, auto off) {
+      take_along_staged<decltype(v)::value, decltype(off)>
+          <<<blocks, threads, bytes, s>>>(xs, xc, xvec, is, ir, ic, fill, o);
+    });
+  } else {
+    // a block of 256 threads: tx a row's units, ty rows
+    const int tx = pow2_at_least(units, 1, kThreads), ty = kThreads / tx;
+    const long long most = static_cast<long long>(c->sms) * (kSmThreads / kThreads);
+    long long gx = (units + tx - 1) / tx, gy = (ir + ty - 1LL) / ty;
+    if (gx > most) gx = most;
+    const long long gy_most = most / gx > 0 ? most / gx : 1;
+    if (gy > gy_most) gy = gy_most;
+    if (gy > 65535) gy = 65535;
+    const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy)), block(tx, ty);
+    with_modes(vec, narrow, [&](auto v, auto off) {
+      constexpr bool V = decltype(v)::value;
+      using Off = decltype(off);
+      if (axis == 0) take_along_ldg<0, V, Off><<<grid, block, 0, s>>>(xs, xr, xc, is, ir, ic, fill, o);
+      else take_along_ldg<1, V, Off><<<grid, block, 0, s>>>(xs, xr, xc, is, ir, ic, fill, o);
+    });
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,9 +499,35 @@ extern "C" int tz_take_along_loop(const void* x, int xr, int xc, const void* idx
 extern "C" int tz_flat_gather(const void* table, long long T, const void* idx, long long n,
                               void* out, void* stream) {
   if (T <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flat_gather_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), T, static_cast<const int32_t*>(idx), n,
-      static_cast<int32_t*>(out));
+  const Card* c = nullptr;
+  const cudaError_t err = current_card(&c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* ts = static_cast<const int32_t*>(table);
+  const auto* is = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<int32_t*>(out);
+  const bool vec = aligned16(idx) && aligned16(out);
+  const long long units = vec ? n / 4 : n;
+  const bool staged = staged_fits(*c, T);
+  const int threads = staged ? kStagedThreads : kThreads;
+  const long long bytes = staged ? 4 * T : 0;
+  // staged: a persistent grid of one or two blocks an SM, each copying
+  // the table once; else enough blocks to fill the card
+  const long long most = static_cast<long long>(c->sms) *
+                         (staged ? blocks_an_sm(*c, threads, bytes, 2) : kSmThreads / threads);
+  long long blocks = (units + threads - 1) / threads;
+  if (blocks > most) blocks = most;
+  if (blocks < 1) blocks = 1;  // n < 4: the tail alone
+  const bool tvec = aligned16(table);
+  with_modes(vec, true, [&](auto v, auto) {
+    constexpr bool V = decltype(v)::value;
+    if (staged)
+      flat_gather_kernel<true, V><<<static_cast<unsigned>(blocks), threads, bytes, s>>>(
+          ts, T, tvec, is, n, o);
+    else
+      flat_gather_kernel<false, V><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+          ts, T, tvec, is, n, o);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

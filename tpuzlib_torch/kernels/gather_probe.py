@@ -17,6 +17,8 @@ all take and give int32 (uint32 values pass as their bits):
   flat_gather(table, idx)
                    table.reshape(-1)[idx] (k_flatgather): an index below 0
                    counts from the end, then clamps to the table;
+  staged_words()   the widest axis-1 row of x, or table, that take_along
+                   and flat_gather stage in shared memory on the card;
   scatter_max(idx, vals, rows)
                    zeros (rows, w) max-scattered along rows:
                    out[idx[i, c], c] = max(out[...], vals[i, c]) (k_scatter,
@@ -31,7 +33,11 @@ all take and give int32 (uint32 values pass as their bits):
 scatter_max and shift_screen take a leading batch dimension: a 3-D input
 is that many independent chunks.  On a CUDA tensor each wrapper launches
 its kernel and counts it in _build.LAUNCHES; on a CPU tensor it runs the
-plain version beside it.
+plain version beside it.  take_along and flat_gather test a card call's
+inputs in one pass (each tensor's dtype, dimensions, contiguity and
+device index, no torch.device object), so that a call costs little more
+than aten's; only inputs on the CPU, or ones that the test refuses, go
+through the full checks (check_arrays), which raise on the latter.
 """
 
 from __future__ import annotations
@@ -49,32 +55,41 @@ def wrap32(x: torch.Tensor) -> torch.Tensor:
     return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
-def check_arrays(name: str, *tensors: torch.Tensor, dims=(2,)) -> None:
+def check_arrays(name: str, *tensors: torch.Tensor, dims=(2,)) -> int:
     """Raise unless every tensor is an int32, contiguous tensor of one of
-    `dims` dimensions, on the first tensor's device."""
+    `dims` dimensions, on the first tensor's device, a CPU or a CUDA one;
+    returns that device's CUDA index, or -1 for the CPU.  One pass over
+    each tensor's dtype, dimensions, contiguity and device index."""
+    first = tensors[0]
+    if not first.is_cuda and not first.is_cpu:
+        raise ValueError("%s: no kernel for tensors on %s" % (name, first.device))
+    device = first.get_device()
     for t in tensors:
         if t.dtype != torch.int32:
             raise TypeError("%s: expected int32 tensors, got %s" % (name, t.dtype))
         if t.dim() not in dims or not t.is_contiguous():
             raise ValueError("%s: expected contiguous tensors of %s dimensions, got shape %s"
                              % (name, " or ".join(map(str, dims)), tuple(t.shape)))
-        if t.device != tensors[0].device:
+        if t.get_device() != device or (device < 0 and not t.is_cpu):
             raise ValueError("%s: tensors must share one device (%s vs %s)"
-                             % (name, t.device, tensors[0].device))
+                             % (name, t.device, first.device))
+    return device
 
 
-def _check_take(x: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
-    check_arrays("take_along", x, idx)
-    if axis not in (0, 1):
+def _check_take(x: torch.Tensor, idx: torch.Tensor, axis: int) -> tuple:
+    """(device index, xr, xc, ir, ic), or raises."""
+    device = check_arrays("take_along", x, idx)
+    if axis != 0 and axis != 1:
         raise ValueError("take_along: axis must be 0 or 1, got %r" % (axis,))
-    if x.shape[1 - axis] != idx.shape[1 - axis] or x.shape[axis] == 0:
+    xr, xc = x.shape
+    ir, ic = idx.shape
+    if (xc != ic or xr == 0) if axis == 0 else (xr != ir or xc == 0):
         raise ValueError("take_along: x %s, not empty along axis %d, and idx %s of its other "
                          "extent" % (tuple(x.shape), axis, tuple(idx.shape)))
+    return device, xr, xc, ir, ic
 
 
-def take_along_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
-                     fill: int = INT32_MIN) -> torch.Tensor:
-    _check_take(x, idx, axis)
+def _take_along_plain(x, idx, axis, fill):
     n = x.shape[axis]
     i = idx.long()
     i = torch.where(i < 0, i + n, i)
@@ -82,19 +97,51 @@ def take_along_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
     return torch.where(ok, torch.gather(x, axis, i.clamp(0, n - 1)), fill)
 
 
+def take_along_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                     fill: int = INT32_MIN) -> torch.Tensor:
+    _check_take(x, idx, axis)
+    return _take_along_plain(x, idx, axis, fill)
+
+
 def take_along(x: torch.Tensor, idx: torch.Tensor, axis: int,
                fill: int = INT32_MIN) -> torch.Tensor:
     """int32 of idx's shape: x (r, c) gathered along `axis` at idx (the
-    other axis of idx as long as x's)."""
-    if _build.on_cpu(x):
-        return take_along_plain(x, idx, axis, fill)
-    _check_take(x, idx, axis)
-    out = torch.empty_like(idx)
-    if idx.numel():
-        _build.launch("take_along", "tz_take_along", x.device, x.data_ptr(), x.shape[0],
-                      x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1], axis, fill,
-                      out.data_ptr())
-    return out
+    other axis of idx as long as x's).  On the card, an axis-1 gather
+    stages x's row in shared memory where it is at most staged_words()
+    wide."""
+    # a card call's checks, in one pass: what _check_take requires
+    device = x.get_device()
+    if (x.is_cuda and idx.get_device() == device and x.dtype is torch.int32
+            and idx.dtype is torch.int32 and x.dim() == 2 and idx.dim() == 2
+            and x.is_contiguous() and idx.is_contiguous()):
+        xr, xc = x.shape
+        ir, ic = idx.shape
+        if (axis == 0 and xc == ic and xr) or (axis == 1 and xr == ir and xc):
+            out = torch.empty_like(idx)
+            if ir and ic:
+                _build.launch("take_along", "tz_take_along", device, x.data_ptr(), xr, xc,
+                              idx.data_ptr(), ir, ic, axis, fill, out.data_ptr())
+            return out
+    # the CPU, or inputs the card call refuses: _check_take raises on those
+    if _check_take(x, idx, axis)[0] >= 0:
+        raise ValueError("take_along: no kernel for these inputs")
+    return _take_along_plain(x, idx, axis, fill)
+
+
+def staged_words(device=None) -> int:
+    """The widest source, in int32 words, that take_along (an axis-1 row
+    of x) and flat_gather (the table) stage in shared memory on `device`
+    (a CUDA index or torch.device; the current one by default): the
+    card's shared memory a block may opt in to, over 4.  A wider one is
+    gathered through the read-only cache."""
+    index = _build.device_index(torch.device("cuda") if device is None else device)
+    _build.lib()
+    with torch.cuda.device(index):
+        words = _build.lib.fns["tz_gather_staged_words"]()
+    if words < 0:
+        raise RuntimeError("staged_words: %s"
+                           % _build.lib.fns["tz_error_string"](-words).decode())
+    return words
 
 
 def _check_loop(x: torch.Tensor, idx: torch.Tensor, axis: int, iters: int) -> None:
@@ -132,30 +179,47 @@ def take_along_loop(x: torch.Tensor, idx: torch.Tensor, axis: int, iters: int = 
     return out
 
 
-def _check_flat(table: torch.Tensor, idx: torch.Tensor) -> None:
-    check_arrays("flat_gather", table, idx, dims=(1, 2, 3))
-    if table.numel() == 0:
-        raise ValueError("flat_gather: the table is empty")
-
-
-def flat_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    _check_flat(table, idx)
+def _check_flat(table: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """(device index, T), or raises."""
+    device = check_arrays("flat_gather", table, idx, dims=(1, 2, 3))
     T = table.numel()
+    if T == 0:
+        raise ValueError("flat_gather: the table is empty")
+    return device, T
+
+
+def _flat_gather_plain(table, idx, T):
     i = idx.long()
     return table.reshape(-1)[torch.where(i < 0, i + T, i).clamp(0, T - 1)]
 
 
+def flat_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _, T = _check_flat(table, idx)
+    return _flat_gather_plain(table, idx, T)
+
+
 def flat_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """int32 of idx's shape: table.reshape(-1)[idx], an index below 0
-    counted from the end and then clamped to the table."""
-    if _build.on_cpu(table):
-        return flat_gather_plain(table, idx)
-    _check_flat(table, idx)
-    out = torch.empty_like(idx)
-    if idx.numel():
-        _build.launch("flat_gather", "tz_flat_gather", table.device, table.data_ptr(),
-                      table.numel(), idx.data_ptr(), idx.numel(), out.data_ptr())
-    return out
+    counted from the end and then clamped to the table.  On the card, a
+    table of at most staged_words() is staged in shared memory."""
+    # a card call's checks, in one pass: what _check_flat requires
+    device = table.get_device()
+    if (table.is_cuda and idx.get_device() == device and table.dtype is torch.int32
+            and idx.dtype is torch.int32 and 0 < table.dim() < 4 and 0 < idx.dim() < 4
+            and table.is_contiguous() and idx.is_contiguous()):
+        T = table.numel()
+        if T:
+            out = torch.empty_like(idx)
+            n = idx.numel()
+            if n:
+                _build.launch("flat_gather", "tz_flat_gather", device, table.data_ptr(), T,
+                              idx.data_ptr(), n, out.data_ptr())
+            return out
+    # the CPU, or inputs the card call refuses: _check_flat raises on those
+    device, T = _check_flat(table, idx)
+    if device >= 0:
+        raise ValueError("flat_gather: no kernel for these inputs")
+    return _flat_gather_plain(table, idx, T)
 
 
 def _chunks(x: torch.Tensor) -> torch.Tensor:
