@@ -65,8 +65,11 @@ tpuzlib_torch/kernels/csrc, then:
      on 8 MiB of bits unpacked beforehand, the tensor-core forms
      crc_forms_mm in bf16 and int8) to their plain versions on 256 MiB,
      requires both forms to give zlib's CRC through the host combine and
-     to equal the table fold's, times each kernel at every (B, tile) the
-     tools run beside the table fold, then runs the three probes of
+     to equal the table fold's, holds both forms on the same 256 MiB at
+     byte offset 3 (the route whose consumers load the rows themselves;
+     "H unaligned") to the plain version, times each kernel at every (B,
+     tile) the tools run beside the table fold (each "H time" line names
+     the route of the rows), then runs the three probes of
      tpuzlib_torch/tools at 8 MiB; their launches are taken over those
      runs;
   I  holds the gather and primitive probe kernels (gather_probe.cu,
@@ -74,8 +77,15 @@ tpuzlib_torch/kernels/csrc, then:
      along axis 1 (x's row staged in shared memory) and on (64, 65536)
      (take_along_axis1_wide: rows past the staged limit, gathered
      through the read-only cache), and on (4352, 128) and the encoder
-     batch's (8 x 2304, 128) along axis 0, take_along_loop on (4352, 128)
-     x 64, flat_gather (from the tools' 128 KiB table, staged, and from a
+     batch's (8 x 2304, 128) along axis 0, take_along_loop x 64 at the
+     tools' three shapes ((4352, 128) and (1024, 128) on axis 0, (1024,
+     128) on axis 1: x's lines staged in shared memory) and on (staged
+     limit + 1, 32) along axis 0 (take_along_loop_wide: through the
+     read-only cache, a design the tools' shapes never take, so off the
+     main path), each row naming its design and, for the staged rows,
+     beside the byte bound the shared-memory request floor of their
+     gathers; each loop row's launches are those of its design
+     (gather_probe.LOOP_ROUTES) over the probes' runs; flat_gather (from the tools' 128 KiB table, staged, and from a
      256 KiB one, flat_gather_large, through the cache), shift_screen and
      scatter_max on 8 chunks of (2304, 128)
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
@@ -204,11 +214,14 @@ MEM_RATE, OP_RATE = 3.35e12, 67e12
 BF16_RATE, INT8_RATE = 989.4e12, 1978.9e12
 # cycles a second that size torch.cuda._sleep: the H100's top SM clock
 SLEEP_HZ = 1.98e9
+SMS = 132  # the H100 SXM's streaming multiprocessors
 # the (B, tile) pairs the CRC probes run (tools/probe_crc.py, probe_crc3.py)
 FORM_PAIRS = ((1024, 256), (4096, 256), (4096, 512), (1024, 1024))
 # kernels held to their plain versions that no main path launches, and why
 OFF_PATH = {"adler32": "the public Adler-32 runs adler32_scalar's kernel, which takes the "
-                       "same block sums (block_sums in csrc/adler32.cu) in its own launch"}
+                       "same block sums (block_sums in csrc/adler32.cu) in its own launch",
+            "take_along_loop_wide": "take_along_loop's ldg design runs only on lines past "
+                                    "staged_words(); the tools' shapes all fit it"}
 
 
 def emit(obj) -> None:
@@ -958,10 +971,30 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
     emit({"phase": "H crc", "bytes": n, "zlib": want, "equal": not bad, "failed": bad})
     if bad:
         raise SystemExit("phase H: %s" % ", ".join(bad))
+    # the same bytes at offset 3: no tensor map takes them, the kernel's
+    # consumers load their rows' words themselves
+    shifted = torch.empty(n + 3, dtype=torch.uint8, device=dev)[3:]
+    shifted.copy_(big)
+    srows = shifted.view(-1, 1024)
+    swant = cp.crc_forms_mm_plain(srows)
+    unaligned = {}
+    for dt in cp.DTYPES:
+        got = cp.crc_forms_mm(srows, dt)
+        unaligned[dt] = {"route": cp.forms_route(srows), "equal": torch.equal(got, swant),
+                         "ms": cuda_ms(lambda: cp.crc_forms_mm(srows, dt)),
+                         "aligned_ms": out["crc_forms_mm_" + dt]["ms"]}
+    emit({"phase": "H unaligned", "offset": 3, "bytes": n, "B": 1024, "tile": cp.TILES[0],
+          **unaligned})
+    del shifted, srows, swant, got
+    if not all(u["equal"] for u in unaligned.values()) or any(
+            u["route"] != "ldg" for u in unaligned.values()):
+        raise SystemExit("phase H: the forms at offset 3 differ from the plain version")
+    for dt in cp.DTYPES:  # the route of the kernel's rows ("route" is the kernel's language)
+        out["crc_forms_mm_" + dt]["rows_route"] = cp.forms_route(rows)
 
-    def time_line(kernel, mode, B, tile, data_bytes, row):
+    def time_line(kernel, mode, B, tile, data_bytes, row, route=None):
         emit({"phase": "H time", "kernel": kernel, "mode": mode, "B": B, "tile": tile,
-              "ms": row["ms"], "GBps": data_bytes / row["ms"] / 1e6,
+              "route": route, "ms": row["ms"], "GBps": data_bytes / row["ms"] / 1e6,
               **{k: row[k] for k in ("bound_ms", "bound_by", "pct_of_bound")}})
 
     # the rows above at their own shapes; the forms' other (B, tile) pairs
@@ -983,7 +1016,7 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
                 row = dict(ms=ms, bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                            pct_of_bound=100 * max(bytes_ms, ops_ms) / ms)
-            time_line("crc_forms_mm", dt, B, tile, n, row)
+            time_line("crc_forms_mm", dt, B, tile, n, row, cp.forms_route(big.view(-1, B)))
     fold_ms = cuda_ms(lambda: crc32_cuda.crc32_forms(big, 0, 1))
     bf16_ms, i8_ms = out["crc_forms_mm_bf16"]["ms"], out["crc_forms_mm_i8"]["ms"]
     emit({"phase": "H compare", "bytes": n, "table_fold_ms": fold_ms, "forms_bf16_ms": bf16_ms,
@@ -1039,10 +1072,21 @@ def phase_i(smi: str) -> tuple:
         library[name] = lambda x=x, idx64=idx64, axis=axis: torch.gather(x, axis, idx64)
         kernel_of[name] = "take_along"
         design[name] = "staged" if axis == 1 and xshape[1] <= staged else "ldg"
-    x, idx = ints((4352, 128)), ints((4352, 128), 0, 4352)
-    cases["take_along_loop"] = (lambda: gp.take_along_loop(x, idx, 0, 64),
-                                lambda: gp.take_along_loop_plain(x, idx, 0, 64), gsrc,
-                                "tools/probe_gather.py:96", (x, idx), 64 * x.numel())
+    # take_along_loop at the tools' three shapes, staged, and past the
+    # staged limit through the read-only cache; 64 gathers an element
+    loop_designs = {}
+    for name, shape, axis in (("take_along_loop", (4352, 128), 0),
+                              ("take_along_loop_axis0_1024", (1024, 128), 0),
+                              ("take_along_loop_axis1_1024", (1024, 128), 1),
+                              ("take_along_loop_wide", (staged + 1, 32), 0)):
+        x, idx = ints(shape), ints(shape, 0, shape[axis])
+        cases[name] = (lambda x=x, idx=idx, axis=axis: gp.take_along_loop(x, idx, axis, 64),
+                       lambda x=x, idx=idx, axis=axis: gp.take_along_loop_plain(x, idx, axis, 64),
+                       gsrc, "tools/probe_gather.py:96", (x, idx), 64 * x.numel())
+        kernel_of[name] = "take_along_loop"
+        loop_designs[name] = gp.loop_design(x, axis)
+    if sorted(loop_designs.values()) != ["ldg"] + ["staged"] * 3:
+        raise SystemExit("phase I: the loop rows do not cover both designs: %s" % loop_designs)
     # flat_gather: the tools' 128 KiB table staged in shared memory; a 256
     # KiB one (_large) past the staged limit, gathered through the cache
     for name, tshape in (("flat_gather", (256, 128)), ("flat_gather_large", (512, 128))):
@@ -1098,6 +1142,17 @@ def phase_i(smi: str) -> tuple:
                          "tools/probe_inflate_prims2.py:139", win, 3 * lanes)
 
     rows = check_kernels(cases, phase="I", library=library)
+    for name, d in loop_designs.items():
+        rows[name]["design"] = d
+        if d != "staged":
+            continue
+        # beside the byte bound, the shared memory's: a warp request of 32
+        # gathers a cycle an SM, free of bank conflicts; random banks cost
+        # ~3.53 times that (the mean busiest of 32 banks for 32 lanes)
+        requests = rows[name]["ops"] / 32
+        rows[name]["smem_requests"] = requests
+        rows[name]["smem_floor_ms"] = requests / (SMS * SLEEP_HZ) * 1e3
+        rows[name]["smem_floor_random_ms"] = 3.53 * rows[name]["smem_floor_ms"]
     # device time of bare launches: the wrappers' host time holds these rows
     for name, row in rows.items():
         row["device_ms"] = device_ms(cases[name][0])
@@ -1111,6 +1166,8 @@ def phase_i(smi: str) -> tuple:
             steady = [cuda_ms(f, 200, 20) for f in (kern, lib, kern, lib)]
             row["steady_ms"], row["library_steady_ms"] = steady[0::2], steady[1::2]
             row["steady_over_library"] = sum(steady[0::2]) / sum(steady[1::2])
+        if "smem_floor_ms" in row:
+            row["smem_floor_pct"] = 100 * row["smem_floor_ms"] / row["device_ms"]
         if name in design:
             row["design"] = design[name]
             row["over_library"] = row["ms"] / row["library_ms"]
@@ -1120,7 +1177,8 @@ def phase_i(smi: str) -> tuple:
                                                            "device_pct_of_bound", "library_ms")},
               "library_device_ms": row.get("library_device_ms"),
               **{k: row[k] for k in ("design", "over_library", "x_sector_bytes", "steady_ms",
-                                     "library_steady_ms", "steady_over_library") if k in row}})
+                                     "library_steady_ms", "steady_over_library", "smem_floor_ms",
+                                     "smem_floor_random_ms", "smem_floor_pct") if k in row}})
     axis0 = ("tools/probe_primitives.py:188 k_tala0, tools/probe_inflate_prims.py:50 k_a, "
              "tools/probe_inflate_prims2.py:115 k_i (table_lookup)")
     rows["take_along_axis1"]["also_replaces"] = "tools/probe_primitives.py:167 k_tala"
@@ -1144,10 +1202,18 @@ def phase_i(smi: str) -> tuple:
                        for k, v in rows_us.items()}})
 
     _build.reset_launches()
+    for d in gp.LOOP_ROUTES:
+        gp.LOOP_ROUTES[d] = 0
     for probe in (probe_gather, probe_primitives, probe_inflate_prims, probe_inflate_prims2):
         probe.main([])
     torch.cuda.synchronize()
-    return rows, {k: _build.LAUNCHES[kernel_of.get(k, k)] for k in rows}
+    launches = {k: _build.LAUNCHES[kernel_of.get(k, k)] for k in rows}
+    if sum(gp.LOOP_ROUTES.values()) != _build.LAUNCHES["take_along_loop"]:
+        raise SystemExit("phase I: take_along_loop's launches by design %s do not add up to %d"
+                         % (gp.LOOP_ROUTES, _build.LAUNCHES["take_along_loop"]))
+    for name, d in loop_designs.items():  # a loop row's launches: its design's
+        launches[name] = gp.LOOP_ROUTES[d]
+    return rows, launches
 
 
 def phase_j(corpus, z6: bytes, gzip32: np.ndarray) -> bytes:

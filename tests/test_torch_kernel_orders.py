@@ -1,0 +1,207 @@
+"""The orders in which the card's crc_forms_mm and take_along_loop kernels
+work, replayed on the host against the plain versions and the tools' Pallas
+kernels.
+
+crc_forms_mm's kernel multiplies with K permuted (crc32_probe.card_order)
+and, in int8, with M's rows scaled and the parity taken from bit 7
+(card_matrix_rows); its M operand is an image in wgmma's swizzled layout
+(card_image).  take_along_loop's kernels step their index by one from a
+single floor mod (gather_probe.loop_steps).  Each replay is held, with
+exact equality, to the plain version and to the tool's kernel in
+interpret mode on the same seeded numpy input; the route helpers
+(forms_route, loop_design) are held at their boundaries.  No card is
+needed.
+"""
+
+import functools
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from tpuzlib_torch.kernels import crc32_probe as cp, gather_probe as gp
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and their OpenMP threads, one per core each, spin against one another.
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+I32 = np.iinfo(np.int32)
+# the widest line the H100's kernels stage (232,448 bytes a block may opt in to, over 4)
+H100_STAGED_WORDS = 232448 // 4
+
+
+@functools.lru_cache()
+def _tool(name):
+    spec = importlib.util.spec_from_file_location("tool_" + name,
+                                                  os.path.join(REPO, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bytes(nb, block, seed, fill=None):
+    if fill is not None:
+        return np.full((nb, block), fill, np.uint8)
+    return np.random.default_rng(seed).integers(0, 256, (nb, block), dtype=np.uint8)
+
+
+# ---- crc_forms_mm -------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", sorted(cp.DTYPES))
+@pytest.mark.parametrize("block", cp.FORM_BLOCKS)
+def test_card_order_permutes_k(block, dtype):
+    """Every (plane, byte) once; each slice of 32 bytes keeps its bytes."""
+    plane, byte = cp.card_order(block, dtype)
+    assert plane.shape == byte.shape == (8 * block,)
+    assert np.array_equal(np.sort(plane * block + byte), np.arange(8 * block))
+    slices = np.arange(8 * block) // 256
+    assert np.array_equal(byte // cp.SLICE, slices)
+
+
+@pytest.mark.parametrize("dtype", sorted(cp.DTYPES))
+@pytest.mark.parametrize("block", cp.FORM_BLOCKS)
+def test_card_matrix_rows_are_m_in_card_order(block, dtype):
+    plane, byte = cp.card_order(block, dtype)
+    rows = cp.card_matrix_rows(block, dtype)
+    m = cp.plane_matrix_bits(block)[plane * block + byte].astype(np.int64)
+    if dtype == "bf16":
+        assert np.array_equal(rows, m)
+    else:  # 2^(7 - i) for a set bit, 128 wrapped to -128: 128 x M mod 256 per product
+        assert rows.min() >= -128 and rows.max() <= 64
+        assert np.array_equal(rows % 256, (m << (7 - plane[:, None])) % 256)
+
+
+@pytest.mark.parametrize("dtype", sorted(cp.DTYPES))
+@pytest.mark.parametrize("block", cp.FORM_BLOCKS)
+def test_card_image_holds_the_rows_in_wgmma_layout(block, dtype):
+    """Element (K row k, column n) of a slice sits in box k * size // 128 at
+    row n, 16-byte chunk (k * size % 128 // 16) ^ (n % 8)."""
+    rows = cp.card_matrix_rows(block, dtype)
+    size = 2 if dtype == "bf16" else 1
+    img = cp.card_image(block, dtype)
+    assert img.dtype == np.uint8 and img.size == rows.size * size
+    slab = img.reshape(block // cp.SLICE, -1, 32, 128)  # slice, box, row n, 128 bytes
+    for k in (0, 1, 15, 16, 63, 64, 127, 255, 8 * block - 1):
+        s, at = divmod(k * size, 256 * size)
+        box, col = divmod(at, 128)
+        for n in (0, 5, 8, 31):
+            pos = ((col >> 4) ^ (n & 7)) << 4 | (col & 15)
+            raw = slab[s, box, n, pos:pos + size]
+            if dtype == "bf16":
+                want = 0x3F80 if rows[k, n] else 0
+                assert int(raw.view(np.uint16)[0]) == want, (k, n)
+            else:
+                assert int(raw.view(np.int8)[0]) == rows[k, n], (k, n)
+
+
+@pytest.mark.parametrize("fill", [None, 0, 255])
+@pytest.mark.parametrize("dtype", sorted(cp.DTYPES))
+@pytest.mark.parametrize("block", cp.FORM_BLOCKS)
+def test_card_forms_replay_matches_plain_and_make_forms_kernel(block, dtype, fill):
+    """The card's permuted bits times its permuted (and scaled) M give the
+    plain columns and the tool's make_forms_kernel output."""
+    nb = 16 if block == 1024 else 8
+    x = _bytes(nb, block, 7 * block + len(dtype), fill)
+    mode = "plane_" + dtype
+    want = np.asarray(_tool("probe_crc").make_forms_kernel(block, 8, mode)(jnp.asarray(x)))
+    t = torch.from_numpy(x)
+    got = cp.card_forms_plain(t, dtype)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, cp.crc_forms_mm_plain(t, dtype))
+
+
+def _view_at(nb, block, offset, stride=None):
+    """A (nb, block) uint8 view `offset` bytes into a 16-byte aligned buffer,
+    rows `stride` bytes apart."""
+    stride = block if stride is None else stride
+    buf = torch.zeros(nb * stride + offset + 64, dtype=torch.uint8)
+    shift = (-buf.data_ptr()) % 16
+    return buf[shift + offset:].as_strided((nb, block), (stride, 1))
+
+
+@pytest.mark.parametrize("offset", list(range(17)))
+def test_forms_route_from_alignment(offset):
+    x = _view_at(3, 1024, offset)
+    assert x.data_ptr() % 16 == offset % 16
+    assert cp.forms_route(x) == ("tma" if offset % 16 == 0 else "ldg")
+
+
+@pytest.mark.parametrize("stride", [1024, 1032, 1040, 4096, 4100])
+def test_forms_route_ignores_row_stride(stride):
+    # one row is contiguous whatever its stride: its pointer alone decides
+    row = _view_at(1, 1024, 0, stride)
+    assert row.is_contiguous() and cp.forms_route(row) == "tma"
+    assert torch.equal(cp.crc_forms_mm(row), cp.crc_forms_mm(row.clone()))
+    # rows apart from each other are refused before any route is taken
+    rows = _view_at(2, 1024, 0, stride)
+    if stride == 1024:
+        assert rows.is_contiguous()
+    else:
+        with pytest.raises(ValueError):
+            cp.crc_forms_mm(rows)
+
+
+# ---- take_along_loop ------------------------------------------------------------
+
+# tools/probe_gather.py:96-103, loop_cost's kern (x.shape[axis] as n)
+def _loop_kernel(axis, n, iters):
+    def kern(x_ref, i_ref, o_ref):
+        def body(t, acc):
+            g = jnp.take_along_axis(
+                x_ref[:], (i_ref[:] + t) % n, axis=axis
+            )
+            return acc + g
+
+        o_ref[:] = jax.lax.fori_loop(0, iters, body, jnp.zeros_like(x_ref))
+
+    return kern
+
+
+@pytest.mark.parametrize("axis,shape,iters", [(0, (16, 128), 64), (1, (8, 128), 64),
+                                              (0, (5, 3), 64), (1, (3, 7), 40),
+                                              (0, (9, 128), 1), (1, (4, 128), 0)])
+def test_loop_steps_replay_matches_plain_and_loop_cost(axis, shape, iters):
+    """Indices at int32's ends (the wrap step: 2^31 - idx < iters) and
+    around them, negative and past n."""
+    rng = np.random.default_rng(shape[0] * 31 + shape[1] + axis + iters)
+    n = shape[axis]
+    x = rng.integers(I32.min, I32.max, shape, dtype=np.int32)
+    idx = rng.integers(-3 * n, 3 * n, shape, dtype=np.int32)
+    edges = [I32.max, I32.max - 30, I32.max - 63, I32.max - 64, I32.min, I32.min + 1, -1,
+             n, -n - 5]
+    idx.reshape(-1)[: len(edges)] = edges[: idx.size]
+    want = np.asarray(pl.pallas_call(_loop_kernel(axis, n, iters),
+                                     out_shape=jax.ShapeDtypeStruct(shape, jnp.int32),
+                                     interpret=True)(jnp.asarray(x), jnp.asarray(idx)))
+    tx, ti = torch.from_numpy(x), torch.from_numpy(idx)
+    got = gp.take_along_loop_stepped(tx, ti, axis, iters)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, gp.take_along_loop_plain(tx, ti, axis, iters))
+
+
+@pytest.mark.parametrize("i0,n", [(I32.max, 7), (I32.max - 2, 4352), (I32.min, 5),
+                                  (I32.max - 63, 128), (-1, 3), (0, 1)])
+def test_loop_steps_take_the_wrap_step_afresh(i0, n):
+    """Step t is the floor mod of idx + t wrapped to int32, the one wrap
+    included."""
+    steps = gp.loop_steps(torch.tensor([i0], dtype=torch.int32), n, 64)[0].tolist()
+    wrapped = [i0 + t - (1 << 32) if i0 + t > I32.max else i0 + t for t in range(64)]
+    assert steps == [v % n for v in wrapped]
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("extent,design", [(1, "staged"), (H100_STAGED_WORDS, "staged"),
+                                           (H100_STAGED_WORDS + 1, "ldg")])
+def test_loop_design_at_the_staged_limit(axis, extent, design):
+    shape = (extent, 2) if axis == 0 else (2, extent)
+    x = torch.empty(shape, dtype=torch.int32, device="meta")
+    assert gp.loop_design(x, axis, H100_STAGED_WORDS) == design
+    # the other extent does not matter
+    y = torch.empty(shape[::-1], dtype=torch.int32, device="meta")
+    assert gp.loop_design(y, axis, H100_STAGED_WORDS) == "staged"

@@ -26,16 +26,24 @@ TPU's compiler eight dots or one; on the card they are one kernel per
 dtype.  `tile` is the number of blocks a CUDA block owns.
 
 On a CUDA tensor each wrapper launches its kernel and counts it in
-_build.LAUNCHES (crc_unpack per mode, crc_forms_mm per dtype); on a CPU
-tensor it runs the plain version beside it.  The plain versions are exact
-(float64 products of 0/1 values) and work in row slices, so their
-working memory stays near 512 MiB at any size.
+_build.LAUNCHES (crc_unpack per mode, crc_forms_mm per dtype, and in
+FORM_ROUTES per route); on a CPU tensor it runs the plain version beside
+it.  The plain versions are exact (float64 products of 0/1 values) and
+work in row slices, so their working memory stays near 512 MiB at any
+size.
+
+crc_forms_mm's kernel multiplies in its own K order and, in int8, with
+M's rows scaled (csrc/crc32_probe.cu): card_order, card_matrix_rows and
+card_image give that order, M's rows in it and their image in the
+kernel's shared-memory layout; card_forms_plain replays the kernel's
+arithmetic on the host; forms_route gives the route of its rows.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
@@ -48,6 +56,11 @@ DTYPES = {"bf16": (torch.bfloat16, 0), "i8": (torch.int8, 1)}
 MODES = {"u8": 1, "i32": 2, "bf16": 3}  # crc_unpack; mode 0 is crc_rowsum
 MAX_ROW = 1 << 23  # a row's byte sum stays below 2^31
 BITS_K = 128  # gf2_bits_mm's K is a multiple of this (16 for each of its 8 warps)
+SLICE = 32  # bytes of each row in a K slice of crc_forms_mm's kernel
+# crc_forms_mm's routes for the rows, by the code the kernel takes: by TMA
+# (rows on a 16-byte boundary), or loaded by the consumers (any offset)
+ROUTES = ("tma", "ldg")
+FORM_ROUTES = {route: 0 for route in ROUTES}  # crc_forms_mm's launches by route
 _WORK = 1 << 29  # bytes a plain version works on at once
 
 
@@ -194,20 +207,111 @@ def crc_forms_mm_plain(blocks: torch.Tensor, dtype: str = "bf16", tile: int = 25
                     80 * B)
 
 
+def forms_route(blocks: torch.Tensor) -> str:
+    """The route of crc_forms_mm's rows on the card: "tma" where they start
+    on a 16-byte boundary (what a TMA tensor map takes; the rows are
+    contiguous and every B of FORM_BLOCKS a multiple of 16), else "ldg",
+    the kernel's consumers loading the rows' words themselves."""
+    return "tma" if blocks.data_ptr() % 16 == 0 else "ldg"
+
+
+def card_order(block: int, dtype: str) -> tuple:
+    """(plane, byte) of each K row of crc_forms_mm's product on the card,
+    in the kernel's order: slice s (SLICE bytes of each row), wgmma q of
+    the slice, element k of its K; bf16: q = 8c + i, bit i of byte 32s +
+    16c + 4(k % 8 // 2) + k % 2 + 2(k // 8); int8: q = i, bit i of byte
+    32s + k.  Two int64 arrays of 8 * block."""
+    s = np.arange(block // SLICE)[:, None, None]
+    if dtype == "bf16":
+        q, k = np.arange(16)[None, :, None], np.arange(16)[None, None, :]
+        plane = q % 8
+        byte = SLICE * s + 16 * (q // 8) + 4 * (k % 8 // 2) + k % 2 + 2 * (k // 8)
+    else:
+        plane, k = np.arange(8)[None, :, None], np.arange(32)[None, None, :]
+        byte = SLICE * s + k + 0 * plane
+    return np.broadcast_to(plane, byte.shape).reshape(-1), byte.reshape(-1)
+
+
+def _wrap8(x):
+    """int8's two's-complement wrap of integers (128 -> -128)."""
+    return (x + 128) % 256 - 128
+
+
+def card_matrix_rows(block: int, dtype: str) -> np.ndarray:
+    """M_B's rows in card_order, int64 (8 * block, 32), as the kernel holds
+    them: 0 / 1 in bf16; in int8 bit i's row times 2^(7 - i), wrapped to
+    int8 (128 as -128), so that each product is 128 x bit x M mod 256."""
+    plane, byte = card_order(block, dtype)
+    m = plane_matrix_bits(block)[plane * block + byte].astype(np.int64)
+    return _wrap8(m << (7 - plane[:, None])) if dtype == "i8" else m
+
+
+@functools.lru_cache(maxsize=None)
+def card_image(block: int, dtype: str) -> np.ndarray:
+    """card_matrix_rows as the kernel's bulk copies take it, uint8: slice
+    after slice (256 K rows each), each wgmma's B in wgmma's K-major
+    layout with the 128-byte swizzle: boxes of 32 rows (the columns) x 128
+    bytes of K, 16-byte chunk j of row n at chunk j ^ (n % 8)."""
+    rows = card_matrix_rows(block, dtype)
+    size = 2 if dtype == "bf16" else 1
+    kk = np.arange(rows.shape[0])
+    at = (kk % 256) * size  # the K row's byte in its slice's B
+    n = np.arange(32)[None, :]
+    off = ((kk // 256) * 256 * 32 * size)[:, None] + (at // 128 * 4096)[:, None] + n * 128 + \
+        ((((at % 128) >> 4)[:, None] ^ (n & 7)) << 4) + (at % 128 & 15)[:, None]
+    if dtype == "bf16":
+        vals = torch.from_numpy(rows.astype(np.float32)).to(torch.bfloat16).view(torch.int16).numpy()
+        img = np.zeros(rows.size, np.int16)
+    else:
+        vals, img = rows.astype(np.int8), np.zeros(rows.size, np.int8)
+    img[off // size] = vals
+    return img.view(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def card_matrix(block: int, dtype: str, device: torch.device) -> torch.Tensor:
+    """card_image on `device`, the M operand of crc_forms_mm's kernel."""
+    return torch.from_numpy(card_image(block, dtype)).to(device)
+
+
+def card_forms_plain(blocks: torch.Tensor, dtype: str = "bf16") -> torch.Tensor:
+    """crc_forms_mm's columns by the card kernel's arithmetic: each row's
+    bits in card_order as its A fragments hold them (bf16: 0 / 1; int8: the
+    bit times 2^i, wrapped to int8), times card_matrix_rows, exact in
+    float64, and the kernel's parity: bit 0 of the sum in bf16, bit 7 in
+    int8."""
+    _check_forms(blocks, dtype, TILES[0])
+    B = blocks.shape[1]
+    plane, byte = (torch.from_numpy(np.ascontiguousarray(a)) for a in card_order(B, dtype))
+    m = torch.from_numpy(card_matrix_rows(B, dtype)).to(blocks.device, torch.float64)
+
+    def part(c):
+        a = (c[:, byte.to(c.device)].long() >> plane.to(c.device)) & 1
+        if dtype == "i8":
+            a = _wrap8(a << plane.to(c.device))
+        s = (a.double() @ m).long()
+        return ((s >> 7) & 1 if dtype == "i8" else s & 1).int()
+
+    return _by_rows(part, blocks, 100 * B)
+
+
 def crc_forms_mm(blocks: torch.Tensor, dtype: str = "bf16", tile: int = 256) -> torch.Tensor:
     """int32[nb, 32]: the parity columns of bits(block) @ M_B for the rows
     of blocks, uint8 (nb, B) with B 1024 or 4096, on the tensor cores in
-    `dtype` (bf16 or i8), `tile` blocks a CUDA block."""
+    `dtype` (bf16 or i8), `tile` blocks a CUDA block; the rows go by the
+    route forms_route gives."""
     if _build.on_cpu(blocks):
         return crc_forms_mm_plain(blocks, dtype, tile)
     _check_forms(blocks, dtype, tile)
     nb, B = blocks.shape
-    torch_dtype, code = DTYPES[dtype]
-    m = form_matrix(B, torch_dtype, blocks.device)
     out = torch.empty(nb, 32, dtype=torch.int32, device=blocks.device)
     if nb:
+        route = forms_route(blocks)
+        m = card_matrix(B, dtype, blocks.device)
         _build.launch("crc_forms_mm_" + dtype, "tz_crc_forms_mm", blocks.device,
-                      blocks.data_ptr(), nb, B, tile, code, m.data_ptr(), out.data_ptr())
+                      blocks.data_ptr(), nb, B, tile, DTYPES[dtype][1], ROUTES.index(route),
+                      m.data_ptr(), out.data_ptr())
+        FORM_ROUTES[route] += 1
     return out
 
 

@@ -14,9 +14,9 @@
 //                 the parity columns of bits(block) @ M_B, the CRC's raw
 //                 linear forms, in bf16 or int8).
 //
-// The product's K order is plane-major, K = i * B + j for bit i of byte j,
-// as in the tools; there the "plane" and "cat" modes differ only in feeding
-// Mosaic eight dots or one, and on the card they are this one kernel.
+// The tools' product has K plane-major, K = i * B + j for bit i of byte j;
+// there the "plane" and "cat" modes differ only in feeding Mosaic eight
+// dots or one, and on the card they are one kernel a dtype.
 //
 // Bounds (H100 SXM): crc_rowsum and crc_unpack read each byte once (256 MiB
 // is about 80 us at 3.35 TB/s); their arithmetic is a few integer steps a
@@ -26,26 +26,60 @@
 //
 // Designs, simple first: the row kernels give a warp a row, read it in
 // 16-byte loads from its first 16-byte boundary (bytes before and after it
-// one at a time, so a row may start anywhere) and reduce with shuffles.  The
-// product kernels use warp-level nvcuda::wmma, m16n16k16 (bf16 with a float
-// accumulator, s8 with an int accumulator); N = 32 is two accumulator
-// fragments per 16-row tile.  A CUDA block of 8 warps owns `tile` rows (the
-// tools' tile: 256, 512 or 1024), each warp tile / 128 row tiles.  M does not fit
-// in shared memory (8192 x 32 bf16 is 512 KiB at B = 1024), so the block
-// walks K in slices: it stages 32 bytes of each of its rows and the 8 x 32
-// rows of M they meet (read from L2, where M stays: every block reads all
-// of it, so M's L2 traffic is |M| / tile a row), with all of a thread's
-// loads issued before the block waits for the last slice to be consumed;
-// then each warp writes each bit plane of its rows into a 16 x 16 tile in
-// shared memory (bf16 1.0 is 0x3F80: a byte's bit i times 0x3F80, two at a
-// time) and multiplies it with the plane's two M fragments.  The bits never
-// reach device memory.  gf2_bits_mm has its bits in memory already: a
-// block owns 32 rows and its 8 warps split K, loading their fragments
-// straight from device memory, so that the 8 MiB of the tool (8,192 rows)
-// still give 256 blocks.  Sums reach 8 * B = 32,768 at most: exact in float
-// and int, and & 1 gives GF(2).
+// one at a time, so a row may start anywhere) and reduce with shuffles.
+// gf2_bits_mm has its bits in memory already: warp-level nvcuda::wmma,
+// m16n16k16 in bf16; a block owns 32 rows and its 8 warps split K, loading
+// their fragments straight from device memory, so that the 8 MiB of the
+// tool (8,192 rows) still give 256 blocks.
+//
+// crc_forms_mm is a warp-specialised wgmma kernel.  A CUDA block owns
+// `tile` rows (the tools' tile: 256, 512 or 1024): two consumer warpgroups
+// of tile / 128 64-row tiles each, and one producer warp.  K is walked in
+// slices of 32 bytes of every row (8 x 32 K rows of M) through a ring of 4
+// stages in shared memory; the producer's lane 0 keeps the slices in
+// flight with TMA: the rows' bytes by a tensor map (a box of 256 rows x 32
+// bytes, 32-byte swizzle, zeros past nb) and M's rows for the slice by one
+// bulk copy, each stage's arrival counted on an mbarrier.  M does not fit
+// in shared memory (8192 x 32 bf16 is 512 KiB at B = 1024), so every CUDA
+// block streams all of it from L2 (clusters that multicast M's slices
+// measured slower, PERF.md).  The consumers read their rows' words
+// with ldmatrix (thread (g, t) of a warp gets word t of a 16-byte chunk of
+// rows g and g + 8, the wgmma A fragment's rows) and build every bit
+// plane's A fragment from them in registers: in bf16 a word is spread once
+// (bytes 0 and 1 to the low bytes of two halves, __byte_perm) and plane i
+// of the pair is (s & 0x10001 << i) * (0x3F80 >> i), bf16 1.0 where the bit
+// is set, two integer steps a register; in int8 plane i is w & 0x01010101
+// << i, the bit times 2^i, one step a register.  The bits never reach
+// shared or device memory.  Then wgmma m64n32k16 (bf16, f32 sums) or
+// m64n32k32 (int8, s32 sums) with A from registers and B, the slice of M,
+// from shared memory in wgmma's 128-byte-swizzled K-major layout, in
+// batches of 8 wgmmas: a warpgroup builds a batch's A, issues it and
+// waits for it (ptxas serialises wgmmas whose A registers are written
+// while any wgmma is in flight), and the other warpgroups of the SM (four
+// at tile 256, two blocks an SM) keep the tensor cores busy meanwhile.
+//
+// So that each thread's A comes from whole words, K is permuted on the
+// card by one fixed permutation, applied both to the bytes a fragment
+// takes and to M's rows (a copy made on the host, crc32_probe.card_matrix):
+// the sum of products, and its parity, do not change.  Slice s, wgmma q of
+// the slice, element k of its K: bf16 q = 8c + i, bit i of byte 32s + 16c +
+// 4(k % 8 / 2) + k % 2 + 2(k / 8); int8 q = i, bit i of byte 32s + k.  In
+// int8 M's rows are also scaled, bit i's row by 2^(7 - i) (128 stored as
+// -128): every product is 128 times bit x M mod 256, so bit 7 of the s32
+// sum is the parity.  In bf16 the sums stay below 2^15, exact in f32, and
+// the parity is bit 0 of the integer.  Each thread stores its parities
+// straight from its accumulator registers, masked past nb.
+//
+// The rows go by TMA where they start on a 16-byte boundary (TMA's rule
+// for a tensor map's base and row stride; B is a multiple of 16); else
+// (rows at any byte offset) the consumers load their words from device
+// memory themselves, two aligned words and a funnel shift each, and only M
+// goes by TMA.  The wrapper chooses the route from the pointer before the
+// launch.  Sums reach 8 * B = 32,768 at most.
 
 #include <cstdint>
+#include <mutex>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -124,10 +158,6 @@ crc_rowsum_kernel(const uint8_t* __restrict__ data, long long nb, int row,
 
 // ---- the GF(2) products on the tensor cores ------------------------------
 
-constexpr int kWarps = 8;  // warps a CUDA block of crc_forms_mm
-constexpr int kThreads = kWarps * 32;
-constexpr int kJ = 32;       // bytes of each row staged per K slice (8 planes x 32 K rows)
-constexpr int kXs = kJ + 16;  // staged byte row: 16-byte stores, 8-byte reads free of conflicts
 constexpr int kSplit = 8;    // gf2_bits_mm: warps of a CUDA block, each a K range of its rows
 constexpr int kBitsR = 2;    // gf2_bits_mm: row tiles of 16 a warp (32 rows a CUDA block)
 
@@ -138,146 +168,344 @@ template <> struct AccOf<signed char> { using type = int; };
 template <typename T, int R>
 using AccFrags = wmma::fragment<wmma::accumulator, 16, 16, 16, typename AccOf<T>::type>[R][2];
 
-// 16 bytes at p, from one load when p is 16-byte aligned.
-__device__ __forceinline__ uint4 load16(const uint8_t* p, bool aligned) {
-  if (aligned) return *reinterpret_cast<const uint4*>(p);
-  uint32_t w[4];
+// crc_forms_mm's shape: two consumer warpgroups and a producer warp; K in
+// slices of kSlice bytes a row (a stage) through a ring of kStages
+constexpr int kConsumers = 2;
+// the producer: one warp; at 8 tiles a warpgroup a whole warpgroup, whose
+// registers (setmaxnreg) go to the consumers' 128 accumulators
+template <int R>
+__host__ __device__ constexpr int forms_threads() {
+  return kConsumers * 128 + (R >= 8 ? 128 : 32);
+}
+constexpr int kStages = 4;
+constexpr int kSlice = 32;
+constexpr int kBoxRows = 256;  // rows of a TMA box of the rows' bytes
+constexpr int kBox = 4096;     // bytes of a 128-byte-swizzled box of M (32 rows of 128 bytes)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` from src to dst, counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box of the tensor map at (x, y) into this block's dst, counted on bar
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// B's descriptor: a K-major 32 x (128-byte row) box of M at shared address
+// `addr`, 128-byte swizzle, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d = A (64 x 16 bf16, this thread's 4 registers) @ B (16 x 32 at desc) + d,
+// or + 0 where !add
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                      int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add)
+      : "memory");
+}
+
+// d = A (64 x 32 s8) @ B (32 x 32 s8 at desc) + d, or + 0 where !add
+__device__ __forceinline__ void wgmma(int (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                      int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add)
+      : "memory");
+}
+
+// Registers the compiler must hold as they are at this point: the A
+// fragments and B descriptors are complete before wgmma.fence, and built
+// only after the last batch's wait (else ptxas serialises the wgmmas,
+// C7513), the sums
+// untouched while a wgmma may write them (CUTLASS's
+// warpgroup_fence_operand)
+__device__ __forceinline__ void pin(float (&d)[16]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    w[k] = p[4 * k] | (p[4 * k + 1] << 8) | (p[4 * k + 2] << 16) |
-           (static_cast<uint32_t>(p[4 * k + 3]) << 24);
+  for (int e = 0; e < 16; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+__device__ __forceinline__ void pin(int (&d)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) asm volatile("" : "+r"(d[e])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&w)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(w[k])::"memory");
+}
+__device__ __forceinline__ void pin(uint64_t (&d)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) asm volatile("" : "+l"(d[u])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[u][k])::"memory");
   }
-  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Bit `i` of 8 bytes (lo: bytes 0-3, hi: bytes 4-7) as 8 elements at dst.
-__device__ __forceinline__ void put_plane(__nv_bfloat16* dst, uint32_t lo, uint32_t hi, int i) {
-  const uint32_t p0 = (lo >> i) & 0x01010101u, p1 = (hi >> i) & 0x01010101u;
-  // bytes b0..b3 of 0/1 -> b0 | b1 << 16, b2 | b3 << 16; times 0x3F80 (bf16 1.0)
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(__byte_perm(p0, 0, 0x4140) * 0x3F80u, __byte_perm(p0, 0, 0x4342) * 0x3F80u,
-                 __byte_perm(p1, 0, 0x4140) * 0x3F80u, __byte_perm(p1, 0, 0x4342) * 0x3F80u);
-}
+// What differs between the dtypes.  w: this thread's words of a slice for
+// one 64-row tile (ldmatrix's order: rows g and g + 8 of 16-byte chunk 0,
+// then of chunk 1).  Group h (of kGroups a tile and slice) is four wgmmas
+// u = 0..3, whose B sits in box h of the slice's M at u * 32 bytes.
+template <typename T> struct Forms;
 
-__device__ __forceinline__ void put_plane(signed char* dst, uint32_t lo, uint32_t hi, int i) {
-  *reinterpret_cast<uint2*>(dst) = make_uint2((lo >> i) & 0x01010101u, (hi >> i) & 0x01010101u);
-}
-
-// The accumulators' parity (sum & 1) into out (nb, 32) for this warp's row
-// tiles, through a 16 x 32 scratch of the warp.
-template <typename T, int R>
-__device__ __forceinline__ void store_parity(AccFrags<T, R>& acc, typename AccOf<T>::type* cs,
-                                             int32_t* __restrict__ out, long long first,
-                                             long long nb) {
-  const int lane = threadIdx.x & 31;
+template <> struct Forms<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int kGroups = 4;  // group h = 2c + p: chunk c, planes 4p..4p+3
+  static constexpr uint32_t kMBytes = kSlice * 8 * 32 * 2;
+  // plane i of a spread pair (bytes at bits 0-7 and 16-23) as two bf16 0.0 / 1.0
+  __device__ static __forceinline__ uint32_t plane(uint32_t spread, int i) {
+    return (spread & (0x00010001u << i)) * (0x3F80u >> i);
+  }
+  __device__ static __forceinline__ void build(uint32_t (&a)[4][4], const uint32_t (&w)[4],
+                                               int h) {
+    const int c = h >> 1, p = h & 1;
+    // bytes 0, 1 (lo) and 2, 3 (hi) of rows g (w[2c]) and g + 8 (w[2c + 1])
+    const uint32_t lo0 = __byte_perm(w[2 * c], 0, 0x4140), lo1 = __byte_perm(w[2 * c + 1], 0, 0x4140);
+    const uint32_t hi0 = __byte_perm(w[2 * c], 0, 0x4342), hi1 = __byte_perm(w[2 * c + 1], 0, 0x4342);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    wmma::store_matrix_sync(cs, acc[r][0], 32, wmma::mem_row_major);
-    wmma::store_matrix_sync(cs + 16, acc[r][1], 32, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * 32; e += 32) {
-      const long long g = first + r * 16 + (e >> 5);
-      if (g < nb) out[g * 32 + (e & 31)] = static_cast<int32_t>(cs[e]) & 1;
+    for (int u = 0; u < 4; ++u) {
+      a[u][0] = plane(lo0, 4 * p + u);
+      a[u][1] = plane(lo1, 4 * p + u);
+      a[u][2] = plane(hi0, 4 * p + u);
+      a[u][3] = plane(hi1, 4 * p + u);
     }
-    __syncwarp();
   }
+  // the parity of an exact integer sum
+  __device__ static __forceinline__ int parity(float s) { return static_cast<int>(s) & 1; }
+};
+
+template <> struct Forms<signed char> {
+  using Acc = int;
+  static constexpr int kGroups = 2;  // group h: planes 4h..4h+3 of the slice's 32 bytes
+  static constexpr uint32_t kMBytes = kSlice * 8 * 32;
+  __device__ static __forceinline__ void build(uint32_t (&a)[4][4], const uint32_t (&w)[4],
+                                               int h) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a[u][k] = w[k] & (0x01010101u << (4 * h + u));
+    }
+  }
+  // every product is 128 x bit x M mod 256 (M's rows scaled): bit 7
+  __device__ static __forceinline__ int parity(int s) { return (s >> 7) & 1; }
+};
+
+// this thread's word of row `row` at byte `at`, from device memory at any
+// byte offset: misalign (data's address mod 4) is the same for every word;
+// the second aligned word holds the word's last byte, so no load leaves
+// the rows' words
+__device__ __forceinline__ uint32_t row_word(const uint8_t* data, long long row, int block,
+                                             int at, int misalign) {
+  const uint8_t* p = data + row * block + at;
+  if (misalign == 0) return *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(p - misalign);
+  return __funnelshift_r(q[0], q[1], 8 * misalign);
 }
 
-template <typename T, int R>
-constexpr size_t forms_smem() {
-  return static_cast<size_t>(kWarps * R * 16) * kXs + 8 * kJ * 32 * sizeof(T) +
-         kWarps * R * 256 * sizeof(T) + kWarps * 512 * 4;
+template <typename T, int R, bool Tma>
+__host__ __device__ constexpr int forms_stage_bytes() {
+  return static_cast<int>(Forms<T>::kMBytes) + (Tma ? kConsumers * R * 64 * kSlice : 0);
 }
 
-// crc_forms_mm: out[row] = bits(data[row]) @ M (8B x 32, plane-major) & 1.
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-crc_forms_mm_kernel(const uint8_t* __restrict__ data, long long nb, int block,
-                    const T* __restrict__ m, int32_t* __restrict__ out, bool aligned) {
-  using Acc = typename AccOf<T>::type;
-  constexpr int kTile = kWarps * R * 16;
-  constexpr int kSeg = 32 * sizeof(T) / 16;  // 16-byte pieces of an M row
-  static_assert(kTile * (kJ / 16) == R * kThreads && 8 * kJ == kThreads,
-                "a thread stages R pieces of the rows and kSeg of M");
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint8_t* xs = smem;                                        // kTile x kXs bytes
-  T* ms = reinterpret_cast<T*>(smem + kTile * kXs);          // 2 halves x (8 kJ) x 16
-  T* as = ms + 8 * kJ * 32;                                  // a warp's R A tiles
-  Acc* cs = reinterpret_cast<Acc*>(as + kWarps * R * 256);   // a warp's 16 x 32 sums
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+template <typename T, int R, bool Tma>
+__host__ __device__ constexpr int forms_smem() {
+  return kStages * forms_stage_bytes<T, R, Tma>() + 2 * kStages * 8 + 1024;  // + alignment
+}
+
+// crc_forms_mm: out[row] = parity of bits(data[row]) @ M (8B x 32), with M's
+// rows in the card's order (mimg: block / kSlice slices of kMBytes, each
+// kMBytes / kBox swizzled boxes).  Tma: the rows' bytes by `rows` (a
+// tensor map of data, (nb, block) bytes); else loaded by the consumers.
+template <typename T, int R, bool Tma>
+__global__ void __launch_bounds__(forms_threads<R>(), R <= 2 ? 2 : 1)
+crc_forms_mm_kernel(const __grid_constant__ CUtensorMap rows, const uint8_t* __restrict__ data,
+                    long long nb, int block, const uint8_t* __restrict__ mimg,
+                    int32_t* __restrict__ out) {
+  using F = Forms<T>;
+  using Acc = typename F::Acc;
+  constexpr int kTile = kConsumers * R * 64;
+  constexpr int kStage = forms_stage_bytes<T, R, Tma>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slices = block / kSlice;
   const long long row0 = static_cast<long long>(blockIdx.x) * kTile;
-  T* as_w = as + w * R * 256;
-  AccFrags<T, R> acc;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    wmma::fill_fragment(acc[r][0], Acc(0));
-    wmma::fill_fragment(acc[r][1], Acc(0));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int c = 0; c < block / kJ; ++c) {
-    // this thread's pieces of the slice, every load in flight before the
-    // block waits for the last slice to be consumed: R 16-byte pieces of
-    // the rows, and kSeg of M's rows for plane i, byte k of the slice (M
-    // row i * B + c * kJ + k), staged as two column halves, each (8 kJ, 16)
-    // row-major, so that every fragment pointer is 32-byte aligned
-    uint4 xv[R], mv[kSeg];
+  __syncthreads();
+  if (warp >= kConsumers * 4) {
+    // the producer: slice s into stage s % kStages once every consumer
+    // has released that stage's last slice
+    if constexpr (R >= 8) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == kConsumers * 4 && lane == 0) {
+      for (int s = 0; s < slices; ++s) {
+        const int st = s % kStages;
+        mbar_wait(&empty[st], ((s / kStages) & 1) ^ 1);
+        unsigned char* buf = smem + st * kStage;
+        mbar_expect_tx(&full[st], kStage);
+        bulk_copy(buf, mimg + static_cast<long long>(s) * F::kMBytes, F::kMBytes, &full[st]);
+        if (Tma) {
 #pragma unroll
-    for (int u = 0; u < R; ++u) {
-      const int q = threadIdx.x + u * kThreads;
-      const long long g = row0 + q / (kJ / 16);
-      xv[u] = g < nb ? load16(data + g * block + c * kJ + q % (kJ / 16) * 16, aligned)
-                     : make_uint4(0, 0, 0, 0);
+          for (int b = 0; b < kTile / kBoxRows; ++b)
+            tma_box(buf + F::kMBytes + b * kBoxRows * kSlice, &rows, s * kSlice,
+                    static_cast<int>(row0) + b * kBoxRows, &full[st]);
+        }
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kSeg; ++u) {
-      const int q = threadIdx.x + u * kThreads, k = q / kSeg;
-      const T* row = m + (static_cast<long long>(k / kJ) * block + c * kJ + k % kJ) * 32;
-      mv[u] = *reinterpret_cast<const uint4*>(reinterpret_cast<const uint8_t*>(row) +
-                                               q % kSeg * 16);
-    }
-    __syncthreads();  // the last slice is consumed
-#pragma unroll
-    for (int u = 0; u < R; ++u) {
-      const int q = threadIdx.x + u * kThreads;
-      *reinterpret_cast<uint4*>(xs + q / (kJ / 16) * kXs + q % (kJ / 16) * 16) = xv[u];
-    }
-#pragma unroll
-    for (int u = 0; u < kSeg; ++u) {
-      const int q = threadIdx.x + u * kThreads, k = q / kSeg, g = q % kSeg;
-      *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(ms) +
-                                ((g / (kSeg / 2)) * 8 * kJ * 16 + k * 16) * sizeof(T) +
-                                g % (kSeg / 2) * 16) = mv[u];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < kJ / 16; ++s) {
-      uint2 v[R];  // this lane's 8 bytes (row lane / 2, bytes 8 * (lane % 2)) of each tile
+  } else {
+    if constexpr (R >= 8) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    const int misalign = static_cast<int>(reinterpret_cast<uintptr_t>(data) & 3);
+    Acc acc[R][16];  // zeroed by the first slice's first wgmma of each tile (add = 0)
+    uint32_t a[2][4][4];  // a batch's A: 2 groups of 4 wgmmas
+    for (int s = 0; s < slices; ++s) {
+      const int st = s % kStages;
+      mbar_wait(&full[st], (s / kStages) & 1);
+      const uint32_t buf = smem_u32(smem + st * kStage);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        v[r] = *reinterpret_cast<const uint2*>(xs + (w * R * 16 + r * 16 + (lane >> 1)) * kXs +
-                                               s * 16 + (lane & 1) * 8);
+        const int tile_row = 64 * (wg * R + r) + 16 * wq;
+        uint32_t w[4];
+        if (Tma) {
+          // lane L addresses row L % 8 (+ 8 for odd L / 8) of chunk L / 16
+          const int m = lane >> 3, row = tile_row + ((m & 1) << 3) + (lane & 7);
+          const uint32_t at = buf + F::kMBytes + row * kSlice + (((m >> 1) ^ ((row >> 2) & 1)) << 4);
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                       : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                       : "r"(at)
+                       : "memory");
+        } else {
+          const long long ra = row0 + tile_row + g, rb = ra + 8;
+          const int at = s * kSlice + 4 * t;
+          w[0] = ra < nb ? row_word(data, ra, block, at, misalign) : 0u;
+          w[1] = rb < nb ? row_word(data, rb, block, at, misalign) : 0u;
+          w[2] = ra < nb ? row_word(data, ra, block, at + 16, misalign) : 0u;
+          w[3] = rb < nb ? row_word(data, rb, block, at + 16, misalign) : 0u;
+        }
+#pragma unroll
+        for (int h = 0; h < F::kGroups; h += 2) {
+          // a batch of two groups: 8 wgmmas, their A built beforehand and
+          // all of them done before the next batch's A is built (ptxas
+          // serialises wgmmas whose A registers are written while any
+          // wgmma is in flight, C7513); the other warpgroups keep the
+          // tensor cores busy meanwhile
+          pin(w);  // the build stays after the last batch's wait
+#pragma unroll
+          for (int e = 0; e < 2; ++e) F::build(a[e], w, h + e);
+          uint64_t desc[2][4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) desc[e][u] = b_desc(buf + (h + e) * kBox + u * 32);
+            pin(a[e]);
+            pin(desc[e]);
+          }
+          pin(acc[r]);
+          wgmma_fence();
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              wgmma(acc[r], a[e][u], desc[e][u], s > 0 || h + e > 0 || u > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(acc[r]);
+        }
       }
+      // every wgmma of the slice is done: its stage may be refilled
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+    for (int r = 0; r < R; ++r) {
+      const long long ra = row0 + 64 * (wg * R + r) + 16 * wq + g, rb = ra + 8;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          put_plane(as_w + r * 256 + (lane >> 1) * 16 + (lane & 1) * 8, v[r].x, v[r].y, i);
-        }
-        __syncwarp();
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b0, b1;
-        wmma::load_matrix_sync(b0, ms + (i * kJ + s * 16) * 16, 16);
-        wmma::load_matrix_sync(b1, ms + 8 * kJ * 16 + (i * kJ + s * 16) * 16, 16);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-          wmma::load_matrix_sync(a, as_w + r * 256, 16);
-          wmma::mma_sync(acc[r][0], a, b0, acc[r][0]);
-          wmma::mma_sync(acc[r][1], a, b1, acc[r][1]);
-        }
-        __syncwarp();  // the A tiles are read before the next plane's
+      for (int j = 0; j < 4; ++j) {
+        // accumulator 4j + e: row g (e < 2) or g + 8, column 8j + 2t + e % 2
+        if (ra < nb)
+          *reinterpret_cast<int2*>(out + ra * 32 + 8 * j + 2 * t) =
+              make_int2(F::parity(acc[r][4 * j]), F::parity(acc[r][4 * j + 1]));
+        if (rb < nb)
+          *reinterpret_cast<int2*>(out + rb * 32 + 8 * j + 2 * t) =
+              make_int2(F::parity(acc[r][4 * j + 2]), F::parity(acc[r][4 * j + 3]));
       }
     }
   }
-  store_parity<T, R>(acc, cs + w * 512, out, row0 + w * R * 16, nb);
 }
 
 // gf2_bits_mm: out[row] = bits[row] (K bf16 0/1) @ M (K x 32 bf16 0/1) & 1.
@@ -344,33 +572,79 @@ gf2_bits_mm_kernel(const __nv_bfloat16* __restrict__ bits, long long nb, int K,
     if (g < nb) out[g * 32 + (e & 31)] = static_cast<int32_t>(s) & 1;
   }
 }
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-template <typename T, int R>
-int launch_forms(const void* data, long long nb, int block, const void* m, void* out,
+// cuTensorMapEncodeTiled, a driver-API function, found once through the runtime
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  static cudaError_t err = cudaSuccess;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                           &q);
+#else
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && (q != cudaDriverEntryPointSuccess || p == nullptr))
+      err = cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  });
+  *fn = found;
+  return err;
+}
+
+template <typename T, int R, bool Tma>
+int launch_forms(const void* data, long long nb, int block, const void* mimg, void* out,
                  cudaStream_t stream) {
-  constexpr int kTile = kWarps * R * 16;
-  const size_t smem = forms_smem<T, R>();
-  cudaError_t err = cudaFuncSetAttribute(crc_forms_mm_kernel<T, R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr int kTile = kConsumers * R * 64;
+  constexpr int kSmem = forms_smem<T, R, Tma>();
+  CUtensorMap map{};  // the rows: (nb, block) bytes, a box 256 rows x 32 bytes, zeros past nb
+  if (Tma) {
+    EncodeTiled encode = nullptr;
+    const cudaError_t err = encode_tiled(&encode);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(block), static_cast<cuuint64_t>(nb)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(block)};
+    const cuuint32_t box[2] = {kSlice, kBoxRows}, steps[2] = {1, 1};
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(data), dims, strides, box,
+               steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = crc_forms_mm_kernel<T, R, Tma>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool aligned = (reinterpret_cast<uintptr_t>(data) & 15) == 0;
-  crc_forms_mm_kernel<T, R><<<static_cast<unsigned>((nb + kTile - 1) / kTile), kThreads, smem,
-                              stream>>>(static_cast<const uint8_t*>(data), nb, block,
-                                        static_cast<const T*>(m), static_cast<int32_t*>(out),
-                                        aligned);
+  const unsigned blocks = static_cast<unsigned>((nb + kTile - 1) / kTile);
+  kernel<<<blocks, forms_threads<R>(), kSmem, stream>>>(
+      map, static_cast<const uint8_t*>(data), nb, block, static_cast<const uint8_t*>(mimg),
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_forms_tile(const void* data, long long nb, int block, int tile, const void* m,
+template <typename T, bool Tma>
+int launch_forms_tile(const void* data, long long nb, int block, int tile, const void* mimg,
                       void* out, cudaStream_t stream) {
   switch (tile) {
-    case 256: return launch_forms<T, 2>(data, nb, block, m, out, stream);
-    case 512: return launch_forms<T, 4>(data, nb, block, m, out, stream);
-    case 1024: return launch_forms<T, 8>(data, nb, block, m, out, stream);
+    case 256: return launch_forms<T, 2, Tma>(data, nb, block, mimg, out, stream);
+    case 512: return launch_forms<T, 4, Tma>(data, nb, block, mimg, out, stream);
+    case 1024: return launch_forms<T, 8, Tma>(data, nb, block, mimg, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int launch_forms_route(const void* data, long long nb, int block, int tile, int route,
+                       const void* mimg, void* out, cudaStream_t stream) {
+  if (route == 0) return launch_forms_tile<T, true>(data, nb, block, tile, mimg, out, stream);
+  return launch_forms_tile<T, false>(data, nb, block, tile, mimg, out, stream);
 }
 
 }  // namespace
@@ -393,15 +667,21 @@ extern "C" int tz_crc_rowsum(const void* data, long long nb, int row, int mode, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 bf16, 1 int8 (m is (8 * block, 32) of that type).  block: a
-// multiple of 32; tile: 256, 512 or 1024 rows a CUDA block.
-// out: int32[nb, 32].
+// data: u8 (nb, block), 1 <= nb < 2^31 - 1024, block a positive multiple of
+// 32; dtype: 0 bf16, 1 int8; tile: 256, 512 or 1024 rows a CUDA block;
+// route: 0 the rows by TMA (data 16-byte aligned), 1 loaded by the
+// consumers (any offset); mimg: M_B in the card's order and layout
+// (crc32_probe.card_matrix), 16-byte aligned.  out: int32[nb, 32].
 extern "C" int tz_crc_forms_mm(const void* data, long long nb, int block, int tile, int dtype,
-                               const void* m, void* out, void* stream) {
-  if (block <= 0 || block % kJ) return static_cast<int>(cudaErrorInvalidValue);
+                               int route, const void* mimg, void* out, void* stream) {
+  if (block <= 0 || block % kSlice || nb <= 0 || nb >= (1LL << 31) - 1024 ||
+      (route != 0 && route != 1) || reinterpret_cast<uintptr_t>(mimg) % 16 ||
+      (route == 0 && reinterpret_cast<uintptr_t>(data) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_forms_tile<__nv_bfloat16>(data, nb, block, tile, m, out, s);
-  if (dtype == 1) return launch_forms_tile<signed char>(data, nb, block, tile, m, out, s);
+  if (dtype == 0)
+    return launch_forms_route<__nv_bfloat16>(data, nb, block, tile, route, mimg, out, s);
+  if (dtype == 1) return launch_forms_route<signed char>(data, nb, block, tile, route, mimg, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -54,11 +54,27 @@
 // The design is chosen by shape in the entry points (the staged one up to
 // tz_gather_staged_words()), never by what fails.
 //
+// take_along_loop makes 64 gathers an element (the tools' loop), each at
+// a random place, so the requests bound it: on (4352, 128) 35.7 M gathers,
+// 1.11 M warp requests.  Where a line along the axis (a column on axis
+// 0, a row on axis 1) fits shared memory, a block stages up to 8 lines
+// with cp.async (a 32-byte sector of each row on axis 0; fewer where two
+// blocks would not fit an SM) and gives its threads the outputs of those
+// lines over a range of positions, the grid split so that it gives two
+// blocks an SM; every gather is then a shared-memory load, a warp's 32 at
+// random banks (~3.5 wavefronts a request).  A longer line is gathered
+// through the read-only cache, a thread an element.  Both step the index:
+// one floor mod a thread, then one up with a reset at n; the int32 wrap of
+// idx + t comes at most once, at t = 2^31 - idx, where the floor mod is
+// taken afresh.  The sum is kept in a register and added as unsigned, so
+// that the int32 wrap is defined.  The wrapper chooses the design by shape.
+// Measured on an H100 (probes/forms_breakdown.py): 7.4x faster on (4352,
+// 128) than a thread an element with a % a step.
+//
 // The other kernels, simple first: one thread an output element,
 // neighbouring threads on neighbouring elements, so that the index reads
 // and the output writes coalesce and the gathers fall in L1 or L2.
-// take_along_loop keeps its sum in a register and adds as unsigned, so
-// that the int32 wrap is defined.  scatter_max has each thread atomicMax
+// scatter_max has each thread atomicMax
 // its value into the zeroed output.  shift_screen stages a block's words
 // and the `steps` words before them (wrapping within the chunk) in shared
 // memory, and each thread reads its predecessors there.
@@ -216,27 +232,95 @@ take_along_staged(const int32_t* __restrict__ x, int xc, bool xvec,
   }
 }
 
+// take_along_loop's index: (idx + t) wrapped as int32, then its floor mod n.
+// Stepped by one from j = floor_mod(idx, n), back to 0 at n; the int32
+// wrap of idx + t comes at most once for t < 2^31, at t = 2^31 - idx, where
+// the index starts again from floor_mod(INT32_MIN, n).
+__device__ __forceinline__ int floor_mod(int v, int n) {
+  const int j = v % n;
+  return j < 0 ? j + n : j;
+}
+
+// the step at which idx + t wraps, or iters where it does not
+__device__ __forceinline__ int wrap_step(int idx, int iters) {
+  const long long w = (1LL << 31) - idx;
+  return w < iters ? static_cast<int>(w) : iters;
+}
+
+// the unsigned sum over t < iters of at(j_t), j_t the loop's index of i0
+template <typename At>
+__device__ __forceinline__ uint32_t loop_sum(int i0, int n, int iters, int jmin, At at) {
+  uint32_t acc = 0u;
+  int j = floor_mod(i0, n);
+  const int wrap = wrap_step(i0, iters);
+  for (int t = 0; t < iters; ++t) {
+    if (t == wrap) j = jmin;
+    acc += static_cast<uint32_t>(at(j));
+    j = j + 1 == n ? 0 : j + 1;
+  }
+  return acc;
+}
+
 // out (r, c) = the sum over t < iters of take_along(x, (idx + t) mod n),
-// n = x's extent on the axis; idx + t wraps as int32, then a floor mod.
+// n = x's extent on the axis, through the read-only cache: a thread an
+// element, its index stepped (loop_sum).
 template <int Axis>
 __global__ void __launch_bounds__(kThreads)
-take_along_loop_kernel(const int32_t* __restrict__ x, int xr, int xc,
-                       const int32_t* __restrict__ idx, int iters, int32_t* __restrict__ out) {
+take_along_loop_ldg(const int32_t* __restrict__ x, int xr, int xc,
+                    const int32_t* __restrict__ idx, int iters, int32_t* __restrict__ out) {
   const long long n = static_cast<long long>(xr) * xc;
   const int span = Axis == 0 ? xr : xc;
+  const int jmin = floor_mod(INT32_MIN, span);
   for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < n;
        e += static_cast<long long>(gridDim.x) * kThreads) {
     const long long r = e / xc, c = e - r * xc;
-    const uint32_t i0 = static_cast<uint32_t>(idx[e]);
-    uint32_t acc = 0u;
-#pragma unroll 4
-    for (int t = 0; t < iters; ++t) {
-      int j = static_cast<int>(i0 + static_cast<uint32_t>(t)) % span;
-      if (j < 0) j += span;
-      acc += static_cast<uint32_t>(
-          __ldg(x + (Axis == 0 ? static_cast<long long>(j) * xc + c : r * xc + j)));
-    }
-    out[e] = static_cast<int32_t>(acc);
+    const int32_t* line = Axis == 0 ? x + c : x + r * xc;
+    const long long step = Axis == 0 ? xc : 1;
+    out[e] = static_cast<int32_t>(
+        loop_sum(__ldg(idx + e), span, iters, jmin, [&](int j) { return __ldg(line + j * step); }));
+  }
+}
+
+// The staged design: lines are x's columns (Axis 0) or rows (Axis 1), each
+// n words along the axis.  Block (bx, by) stages lines [bx * lines, + lines)
+// whole in shared memory with cp.async (Axis 0: the columns as their rows'
+// pieces, s[j * lines + g]; Axis 1: the rows as they are, s[g * n + j]), then
+// gives its threads the outputs of those lines at positions [by * len, +
+// len) along the axis, neighbouring threads on neighbouring elements of
+// out (Axis 0: a row's lines; Axis 1: a row's positions), each summing its
+// gathers from shared memory (loop_sum).  vec: 16-byte copies (the pieces
+// 16-byte aligned, whole multiples of 4 words).
+template <int Axis>
+__global__ void __launch_bounds__(kThreads)
+take_along_loop_staged(const int32_t* __restrict__ x, int xr, int xc,
+                       const int32_t* __restrict__ idx, int iters, int lines, int len, bool vec,
+                       int32_t* __restrict__ out) {
+  extern __shared__ int4 staged4[];
+  int32_t* s = reinterpret_cast<int32_t*>(staged4);
+  const int n = Axis == 0 ? xr : xc, m = Axis == 0 ? xc : xr;
+  const int l0 = blockIdx.x * lines, p0 = blockIdx.y * len;
+  const int nl = min(lines, m - l0), np = min(len, n - p0);
+  if (Axis == 1) {
+    stage(s, x + static_cast<long long>(l0) * xc, nl * n, vec);
+  } else if (vec) {  // nl == lines, a multiple of 4
+    const int q = lines / 4;
+    for (int k = threadIdx.x; k < n * q; k += blockDim.x)
+      cp_async16(s + 4 * k, x + static_cast<long long>(k / q) * xc + l0 + 4 * (k % q));
+  } else {
+    for (int k = threadIdx.x; k < n * nl; k += blockDim.x)
+      cp_async4(s + k / nl * lines + k % nl, x + static_cast<long long>(k / nl) * xc + l0 + k % nl);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int jmin = floor_mod(INT32_MIN, n);
+  for (int e = threadIdx.x; e < nl * np; e += blockDim.x) {
+    const int g = Axis == 0 ? e % nl : e / np, p = p0 + (Axis == 0 ? e / nl : e % np);
+    const long long at = Axis == 0 ? static_cast<long long>(p) * xc + l0 + g
+                                   : static_cast<long long>(l0 + g) * xc + p;
+    const int32_t* line = Axis == 0 ? s + g : s + g * n;
+    const int step = Axis == 0 ? lines : 1;
+    out[at] = static_cast<int32_t>(
+        loop_sum(__ldg(idx + at), n, iters, jmin, [&](int j) { return line[j * step]; }));
   }
 }
 
@@ -375,7 +459,9 @@ cudaError_t current_card(const Card** out) {
           reinterpret_cast<const void*>(take_along_staged<false, int>),
           reinterpret_cast<const void*>(take_along_staged<false, long long>),
           reinterpret_cast<const void*>(flat_gather_kernel<true, true>),
-          reinterpret_cast<const void*>(flat_gather_kernel<true, false>)};
+          reinterpret_cast<const void*>(flat_gather_kernel<true, false>),
+          reinterpret_cast<const void*>(take_along_loop_staged<0>),
+          reinterpret_cast<const void*>(take_along_loop_staged<1>)};
       for (const void* k : staged)
         if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         c.smem_block)) != cudaSuccess)
@@ -480,18 +566,52 @@ extern "C" int tz_take_along(const void* x, int xr, int xc, const void* idx, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, idx, out: int32 (xr, xc), xr, xc >= 1; iters >= 0.
+// x, idx, out: int32 (xr, xc), xr, xc >= 1; iters >= 0; staged: 1 for the
+// staged design (the axis's extent at most tz_gather_staged_words()), 0
+// for the read-only-cache one.
 extern "C" int tz_take_along_loop(const void* x, int xr, int xc, const void* idx, int axis,
-                                  int iters, void* out, void* stream) {
+                                  int iters, int staged, void* out, void* stream) {
   const long long n = static_cast<long long>(xr) * xc;
-  if (xr <= 0 || xc <= 0 || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int span = axis == 0 ? xr : xc, other = axis == 0 ? xc : xr;
+  if (xr <= 0 || xc <= 0 || iters < 0 || axis < 0 || axis > 1 || staged < 0 || staged > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Card* c = nullptr;
+  const cudaError_t err = current_card(&c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* xs = static_cast<const int32_t*>(x);
   const auto* is = static_cast<const int32_t*>(idx);
   auto* o = static_cast<int32_t*>(out);
-  if (axis == 0) take_along_loop_kernel<0><<<grid_for(n), kThreads, 0, s>>>(xs, xr, xc, is, iters, o);
-  else if (axis == 1) take_along_loop_kernel<1><<<grid_for(n), kThreads, 0, s>>>(xs, xr, xc, is, iters, o);
-  else return static_cast<int>(cudaErrorInvalidValue);
+  if (!staged) {
+    if (axis == 0) take_along_loop_ldg<0><<<grid_for(n), kThreads, 0, s>>>(xs, xr, xc, is, iters, o);
+    else take_along_loop_ldg<1><<<grid_for(n), kThreads, 0, s>>>(xs, xr, xc, is, iters, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!staged_fits(*c, span)) return static_cast<int>(cudaErrorInvalidValue);
+  // lines a block: up to 8 (a 32-byte sector of each row on axis 0) while
+  // two blocks fit an SM, at least 1; then the positions split so that
+  // the grid gives two blocks an SM, at least 64 a block
+  int lines = 8;
+  while (lines > 1 && (lines > other || 4LL * lines * span > c->smem_sm / 2 - c->smem_reserved))
+    lines /= 2;
+  const long long groups = (other + lines - 1) / lines;
+  long long parts = (2LL * c->sms + groups - 1) / groups;
+  const long long most = (span + 63) / 64;
+  if (parts > most) parts = most;
+  if (parts > 65535) parts = 65535;
+  const int len = static_cast<int>((span + parts - 1) / parts);
+  parts = (span + len - 1) / len;
+  const long long bytes = 4LL * lines * span;
+  const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(parts));
+  if (axis == 0) {
+    const bool vec = lines % 4 == 0 && other % lines == 0 && xc % 4 == 0 && aligned16(x);
+    take_along_loop_staged<0><<<grid, kThreads, bytes, s>>>(xs, xr, xc, is, iters, lines, len,
+                                                            vec, o);
+  } else {
+    const bool vec = xc % 4 == 0 && aligned16(x);
+    take_along_loop_staged<1><<<grid, kThreads, bytes, s>>>(xs, xr, xc, is, iters, lines, len,
+                                                            vec, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

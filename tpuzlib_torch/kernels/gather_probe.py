@@ -13,7 +13,10 @@ all take and give int32 (uint32 values pass as their bits):
                    INT32_MIN for int32, -1 for uint32 bits);
   take_along_loop(x, idx, axis, iters)
                    the int32 sum of take_along(x, (idx + t) mod n, axis)
-                   over t < iters (probe_gather's loop_cost);
+                   over t < iters (probe_gather's loop_cost); on the card
+                   x's lines along the axis are staged in shared memory
+                   where they are at most staged_words() long
+                   (loop_design; LOOP_ROUTES counts the launches of each);
   flat_gather(table, idx)
                    table.reshape(-1)[idx] (k_flatgather): an index below 0
                    counts from the end, then clamps to the table;
@@ -42,12 +45,16 @@ through the full checks (check_arrays), which raise on the latter.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
 INT32_MIN = -(1 << 31)
 MAX_STEPS = 4096  # shift_screen's steps (its shared memory tile)
+LOOP_DESIGNS = ("ldg", "staged")  # take_along_loop's designs, by the code the kernel takes
+LOOP_ROUTES = {design: 0 for design in LOOP_DESIGNS}  # take_along_loop's launches by design
 
 
 def wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -130,11 +137,16 @@ def take_along(x: torch.Tensor, idx: torch.Tensor, axis: int,
 
 def staged_words(device=None) -> int:
     """The widest source, in int32 words, that take_along (an axis-1 row
-    of x) and flat_gather (the table) stage in shared memory on `device`
-    (a CUDA index or torch.device; the current one by default): the
-    card's shared memory a block may opt in to, over 4.  A wider one is
-    gathered through the read-only cache."""
-    index = _build.device_index(torch.device("cuda") if device is None else device)
+    of x), flat_gather (the table) and take_along_loop (a line along its
+    axis) stage in shared memory on `device` (a CUDA index or
+    torch.device; the current one by default): the card's shared memory a
+    block may opt in to, over 4.  A wider one is gathered through the
+    read-only cache."""
+    return _staged_words(_build.device_index(torch.device("cuda") if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_words(index: int) -> int:
     _build.lib()
     with torch.cuda.device(index):
         words = _build.lib.fns["tz_gather_staged_words"]()
@@ -166,16 +178,58 @@ def take_along_loop_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
     return wrap32(acc)
 
 
+def loop_steps(idx: torch.Tensor, n: int, iters: int) -> torch.Tensor:
+    """int64 (*idx.shape, iters): the index of each of take_along_loop's
+    steps as the card's kernels step it: the floor mod of idx once, then
+    one up with a reset to 0 at n, and at the one step t = 2^31 - idx
+    where idx + t wraps as int32 (if t < iters), floor_mod(INT32_MIN, n)
+    afresh."""
+    i0 = idx.long()
+    j, wrap = i0 % n, (1 << 31) - i0
+    steps = []
+    for t in range(iters):
+        j = torch.where(wrap == t, INT32_MIN % n, j)
+        steps.append(j)
+        j = torch.where(j + 1 == n, 0, j + 1)
+    return torch.stack(steps, -1) if steps else i0.new_zeros((*idx.shape, 0))
+
+
+def take_along_loop_stepped(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                            iters: int) -> torch.Tensor:
+    """take_along_loop with its indices from loop_steps: the card kernels'
+    arithmetic on the host."""
+    _check_loop(x, idx, axis, iters)
+    steps = loop_steps(idx, x.shape[axis], iters)
+    acc = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    for t in range(iters):
+        acc += torch.gather(x, axis, steps[..., t])
+    return wrap32(acc)
+
+
+def loop_design(x: torch.Tensor, axis: int, staged: int = None) -> str:
+    """take_along_loop's design on the card for x (r, c) along `axis`:
+    "staged" where x's extent on the axis is at most `staged` words
+    (staged_words() of x's card by default), its lines then gathered from
+    shared memory; else "ldg", through the read-only cache."""
+    if staged is None:
+        staged = staged_words(x.device)
+    return "staged" if x.shape[axis] <= staged else "ldg"
+
+
 def take_along_loop(x: torch.Tensor, idx: torch.Tensor, axis: int, iters: int = 64) -> torch.Tensor:
     """int32 of x's shape: the sum over t < iters of take_along(x, (idx +
     t) mod n, axis), n = x.shape[axis] (idx + t wraps as int32; the mod is
-    a floor mod, so every index is in range)."""
+    a floor mod, so every index is in range); on the card by the design
+    loop_design gives."""
     if _build.on_cpu(x):
         return take_along_loop_plain(x, idx, axis, iters)
     _check_loop(x, idx, axis, iters)
+    design = loop_design(x, axis)
     out = torch.empty_like(x)
     _build.launch("take_along_loop", "tz_take_along_loop", x.device, x.data_ptr(), x.shape[0],
-                  x.shape[1], idx.data_ptr(), axis, iters, out.data_ptr())
+                  x.shape[1], idx.data_ptr(), axis, iters, LOOP_DESIGNS.index(design),
+                  out.data_ptr())
+    LOOP_ROUTES[design] += 1
     return out
 
 
