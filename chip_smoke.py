@@ -90,7 +90,12 @@ tpuzlib_torch/kernels/csrc, then:
      scatter_max on 8 chunks of (2304, 128)
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
      tools/probe_primitives.py:48 sizes them, in the main path's batch of
-     8), the inflate primitives at 8,192 lanes (G1's cursor count); an
+     8), the inflate primitives at 8,192 lanes (G1's cursor count),
+     vec_cond_while also at the shared-memory limit (vec_cond_while_smem)
+     and one lane past it (vec_cond_while_global), each row naming its
+     route (`design`; the probes' 128 and 8,192 lanes take "regs", so the
+     other two are off the main path) and its loop's steps, its launches
+     those of its route (vec_cond_while_<route>); an
      "I device" line a row gives its device time (and its library call's)
      of bare launches queued behind a sleep kernel, since these wrapper
      calls are held by their host time, and for the gathers their design,
@@ -221,7 +226,11 @@ FORM_PAIRS = ((1024, 256), (4096, 256), (4096, 512), (1024, 1024))
 OFF_PATH = {"adler32": "the public Adler-32 runs adler32_scalar's kernel, which takes the "
                        "same block sums (block_sums in csrc/adler32.cu) in its own launch",
             "take_along_loop_wide": "take_along_loop's ldg design runs only on lines past "
-                                    "staged_words(); the tools' shapes all fit it"}
+                                    "staged_words(); the tools' shapes all fit it",
+            "vec_cond_while_smem": "vec_cond_while keeps the probes' 128 and 8,192 lanes in "
+                                   "registers; shared memory takes 8,193 to staged_words()",
+            "vec_cond_while_global": "vec_cond_while runs through device memory only past "
+                                     "staged_words() lanes"}
 
 
 def emit(obj) -> None:
@@ -1111,11 +1120,21 @@ def phase_i(smi: str) -> tuple:
                             "tools/probe_primitives.py:196", (sidx, svals), sidx.numel())
     library["scatter_max"] = lambda: sout.scatter_reduce_(1, sidx64, svals, "amax")
 
-    # the inflate primitives at 8,192 lanes; operations: one a lane and step
-    x0 = ints((1, lanes), 0, 100)
-    steps = min(64, max(0, 100 - int(x0.min())))  # the loop's steps on this input
-    cases["vec_cond_while"] = (lambda: ip.vec_cond_while(x0), lambda: ip.vec_cond_while_plain(x0),
-                               isrc, "tools/probe_inflate_prims.py:81", (x0,), steps * lanes)
+    # the inflate primitives at 8,192 lanes; operations: one a lane and step.
+    # vec_cond_while keeps 8,192 lanes in registers; its rows _smem (at the
+    # shared-memory limit) and _global (past it) take its other two routes
+    while_route, while_steps = {}, {}
+    for name, n in (("vec_cond_while", lanes), ("vec_cond_while_smem", staged),
+                    ("vec_cond_while_global", staged + 1)):
+        x0 = ints((1, n), 0, 100)
+        steps = min(64, max(0, 100 - int(x0.min())))  # the loop's steps on this input
+        cases[name] = (lambda x0=x0: ip.vec_cond_while(x0),
+                       lambda x0=x0: ip.vec_cond_while_plain(x0),
+                       isrc, "tools/probe_inflate_prims.py:81", (x0,), steps * n)
+        while_route[name], while_steps[name] = ip.while_route(n, staged), steps
+        kernel_of[name] = "vec_cond_while_" + while_route[name]
+    if sorted(while_route.values()) != sorted(ip.WHILE_ROUTES):
+        raise SystemExit("phase I: the loop rows do not cover every route: %s" % while_route)
     words, j = ints((40, lanes)), ints((1, lanes), 0, 37)
     cases["fetch_rows"] = (lambda: ip.fetch_rows(words, j, 3),
                            lambda: ip.fetch_rows_plain(words, j, 3), isrc,
@@ -1187,6 +1206,8 @@ def phase_i(smi: str) -> tuple:
     rows["take_along_axis0_batch8"]["also_replaces"] = axis0
     for name, kernel in kernel_of.items():
         rows[name]["kernel"] = kernel
+    for name, route in while_route.items():  # each row's launches: its route's
+        rows[name].update(kernel="vec_cond_while", design=route, steps=while_steps[name])
     one = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
     one64 = one.long()
     floor, lib_floor = lambda: gp.take_along(one, one, 1), lambda: torch.gather(one, 1, one64)

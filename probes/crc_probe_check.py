@@ -9,8 +9,10 @@ for the CRC kernel) alone, with the kernel library's flags and
 kernel's registers and shared memory, every line that reports a spill
 other than none, and every warning (ptxas names a wgmma it serialises).
 Exits non-zero when the file does not compile.  With --sass it also
-reads the object with `cuobjdump -sass` and prints, for each
-crc_forms_mm kernel, one JSON line of its instruction counts: HGMMA
+reads the object with `cuobjdump -sass` and prints, for each row kernel
+(crc_rowsum_kernel<mode>), one JSON line of its loads, integer, bf16 and
+conversion steps (ROW_OPS) and all its instructions, and for each
+crc_forms_mm kernel one of its instruction counts: HGMMA
 and IGMMA (one a bf16 or int8 wgmma), LDSM (ldmatrix), the integer steps LOP3, IMAD, PRMT,
 SHF, IADD3, and `build_per_a_register`, (LOP3 + IMAD + PRMT) over the
 four A registers of each wgmma: an upper bound on the A build's steps a
@@ -33,6 +35,9 @@ sys.path.insert(0, ROOT)
 from tpuzlib_torch.kernels import _build  # noqa: E402
 
 OPS = ("HGMMA", "IGMMA", "LDSM", "LOP3", "IMAD", "PRMT", "SHF", "IADD3")
+# the row kernels' (crc_rowsum and crc_unpack's modes) steps besides
+ROW_OPS = ("LDG", "PRMT", "LOP3", "IMAD", "SHF", "IADD3", "IDP", "HADD2", "HFMA2", "I2F", "F2I",
+           "F2FP", "VABSDIFF4")
 
 
 def sass_counts(obj: str) -> None:
@@ -43,6 +48,9 @@ def sass_counts(obj: str) -> None:
     name, counts = None, collections.Counter()
 
     def flush():
+        if name and "crc_rowsum_kernel" in name:
+            print(json.dumps({"kernel": name, **{op: counts[op] for op in ROW_OPS},
+                              "instructions": sum(counts.values())}), flush=True)
         if name and "crc_forms_mm_kernel" in name:
             row = {"kernel": name, **{op: counts[op] for op in OPS}}
             wgmmas = counts["HGMMA"] + counts["IGMMA"]

@@ -319,11 +319,14 @@ def test_encode_batch_on_card_matches_cpu(dev, level):
 
 
 def test_deflate_and_stream_on_card(dev):
-    """Inputs of one chunk (a batch of one) and none, and a stream whose
+    """Inputs of one chunk (a batch of one) and none through deflate()'s
+    device route (which deflate() takes from 1 MiB), and a stream whose
     window stays on the card."""
     data = _mixed_stream()
     for x in (data, data[:0]):
-        out = tpuzlib_torch.deflate(x, level=6, device=dev)
+        before = _build.LAUNCHES["near_screen"]
+        out = testing.device_route(x, device=dev, level=6)
+        assert _build.LAUNCHES["near_screen"] > before or not len(x)
         assert zlib.decompress(out.tobytes()) == x.tobytes()
 
     def stream(device):
@@ -589,7 +592,7 @@ def test_inflate_on_card_matches_cpu(dev):
     falls back to the host engine's verdict."""
     data = testing.mixed(3 << 18, 8)
     streams = [zlib.compress(data.tobytes(), 6),
-               tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes(),
+               testing.device_route(data, device=dev, format="gzip").tobytes(),
                _zlib_raw(data, 1).tobytes()]
     for wire in streams:
         _build.reset_launches()
@@ -617,9 +620,9 @@ def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):
     ValueError, on the card as on the CPU."""
     data = testing.mixed(3 << 16, 10)
     z = zlib.compress(data.tobytes(), 6)
-    gz = tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes()
+    gz = testing.device_route(data, device=dev, format="gzip").tobytes()
     for wire, want in ((z + b"GARBAGE TRAILING DATA", data.tobytes()),
-                       (gz + tpuzlib_torch.deflate(data[::-1], format="gzip", device=dev).tobytes(),
+                       (gz + testing.device_route(data[::-1], device=dev, format="gzip").tobytes(),
                         data.tobytes()),
                        (_zlib_raw(data).tobytes() + b"\x01\x02trailing", data.tobytes())):
         got = _device_route(lambda: tpuzlib_torch.inflate(wire, device=dev), len(want))

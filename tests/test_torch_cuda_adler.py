@@ -161,7 +161,7 @@ def test_inflate_fallback_and_inflater_on_card(dev):
     Inflater."""
     data = testing.mixed(3 << 18, 8)
     z = zlib.compress(data.tobytes(), 6)
-    gz = tpuzlib_torch.deflate(data, format="gzip", device=dev).tobytes()
+    gz = testing.device_route(data, device=dev, format="gzip").tobytes()
     flip = lambda w, i: w[:i] + bytes([w[i] ^ 1]) + w[i + 1:]  # noqa: E731
     before = trace.get_counters()
     assert tpuzlib_torch.inflate(z, device=dev).tobytes() == data.tobytes()

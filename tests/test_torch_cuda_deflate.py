@@ -9,8 +9,10 @@ the card and assert its route: every byte from the device decode, no
 fallback counted.  A preset dictionary's zlib stream goes to the host
 engine (inflate()'s rule for FDICT), and its raw body through the device
 decode with the dictionary.  decompress_members(verify=True) on the card
-takes one crc32_scalar launch.  On a machine with a card (and no JAX,
-which tests/conftest.py imports), from the repo root:
+takes one crc32_scalar launch.  deflate()'s route rule on the card: below
+1 MiB the host engine (no encoder launch, the CPU's bytes), from 1 MiB
+the device encoder (the CPU's device route's bytes).  On a machine with a
+card (and no JAX, which tests/conftest.py imports), from the repo root:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_deflate.py
 """
@@ -108,3 +110,26 @@ def test_decompress_members_verify_on_card(dev):
     bad[-8] ^= 1
     with pytest.raises(ValueError, match="Data integrity check failed"):
         members.decompress_members(bytes(bad), verify=True, device=dev)
+
+
+@pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
+def test_deflate_route_rule_on_card(dev, monkeypatch, fmt):
+    """1 MiB - 1 bytes take the host engine on the card, no kernel
+    launched; 1 MiB takes the device encoder and the trailer's checksum
+    on the card, with the bytes of the device route run on the CPU."""
+    monkeypatch.setattr("time.time", lambda: 1_700_000_000.5)
+    data = testing.mixed((1 << 20) + 1, 12)
+    for n, on_card in (((1 << 20) - 1, False), (1 << 20, True)):
+        part = data[:n]
+        before, launches = trace.get_counters(), dict(_build.LAUNCHES)
+        wire = tpuzlib_torch.deflate(part, format=fmt, device=dev).tobytes()
+        torch.cuda.synchronize()
+        moved = {k: v - launches[k] for k, v in _build.LAUNCHES.items() if v != launches[k]}
+        assert testing.counters_since(before).get("deflate.device", 0) == (n if on_card else 0)
+        if on_card:
+            assert moved["near_screen"] > 0 and moved["pack_words"] > 0
+            assert wire == testing.device_route(part, format=fmt).tobytes()
+        else:
+            assert moved == {}
+            assert wire == tpuzlib_torch.deflate(part, format=fmt, device="cpu").tobytes()
+        assert zlib.decompress(wire, {"raw": -15, "deflate": 15, "gzip": 31}[fmt]) == part.tobytes()

@@ -6,6 +6,8 @@ count: both packages' _ncores are fixed to the same value, and both write
 the gzip MTIME from time.time(), which the tests fix.  Every output must
 equal tpuzlib's, append by append, decode with python's zlib (with the
 dictionary as zdict), and keep the same totals, exceptions and messages.
+deflate() on the CPU takes the host engine at every size, as tpuzlib's
+deflate() does without its TPUZLIB_DEVICE switch.
 """
 
 import time
@@ -19,8 +21,10 @@ import tpuzlib
 import tpuzlib_torch
 from tpuzlib.codec import deflate_engine as jengine
 from tpuzlib_torch import testing
+from tpuzlib_torch.api import deflate_api
 from tpuzlib_torch.codec import deflate_engine as engine
 from tpuzlib_torch.containers import headers
+from tpuzlib_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and their OpenMP threads, one per core each, spin against one another.
@@ -77,6 +81,61 @@ def test_deflater_one_shot_matches_tpuzlib(level, fmt):
     want = np.asarray(tpuzlib.deflate(DATA[: 300 * KB], level=level, format=fmt)).tobytes()
     host = _run(tpuzlib_torch, DATA[: 300 * KB], [300 * KB], level=level, format=fmt)[0]
     assert b"".join(b for call in host for b in call) == want
+
+
+@pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_deflate_takes_tpuzlib_default_route(monkeypatch, level, fmt):
+    """deflate() with device="cpu" takes the host engine at every size:
+    tpuzlib's default deflate()'s bytes (its switch off), and nothing
+    counted as deflate.device."""
+    monkeypatch.delenv("TPUZLIB_DEVICE", raising=False)
+    for n in (0, 1000, 64 * KB):
+        data = DATA[:n]
+        before = trace.get_counters()
+        got = tpuzlib_torch.deflate(data, level=level, format=fmt, device="cpu").tobytes()
+        assert "deflate.device" not in testing.counters_since(before)
+        assert got == np.asarray(tpuzlib.deflate(data, level=level, format=fmt)).tobytes(), n
+        assert _decode(got, fmt) == data.tobytes()
+
+
+@pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
+def test_deflate_at_the_device_floor(monkeypatch, fmt):
+    """1 MiB - 1 and 1 MiB + 1 bytes at level 6, either side of the card's
+    floor: with device="cpu" the host engine, tpuzlib's default bytes."""
+    monkeypatch.delenv("TPUZLIB_DEVICE", raising=False)
+    for n in (deflate_api.DEVICE_MIN_BYTES - 1, deflate_api.DEVICE_MIN_BYTES + 1):
+        data = DATA[:n]
+        before = trace.get_counters()
+        got = tpuzlib_torch.deflate(data, level=6, format=fmt, device="cpu").tobytes()
+        assert "deflate.device" not in testing.counters_since(before)
+        assert got == np.asarray(tpuzlib.deflate(data, level=6, format=fmt)).tobytes(), n
+        assert _decode(got, fmt) == data.tobytes()
+
+
+def test_deflate_route_rule(monkeypatch):
+    """The device route runs for a card from DEVICE_MIN_BYTES without a
+    dictionary, and for nothing else; below the floor a card's call is
+    the host engine's, with no card needed."""
+    assert deflate_api.DEVICE_MIN_BYTES == 1 << 20
+    seen = []
+
+    def device_route(view, deflater, device):
+        seen.append((len(view), deflater.format, device))
+        return np.zeros(1, np.uint8)
+
+    monkeypatch.setattr(deflate_api, "_deflate_device", device_route)
+    floor = deflate_api.DEVICE_MIN_BYTES
+    small = DATA[: floor - 1]
+    host = tpuzlib_torch.deflate(small, device="cpu").tobytes()
+    for device in ("cuda", torch.device("cuda", 1), "cpu", torch.device("cpu")):
+        assert tpuzlib_torch.deflate(small, device=device).tobytes() == host
+    tpuzlib_torch.deflate(DATA[:floor], device="cpu")
+    tpuzlib_torch.deflate(DATA[:floor], dictionary=b"abc", device="cuda")
+    assert seen == []
+    for n, fmt, device in ((floor, "deflate", "cuda"), (floor + 1, "gzip", torch.device("cuda", 0))):
+        tpuzlib_torch.deflate(DATA[:n], format=fmt, device=device)
+    assert seen == [(floor, "deflate", "cuda"), (floor + 1, "gzip", torch.device("cuda", 0))]
 
 
 @pytest.mark.parametrize("cores", [1, 8])

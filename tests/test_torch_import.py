@@ -1,6 +1,7 @@
 """tpuzlib_torch stands alone: it imports no JAX and nothing of tpuzlib,
 and its host pieces and tables equal tpuzlib's."""
 
+import importlib
 import os
 import re
 import subprocess
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import tpuzlib_torch
+from tpuzlib import containers as jcontainers
 from tpuzlib.codec import bitsink as jbitsink
 from tpuzlib.codec import huffman as jhuffman
 from tpuzlib.codec import lz77 as jlz77
@@ -86,6 +88,19 @@ def test_public_surface():
     assert inflate_container.ContainerInflater.__module__ == "tpuzlib_torch.containers.inflate_container"
     assert native_api.InflateStream.__module__ == "tpuzlib_torch.native.api"
     assert tpuzlib_torch.Deflater.__module__ == "tpuzlib_torch.api.deflate_api"
+    # the subpackages' surfaces: tpuzlib's containers exports, docstrings
+    # that name what each subpackage holds
+    assert tpuzlib_torch.containers.__all__ == jcontainers.__all__
+    assert tpuzlib_torch.containers.ContainerInflater is inflate_container.ContainerInflater
+    assert all(getattr(tpuzlib_torch.containers, n) is getattr(headers, n)
+               for n in tpuzlib_torch.containers.__all__ if n.startswith("make_"))
+    docs = {pkg: importlib.import_module("tpuzlib_torch." + pkg).__doc__
+            for pkg in ("api", "codec", "containers", "native")}
+    for pkg, words in (("api", ("checksums", "deflate()", "inflate()")),
+                       ("codec", ("deflate engine", "inflate engine")),
+                       ("containers", ("ContainerInflater", "gzip")),
+                       ("native", ("deflate", "inflate", "required"))):
+        assert all(w in docs[pkg] for w in words), pkg
     data = np.arange(10, dtype=np.uint16)
     for x in (b"abc", bytearray(b"xy"), memoryview(b"q"), data, np.zeros((2, 3), np.int32)):
         assert np.array_equal(tpuzlib_torch.u8_view(x), j_u8_view(x))
@@ -235,7 +250,8 @@ def test_wrappers_refuse_other_devices():
                                     "crc_rowsum", "crc_unpack_u8", "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
                                     "crc_forms_mm_bf16", "crc_forms_mm_i8", "take_along",
                                     "take_along_loop", "flat_gather", "scatter_max",
-                                    "shift_screen", "vec_cond_while", "fetch_rows",
+                                    "shift_screen", "vec_cond_while", "vec_cond_while_regs",
+                                    "vec_cond_while_smem", "vec_cond_while_global", "fetch_rows",
                                     "row_store_loop", "gather_store_loop", "col_min_sum",
                                     "var_shifts", "tree_decode", "window64"}
     assert set(_build._ARGTYPES) >= {"tz_" + k for k in ("take_along", "take_along_loop",

@@ -42,10 +42,10 @@ def _gzip_with_fields(data: np.ndarray) -> bytes:
 STREAMS = {
     "zlib": zlib.compress(DATA.tobytes(), 6),
     "gzip (python)": gzip.compress(DATA.tobytes(), 9, mtime=0),
-    "gzip (port)": tpuzlib_torch.deflate(DATA, format="gzip", device="cpu").tobytes(),
+    "gzip (port)": testing.device_route(DATA, format="gzip").tobytes(),
     "gzip (all header fields)": _gzip_with_fields(DATA),
     "raw": testing.zlib_stream(DATA, 1, -15),
-    "raw (port)": tpuzlib_torch.deflate(DATA, format="raw", level=9, device="cpu").tobytes(),
+    "raw (port)": testing.device_route(DATA, format="raw", level=9).tobytes(),
 }
 
 

@@ -1,7 +1,7 @@
 """inflate_device_v2 on the CPU against tpuzlib's (its Pallas path, the
 kernel in interpret mode) and zlib: both pass-3 variants, the forced
 splice repair with equal keep bounds, a preset dictionary, the repair's
-caps, and the port's deliberate differences from tpuzlib (a Huffman block
+caps, size_hint, and the port's deliberate differences from tpuzlib (a Huffman block
 the header scan cannot see, a real early EOB behind a spurious flag, one
 OVERLAP constant).
 """
@@ -79,6 +79,20 @@ def test_forced_repair_matches(monkeypatch, name):
     assert sorted(pbridges) == sorted(jbridges)
     for k, (litlen, dist) in pbridges.items():
         assert np.array_equal(litlen, jbridges[k][0]) and np.array_equal(dist, jbridges[k][1])
+
+
+@pytest.mark.parametrize("where", ["below", "equal", "above"])
+def test_size_hint_changes_no_byte(where):
+    """size_hint, in tpuzlib's position and by keyword, below, at and
+    above the output's size: the device expansion starts from it and
+    grows by retry, the host expansion ignores it; the same bytes."""
+    buf, src = STREAMS["L6"]
+    n = {"below": 1, "equal": len(src), "above": 3 * len(src) + 5}[where]
+    # (data, dictionary, stride_bits, max_cursors, size_hint, device_expand)
+    out = P.inflate_device_v2(buf, None, STRIDE, MAXC, n, True, device="cpu")
+    assert torch.is_tensor(out) and out.numpy().tobytes() == src.tobytes()
+    assert _port(buf, size_hint=n, device_expand=True).tobytes() == src.tobytes()
+    assert _port(buf, size_hint=n).tobytes() == src.tobytes()
 
 
 def test_repair_caps_and_bridge_chunk():

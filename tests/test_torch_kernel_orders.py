@@ -1,6 +1,6 @@
-"""The orders in which the card's crc_forms_mm and take_along_loop kernels
-work, replayed on the host against the plain versions and the tools' Pallas
-kernels.
+"""The orders in which the card's crc_forms_mm, take_along_loop and
+crc_unpack kernels work, replayed on the host against the plain versions
+and the tools' Pallas kernels.
 
 crc_forms_mm's kernel multiplies with K permuted (crc32_probe.card_order)
 and, in int8, with M's rows scaled and the parity taken from bit 7
@@ -8,9 +8,12 @@ and, in int8, with M's rows scaled and the parity taken from bit 7
 (card_image).  take_along_loop's kernels step their index by one from a
 single floor mod (gather_probe.loop_steps).  Each replay is held, with
 exact equality, to the plain version and to the tool's kernel in
-interpret mode on the same seeded numpy input; the route helpers
-(forms_route, loop_design) are held at their boundaries.  No card is
-needed.
+interpret mode on the same seeded numpy input.  crc_unpack's kernel
+builds its bit planes as the forms kernel does and sums them a plane at a
+time (__dp4a in i32, bf16x2 FMAs flushed every 32 words in bf16): its
+accumulators are replayed on words of random and all-0xFF bytes.  The
+route helpers (forms_route, loop_design, vec_cond_while's while_route)
+are held at their boundaries.  No card is needed.
 """
 
 import functools
@@ -24,7 +27,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from tpuzlib_torch.kernels import crc32_probe as cp, gather_probe as gp
+from tpuzlib_torch.kernels import crc32_probe as cp, gather_probe as gp, inflate_prims as ip
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and their OpenMP threads, one per core each, spin against one another.
@@ -205,3 +208,72 @@ def test_loop_design_at_the_staged_limit(axis, extent, design):
     # the other extent does not matter
     y = torch.empty(shape[::-1], dtype=torch.int32, device="meta")
     assert gp.loop_design(y, axis, H100_STAGED_WORDS) == "staged"
+
+
+def _words(fill: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    if fill == "0xFF":
+        return np.full(n, 0xFFFFFFFF, np.int64)
+    return rng.integers(0, 1 << 32, n, dtype=np.int64)
+
+
+def _popcounts(words: np.ndarray) -> np.ndarray:
+    """The bits set in each byte position (0-3) of the words, summed."""
+    b = words.astype("<u4").view(np.uint8).reshape(-1, 4)
+    return np.unpackbits(b[:, :, None], axis=2).sum((0, 2))
+
+
+def _bf16_halves(u32: np.ndarray) -> torch.Tensor:
+    """A uint32 (as int64) as its two 16-bit halves, low first, in bf16."""
+    halves = np.stack([u32 & 0xFFFF, u32 >> 16], -1).astype(np.uint16)
+    return torch.from_numpy(halves.view(np.int16)).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fill", ["random", "0xFF"])
+def test_unpack_bf16_accumulator_replay(fill):
+    """RowAcc<kBf16>: the spread byte pair shifted up by 7, masked to plane
+    i, is 2^(2^i - 127) as bf16 where the bit is set; times 2^(127 - 2^i)
+    it is 1.0, so one bf16 FMA adds the bit (the product is exact, so the
+    FMA rounds as the add alone).  32 words' planes give each byte
+    position's bit count exactly, 256 at most; one word more of 0xFF bytes
+    would not be exact, so the kernel flushes every 32 words."""
+    words = _words(fill, 32)
+    acc = torch.zeros(4, dtype=torch.bfloat16)  # halves a.lo, a.hi, b.lo, b.hi
+    for w in words:
+        lo = ((w & 0xFF) | ((w >> 8) & 0xFF) << 16) << 7  # __byte_perm(w, 0, 0x4140) << 7
+        hi = (((w >> 16) & 0xFF) | ((w >> 24) & 0xFF) << 16) << 7  # 0x4342
+        for i in range(8):
+            planes = _bf16_halves(np.array([s & (0x00800080 << i) for s in (lo, hi)]))
+            scale = _bf16_halves(np.array([((254 - (1 << i)) << 7) * 0x10001] * 2))
+            product = planes.float().reshape(-1) * scale.float().reshape(-1)
+            assert set(product.tolist()) <= {0.0, 1.0}
+            acc = (acc.float() + product).to(torch.bfloat16)
+    assert acc.float().tolist() == _popcounts(words).tolist()
+    if fill == "0xFF":
+        assert acc.float().tolist() == [256.0] * 4
+        assert float(acc[0] + torch.ones(1, dtype=torch.bfloat16)) == 256.0  # 257 rounds away
+
+
+@pytest.mark.parametrize("fill", ["random", "0xFF"])
+def test_unpack_i32_accumulator_replay(fill):
+    """RowAcc<kI32>: plane i of four bytes, w & 0x01010101 << i, summed by
+    __dp4a against 0x01010101 into one sum a plane (each bit at weight
+    2^i), shifted back at the end: the words' bit count."""
+    words = _words(fill, 1000)
+    p = [0] * 8
+    for w in words:
+        for i in range(8):
+            plane = int(w) & (0x01010101 << i)
+            p[i] += sum((plane >> 8 * k) & 0xFF for k in range(4))  # __dp4a(plane, 0x01010101, p[i])
+    assert all(v % (1 << i) == 0 for i, v in enumerate(p))
+    assert sum(v >> i for i, v in enumerate(p)) == int(_popcounts(words).sum())
+
+
+@pytest.mark.parametrize("lanes,route", [(1, "regs"), (ip.REG_LANES, "regs"),
+                                         (ip.REG_LANES + 1, "smem"),
+                                         (H100_STAGED_WORDS, "smem"),
+                                         (H100_STAGED_WORDS + 1, "global")])
+def test_while_route_at_its_limits(lanes, route):
+    assert ip.REG_LANES == 8 * 1024
+    assert ip.while_route(lanes, H100_STAGED_WORDS) == route
+    assert route in ip.WHILE_ROUTES

@@ -219,6 +219,15 @@ def test_sharded_inflate_world_size_1(mesh1):
     assert sharded_inflate(raw, mesh1).tobytes() == data.tobytes()
 
 
+def test_sharded_inflate_size_hint(mesh1):
+    """tpuzlib's size_hint, by keyword and in its position (before the
+    dictionary), below and above the output: the same bytes."""
+    raw, data = _inflate_inputs()["L6"]
+    for n in (1, 2 * len(data)):
+        assert sharded_inflate(raw, mesh1, size_hint=n).tobytes() == data.tobytes()
+        assert sharded_inflate(raw, mesh1, 1 << 15, 4096, n, None).tobytes() == data.tobytes()
+
+
 def test_dryrun_multichip(mesh1):
     dryrun_multichip(1, device="cpu", shard_len=1 << 15)
 

@@ -16,6 +16,7 @@ import functools
 import glob
 import json
 import os
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ STREAMS = testing.inflate_streams()
 STRIDE, MAXC = 1 << 13, 256
 CHUNK, BATCH = 1 << 14, 2
 DATA = testing.mixed(300 << 10, 31)
+WBITS = {"raw": -15, "deflate": 15, "gzip": 31}
 
 
 @pytest.fixture(autouse=True)
@@ -207,11 +209,16 @@ def test_ext_cap_overflow_matches(monkeypatch, kind, overflow):
 
 @pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
 def test_api_counters(fmt):
-    """deflate() counts its input as deflate.device (never a fallback:
-    it has none) and inflate() its output as inflate.device."""
+    """deflate()'s device route counts its input as deflate.device (never
+    a fallback: it has none), its host route (device="cpu") counts
+    nothing, and inflate() counts its output as inflate.device."""
     before = trace.get_counters()
-    wire = tpuzlib_torch.deflate(DATA, format=fmt, device="cpu")
+    host = tpuzlib_torch.deflate(DATA, format=fmt, device="cpu")
+    assert testing.counters_since(before) == {}
+    before = trace.get_counters()
+    wire = testing.device_route(DATA, format=fmt)
     assert testing.counters_since(before) == {"deflate.device": len(DATA)}
+    assert zlib.decompress(host.tobytes(), WBITS[fmt]) == DATA.tobytes()
     before = trace.get_counters()
     assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
     assert testing.counters_since(before) == {"inflate.device": len(DATA)}
@@ -219,10 +226,11 @@ def test_api_counters(fmt):
 
 
 def test_main_path_stages():
-    """deflate() and inflate() run their pieces under the stages that
-    chip_smoke.py's phase N reads, with the bytes each handles."""
+    """deflate()'s device route and inflate() run their pieces under the
+    stages that chip_smoke.py's phase N reads, with the bytes each
+    handles."""
     trace.enable()
-    wire = tpuzlib_torch.deflate(DATA, level=6, device="cpu")
+    wire = testing.device_route(DATA, level=6)
     nbatch = -(-len(DATA) // (8 << 18))  # batches of 8 chunks of 256 KiB
     t = trace.get_telemetry()
     assert {k: t[k]["calls"] for k in t} == {
@@ -277,7 +285,7 @@ def test_profile_never_drops_the_card(monkeypatch, tmp_path):
 
 def test_telemetry_off_records_nothing():
     before = trace.get_counters()
-    wire = tpuzlib_torch.deflate(DATA, device="cpu")
+    wire = testing.device_route(DATA)
     tpuzlib_torch.inflate(wire, device="cpu")
     assert trace.get_telemetry() == {}
     # the encoder's device counter is taken only while telemetry is on

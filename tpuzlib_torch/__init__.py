@@ -5,11 +5,12 @@ It mirrors tpuzlib's layout; its kernels are CUDA C++ under
 kernels/csrc/, built on first use.  Every one-shot entry point takes
 `device=` (default "cuda"): on a CUDA device the kernels run, on "cpu"
 their plain torch versions run.  The streaming Deflater and Inflater are
-host objects, as tpuzlib's are, and so is a preset dictionary's deflate().
+host objects, as tpuzlib's are; deflate() runs the host engine too on
+"cpu", below 1 MiB or with a preset dictionary (tpuzlib's route rule).
 
 Public API:
     deflate, DeflaterOptions   one-shot raw / zlib / gzip compression: the device
-                               encoder, the host engine given a dictionary
+                               encoder on a card from 1 MiB, else the host engine
     Deflater                   streaming compression on the host engine
     inflate                    one-shot raw / zlib / gzip decompression: the
                                device route, the host engine where it declines

@@ -6,11 +6,16 @@ compresses appended chunks, the native host checksums keep the running
 Adler-32 (zlib) or CRC-32 (gzip), and a preset dictionary goes into the
 zlib header as FDICT and its DICTID.
 
-deflate() runs the batched device encoder on the given device, and the
-container's checksum (Adler-32 for zlib, CRC-32 for gzip) on the same
-device; an error in either propagates.  With a preset dictionary it runs
-the Deflater instead, since the device encoder takes none (tpuzlib's
-device route declines them too).
+deflate() takes tpuzlib's route rule, with its `device` in place of
+tpuzlib's TPUZLIB_DEVICE switch: on a CUDA device, from
+DEVICE_MIN_BYTES of input (tpuzlib's floor under its switch), it runs
+the batched device encoder and the container's checksum (Adler-32 for
+zlib, CRC-32 for gzip) on that device (_deflate_device); with
+device="cpu", below that floor, or with a preset dictionary (which the
+device encoder takes none of), it runs the Deflater on the host engine,
+and its bytes are those of tpuzlib's default deflate().  The rule is a
+route and not a fallback: an error of the device route (CUDA, the
+build, memory) propagates, and nothing retries on the host.
 
 Telemetry (utils/trace.py) under tpuzlib's names: the Deflater's
 `deflate.append` and `deflate.finish` stages; deflate()'s
@@ -26,6 +31,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..codec.deflate_engine import DeflateEngine
 from ..common import mergeBuffers, u8_view
@@ -39,6 +45,9 @@ from ..utils.mem import tune_malloc
 from .checksums import adler32, crc32
 
 FORMATS = ("raw", "deflate", "gzip")
+# the least input deflate() gives the device encoder on a CUDA device:
+# tpuzlib's floor under TPUZLIB_DEVICE=1 (tpuzlib/api/deflate_api.py:170-171)
+DEVICE_MIN_BYTES = 1 << 20
 
 
 @dataclass
@@ -144,20 +153,10 @@ class Deflater:
         return buffers
 
 
-def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kwargs) -> np.ndarray:
-    """One-shot compress `data`: with the device encoder on `device`, or,
-    given a preset dictionary, with the host engine.
-
-    Options come as a DeflaterOptions or as its fields by keyword.
-    Returns the container bytes as a uint8 array."""
-    tune_malloc()  # large codec buffers must not be munmap'd per call
-    try:
-        view = u8_view(data)
-    except TypeError:
-        raise TypeError("data must be an ArrayBuffer or buffer view") from None
-    deflater = Deflater(options, **kwargs)  # validates the options
-    if deflater.dictionary is not None:
-        return mergeBuffers(deflater.append(view) + deflater.finish())
+def _deflate_device(view: np.ndarray, deflater: Deflater, device) -> np.ndarray:
+    """deflate()'s device route: the batched device encoder on `device`
+    with the container of `deflater` (validated options, no dictionary)
+    around it, the trailer's checksum on `device` too."""
     level, fmt = deflater.level, deflater.format
     body = deflate_device_v3(np.ascontiguousarray(view), level=level, device=device)
     trace.count("deflate.device", len(view))
@@ -170,3 +169,22 @@ def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kw
         else:
             head, trailer = make_zlib_header(level), make_zlib_trailer(adler32(view, device=device))
     return mergeBuffers([head, body, trailer])
+
+
+def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kwargs) -> np.ndarray:
+    """One-shot compress `data`: with the device encoder on a CUDA
+    `device` from DEVICE_MIN_BYTES without a dictionary, else with the
+    host engine (the module docstring gives the rule).
+
+    Options come as a DeflaterOptions or as its fields by keyword.
+    Returns the container bytes as a uint8 array."""
+    tune_malloc()  # large codec buffers must not be munmap'd per call
+    try:
+        view = u8_view(data)
+    except TypeError:
+        raise TypeError("data must be an ArrayBuffer or buffer view") from None
+    deflater = Deflater(options, **kwargs)  # validates the options
+    if (deflater.dictionary is None and len(view) >= DEVICE_MIN_BYTES
+            and torch.device(device).type != "cpu"):
+        return _deflate_device(view, deflater, device)
+    return mergeBuffers(deflater.append(view) + deflater.finish())

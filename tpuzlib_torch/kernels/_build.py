@@ -61,7 +61,7 @@ _ARGTYPES = {
     "tz_flat_gather": [_P, _L, _P, _L, _P, _P],
     "tz_scatter_max": [_P, _P, _I, _I, _I, _I, _P, _P],
     "tz_shift_screen": [_P, _I, _L, _I, _P, _P],
-    "tz_vec_cond_while": [_P, _I, _P, _P],
+    "tz_vec_cond_while": [_P, _I, _I, _P, _P],
     "tz_fetch_rows": [_P, _I, _I, _P, _I, _P, _P],
     "tz_row_store_loop": [_I, _I, _P, _P],
     "tz_gather_store_loop": [_P, _I, _I, _P, _I, _P, _P],
@@ -80,13 +80,15 @@ _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
 # mode its fold runs in (one kernel, two modes); the Adler-32 scalar is a
 # kernel of its own and counts only as adler32_scalar;
 # pack_words' one launch is its two kernels (tile sums, then the words);
-# the probes' unpack counts each mode apart, their forms each dtype
+# the probes' unpack counts each mode apart, their forms each dtype;
+# vec_cond_while counts each launch under its route's name as well
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
             "crc32_forms": 0, "crc32_spans": 0, "crc32_scalar": 0, "adler32": 0,
             "adler32_scalar": 0, "inflate_lut": 0, "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
             "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,
             "crc_forms_mm_i8": 0, "take_along": 0, "take_along_loop": 0, "flat_gather": 0,
-            "scatter_max": 0, "shift_screen": 0, "vec_cond_while": 0, "fetch_rows": 0,
+            "scatter_max": 0, "shift_screen": 0, "vec_cond_while": 0, "vec_cond_while_regs": 0,
+            "vec_cond_while_smem": 0, "vec_cond_while_global": 0, "fetch_rows": 0,
             "row_store_loop": 0, "gather_store_loop": 0, "col_min_sum": 0, "var_shifts": 0,
             "tree_decode": 0, "window64": 0}
 

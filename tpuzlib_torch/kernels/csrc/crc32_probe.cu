@@ -26,7 +26,14 @@
 //
 // Designs, simple first: the row kernels give a warp a row, read it in
 // 16-byte loads from its first 16-byte boundary (bytes before and after it
-// one at a time, so a row may start anywhere) and reduce with shuffles.
+// one at a time, so a row may start anywhere; 4 or 8 loads a lane in
+// flight) and reduce with shuffles.  crc_unpack's modes are held by their
+// instructions, not by the bytes, where each bit is converted (an I2F a
+// bit in bf16) or summed a byte at a time (~6 steps a byte in i32): they
+// build the bit planes as crc_forms_mm builds its A operands (a mask a
+// plane of four bytes or of a byte pair) and sum a plane at a time, by
+// __dp4a in i32 and by bf16x2 FMAs in bf16, whose sums become integers
+// once every 32 words (RowAcc).
 // gf2_bits_mm has its bits in memory already: warp-level nvcuda::wmma,
 // m16n16k16 in bf16; a block owns 32 rows and its 8 warps split K, loading
 // their fragments straight from device memory, so that the 8 MiB of the
@@ -78,6 +85,7 @@
 // launch.  Sums reach 8 * B = 32,768 at most.
 
 #include <cstdint>
+#include <cstring>
 #include <mutex>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -94,63 +102,157 @@ constexpr int kRowWarps = 8;  // rows per CUDA block
 
 enum RowMode { kSum = 0, kU8 = 1, kI32 = 2, kBf16 = 3 };
 
-// The sum over a 32-bit word's four bytes of what the mode computes a byte
-// (the byte itself, or its 8 bits summed in the mode's type).  A lone byte
-// is a word whose other bytes are 0, which add 0 in every mode.
-template <int Mode>
-__device__ __forceinline__ uint32_t word_sum(uint32_t w) {
-  if (Mode == kSum) return __vsadu4(w, 0u);
-  if (Mode == kU8) {  // four u8 lanes, each at most 8
+// The bit planes of bytes, shared by crc_forms_mm's A operands and
+// crc_unpack: bytes 0, 1 (spread_lo) or 2, 3 (spread_hi) of a word spread
+// to the low bytes of two 16-bit halves; plane i of the pair as two bf16
+// 0.0 / 1.0 is (s & 0x10001 << i) * (0x3F80 >> i), two integer steps and
+// no conversion (bf16_plane: the forms' A); shifted up by 7 first, plane
+// i is a power of two as bf16 where the bit is set, 2^(2^i - 127), and
+// 2^(127 - 2^i) times it is 1.0 (bf16_pow2_plane, bf16_pow2_scale: one
+// step, the multiply left to crc_unpack's FMA); in int8 lanes plane i of
+// four bytes is w & 0x01010101 << i, each bit at weight 2^i, one step.
+__device__ __forceinline__ uint32_t spread_lo(uint32_t w) { return __byte_perm(w, 0, 0x4140); }
+__device__ __forceinline__ uint32_t spread_hi(uint32_t w) { return __byte_perm(w, 0, 0x4342); }
+__device__ __forceinline__ uint32_t bf16_plane(uint32_t spread, int i) {
+  return (spread & (0x00010001u << i)) * (0x3F80u >> i);
+}
+__device__ __forceinline__ uint32_t bf16_pow2_plane(uint32_t spread7, int i) {
+  return spread7 & (0x00800080u << i);
+}
+__device__ __forceinline__ uint32_t bf16_pow2_scale(int i) {  // 2^(127 - 2^i) in both halves
+  return ((254u - (1u << i)) << 7) * 0x00010001u;
+}
+__device__ __forceinline__ uint32_t i8_plane(uint32_t w, int i) { return w & (0x01010101u << i); }
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  __nv_bfloat162 v;
+  memcpy(&v, &u, sizeof v);
+  return v;
+}
+
+// A thread's running sum of a row's 32-bit words in the mode's type (a
+// lone byte is a word whose other bytes are 0, which add 0 in every
+// mode).  add(w) takes a word; flush() ends a group of at most 32 words
+// (bf16's exact range); total() is the integer sum.  kLoads: the 16-byte
+// loads a thread has in flight in the row loop, a group at most.
+template <int Mode> struct RowAcc;
+
+template <> struct RowAcc<kSum> {  // the bytes themselves: the read floor
+  static constexpr int kLoads = 4;
+  uint32_t s;
+  __device__ __forceinline__ RowAcc() : s(0) {}
+  __device__ __forceinline__ void add(uint32_t w) { s += __vsadu4(w, 0u); }
+  __device__ __forceinline__ void flush() {}
+  __device__ __forceinline__ uint32_t total() { return s; }
+};
+
+template <> struct RowAcc<kU8> {  // the planes added in four u8 lanes, each at most 8
+  static constexpr int kLoads = 4;
+  uint32_t s;
+  __device__ __forceinline__ RowAcc() : s(0) {}
+  __device__ __forceinline__ void add(uint32_t w) {
     uint32_t acc = 0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc += (w >> i) & 0x01010101u;
-    return __vsadu4(acc, 0u);
+    s += __vsadu4(acc, 0u);
   }
-  if (Mode == kI32) {
+  __device__ __forceinline__ void flush() {}
+  __device__ __forceinline__ uint32_t total() { return s; }
+};
+
+// i32: each plane of four bytes summed into an int32 by __dp4a, one sum a
+// plane (plane i's at weight 2^i), shifted back once at the end: two steps
+// a plane and word where the byte-at-a-time sum took ~6 a byte
+template <> struct RowAcc<kI32> {
+  static constexpr int kLoads = 8;
+  uint32_t p[8];
+  __device__ __forceinline__ RowAcc() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i] = 0;
+  }
+  __device__ __forceinline__ void add(uint32_t w) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i] = __dp4a(i8_plane(w, i), 0x01010101u, p[i]);
+  }
+  __device__ __forceinline__ void flush() {}
+  __device__ __forceinline__ uint32_t total() {
     uint32_t s = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int b = static_cast<int>((w >> (8 * k)) & 0xFFu);
-      int e = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e += (b >> i) & 1;
-      s += static_cast<uint32_t>(e);
-    }
+    for (int i = 0; i < 8; ++i) s += p[i] >> i;
     return s;
   }
-  // bf16: each bit converted to bf16 and added in bf16, two bytes a pair
-  const uint32_t lo = __byte_perm(w, 0, 0x4140), hi = __byte_perm(w, 0, 0x4342);
-  __nv_bfloat162 a = __float2bfloat162_rn(0.f), b = a;
+};
+
+// bf16: each plane of a byte pair added in bf16x2, bytes 0, 1 of the words
+// in a, bytes 2, 3 in b: the plane as powers of two (bf16_pow2_plane), one
+// __hfma2 by its scale adds each bit as 1.0.  That is a mask and an FMA a
+// plane; the forms' 1.0 planes added by __hadd2 take a multiply more
+// (probes/unpack_breakdown.py times both).  A half gains at most 8 a word and
+// bf16 holds every integer up to 256 exactly, so the sums stay in bf16 for
+// a group of 32 words and become integers once a group, not once a byte
+template <> struct RowAcc<kBf16> {
+  static constexpr int kLoads = 8;
+  __nv_bfloat162 a, b;
+  uint32_t s;
+  __device__ __forceinline__ RowAcc() : a(as_bf162(0u)), b(as_bf162(0u)), s(0) {}
+  __device__ __forceinline__ void add(uint32_t w) {
+    const uint32_t lo = spread_lo(w) << 7, hi = spread_hi(w) << 7;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    a = __hadd2(a, __halves2bfloat162(__uint2bfloat16_rn((lo >> i) & 1u),
-                                      __uint2bfloat16_rn((lo >> (16 + i)) & 1u)));
-    b = __hadd2(b, __halves2bfloat162(__uint2bfloat16_rn((hi >> i) & 1u),
-                                      __uint2bfloat16_rn((hi >> (16 + i)) & 1u)));
+    for (int i = 0; i < 8; ++i) {
+      const __nv_bfloat162 scale = as_bf162(bf16_pow2_scale(i));
+      a = __hfma2(as_bf162(bf16_pow2_plane(lo, i)), scale, a);
+      b = __hfma2(as_bf162(bf16_pow2_plane(hi, i)), scale, b);
+    }
   }
-  return static_cast<uint32_t>(__low2float(a)) + static_cast<uint32_t>(__high2float(a)) +
+  __device__ __forceinline__ void flush() {
+    s += static_cast<uint32_t>(__low2float(a)) + static_cast<uint32_t>(__high2float(a)) +
          static_cast<uint32_t>(__low2float(b)) + static_cast<uint32_t>(__high2float(b));
+    a = b = as_bf162(0u);
+  }
+  __device__ __forceinline__ uint32_t total() {
+    flush();
+    return s;
+  }
+};
+
+template <int Mode>
+__device__ __forceinline__ void add4(RowAcc<Mode>& acc, const uint4& x) {
+  acc.add(x.x);
+  acc.add(x.y);
+  acc.add(x.z);
+  acc.add(x.w);
 }
 
 template <int Mode>
 __global__ void __launch_bounds__(kRowWarps * 32)
 crc_rowsum_kernel(const uint8_t* __restrict__ data, long long nb, int row,
                   int32_t* __restrict__ out) {
+  constexpr int L = RowAcc<Mode>::kLoads;
   const int lane = threadIdx.x & 31;
   const long long r = static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
   if (r >= nb) return;  // whole warps leave together
   const uint8_t* p = data + r * row;
   int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15);
   head = head < row ? head : row;
-  uint32_t s = lane < head ? word_sum<Mode>(p[lane]) : 0u;
+  RowAcc<Mode> acc;
+  if (lane < head) acc.add(p[lane]);
+  acc.flush();
   const int nvec = (row - head) >> 4;
   const uint4* v = reinterpret_cast<const uint4*>(p + head);
-#pragma unroll 4
-  for (int k = lane; k < nvec; k += 32) {
-    const uint4 x = v[k];
-    s += word_sum<Mode>(x.x) + word_sum<Mode>(x.y) + word_sum<Mode>(x.z) + word_sum<Mode>(x.w);
+  int k = lane;
+  for (; k + 32 * (L - 1) < nvec; k += 32 * L) {  // L loads in flight, then a group
+    uint4 x[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) x[j] = v[k + 32 * j];
+#pragma unroll
+    for (int j = 0; j < L; ++j) add4(acc, x[j]);
+    acc.flush();
   }
-  for (int k = head + nvec * 16 + lane; k < row; k += 32) s += word_sum<Mode>(p[k]);
+  for (; k < nvec; k += 32) add4(acc, v[k]);  // fewer than L loads a lane
+  acc.flush();
+  // the bytes after the last whole 16, fewer than 16: at most one a lane
+  for (int t = head + nvec * 16 + lane; t < row; t += 32) acc.add(p[t]);
+  uint32_t s = acc.total();
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
   if (lane == 0) out[r] = static_cast<int32_t>(s);
@@ -319,22 +421,18 @@ template <> struct Forms<__nv_bfloat16> {
   using Acc = float;
   static constexpr int kGroups = 4;  // group h = 2c + p: chunk c, planes 4p..4p+3
   static constexpr uint32_t kMBytes = kSlice * 8 * 32 * 2;
-  // plane i of a spread pair (bytes at bits 0-7 and 16-23) as two bf16 0.0 / 1.0
-  __device__ static __forceinline__ uint32_t plane(uint32_t spread, int i) {
-    return (spread & (0x00010001u << i)) * (0x3F80u >> i);
-  }
   __device__ static __forceinline__ void build(uint32_t (&a)[4][4], const uint32_t (&w)[4],
                                                int h) {
     const int c = h >> 1, p = h & 1;
     // bytes 0, 1 (lo) and 2, 3 (hi) of rows g (w[2c]) and g + 8 (w[2c + 1])
-    const uint32_t lo0 = __byte_perm(w[2 * c], 0, 0x4140), lo1 = __byte_perm(w[2 * c + 1], 0, 0x4140);
-    const uint32_t hi0 = __byte_perm(w[2 * c], 0, 0x4342), hi1 = __byte_perm(w[2 * c + 1], 0, 0x4342);
+    const uint32_t lo0 = spread_lo(w[2 * c]), lo1 = spread_lo(w[2 * c + 1]);
+    const uint32_t hi0 = spread_hi(w[2 * c]), hi1 = spread_hi(w[2 * c + 1]);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      a[u][0] = plane(lo0, 4 * p + u);
-      a[u][1] = plane(lo1, 4 * p + u);
-      a[u][2] = plane(hi0, 4 * p + u);
-      a[u][3] = plane(hi1, 4 * p + u);
+      a[u][0] = bf16_plane(lo0, 4 * p + u);
+      a[u][1] = bf16_plane(lo1, 4 * p + u);
+      a[u][2] = bf16_plane(hi0, 4 * p + u);
+      a[u][3] = bf16_plane(hi1, 4 * p + u);
     }
   }
   // the parity of an exact integer sum
@@ -350,7 +448,7 @@ template <> struct Forms<signed char> {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) a[u][k] = w[k] & (0x01010101u << (4 * h + u));
+      for (int k = 0; k < 4; ++k) a[u][k] = i8_plane(w[k], 4 * h + u);
     }
   }
   // every product is 128 x bit x M mod 256 (M's rows scaled): bit 7

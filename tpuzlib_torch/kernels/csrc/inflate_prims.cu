@@ -31,9 +31,23 @@
 // Bounds (H100 SXM): a few words a lane in and out, so at the tools' 128
 // lanes and at 8,192 (the TPU decode's cursors) every kernel is held by
 // its launch.  Designs: one thread a lane, rows a loop inside it, stores
-// coalesced across lanes.  vec_cond_while is one CUDA block that holds
-// every lane and tests the condition with __syncthreads_or, since lanes
-// in different blocks could not share it.
+// coalesced across lanes.
+//
+// vec_cond_while is one CUDA block that holds every lane and tests the
+// condition with __syncthreads_or, since lanes in different blocks could
+// not share it.  Its 64 steps depend on each other through that vote, so
+// the steps' latency holds it, not its bytes or adds: a step that goes
+// through device memory (each lane loaded and stored again before the
+// vote) took ~1,660 cycles on an H100.  So the lanes stay on the SM: each
+// thread keeps its lanes in registers across the steps, up to kRegs a
+// thread (8,192 lanes in a block of 1,024; route "regs"); more lanes, up
+// to the shared memory a block may opt in to, live in shared memory
+// (route "smem"); past that each step goes through device memory (route
+// "global").  A step is then the adds and the one vote, and `out` is
+// written once, at the end.  The loop stays: one min over the lanes and
+// one pass would compute the same function in closed form, but it would
+// not be the primitive, a vector while loop on one condition, that the
+// probe exists to measure.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,6 +56,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWhileThreads = 1024;  // vec_cond_while's one block
+constexpr int kRegs = 8;  // vec_cond_while: lanes a thread keeps in registers
 constexpr int kLimit = 100, kMaxSteps = 64;  // k_c's condition
 
 __host__ __device__ __forceinline__ unsigned blocks_for(int lanes) {
@@ -51,23 +66,66 @@ __host__ __device__ __forceinline__ unsigned blocks_for(int lanes) {
 __device__ __forceinline__ uint32_t shr(uint32_t x, uint32_t s) { return s < 32u ? x >> s : 0u; }
 __device__ __forceinline__ uint32_t shl(uint32_t x, uint32_t s) { return s < 32u ? x << s : 0u; }
 
+// route "regs": lane t + r * blockDim.x of each thread in v[r]; a lane
+// past the input starts at the limit, so it never votes and never moves
+template <int R>
+__global__ void __launch_bounds__(kWhileThreads)
+vec_cond_while_regs_kernel(const int32_t* __restrict__ x, int lanes, int32_t* __restrict__ out) {
+  int32_t v[R];
+  int below = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int l = threadIdx.x + r * blockDim.x;
+    v[r] = l < lanes ? x[l] : kLimit;
+    below |= v[r] < kLimit;
+  }
+  // a lane's step is a compare and a predicated add, written in PTX: from
+  // `v += v < kLimit` or `if (v < kLimit) ++v` ptxas makes an add, a
+  // select and a copy a lane, and the steps ran 1.27x longer at 8,192
+  // lanes on an H100; the vote is one min (ptxas: a 3-input min) for two lanes
+  for (int it = 0; __syncthreads_or(below) && it < kMaxSteps; ++it) {
+    int32_t m = kLimit;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      asm("{\n\t.reg .pred p;\n\tsetp.lt.s32 p, %0, %1;\n\t@p add.s32 %0, %0, 1;\n\t}"
+          : "+r"(v[r])
+          : "n"(kLimit));
+      m = min(m, v[r]);
+    }
+    below = m < kLimit;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int l = threadIdx.x + r * blockDim.x;
+    if (l < lanes) out[l] = v[r];
+  }
+}
+
+// routes "smem" (lanes in dynamic shared memory) and "global" (lanes in
+// `out`, each step loading and storing them): a thread reads and writes
+// only its own lanes, and the vote's barrier orders the steps
+template <bool Shared>
 __global__ void __launch_bounds__(kWhileThreads)
 vec_cond_while_kernel(const int32_t* __restrict__ x, int lanes, int32_t* __restrict__ out) {
+  extern __shared__ int32_t staged[];
+  int32_t* v = Shared ? staged : out;
   int below = 0;
   for (int l = threadIdx.x; l < lanes; l += kWhileThreads) {
-    const int32_t v = x[l];
-    out[l] = v;
-    below |= v < kLimit;
+    const int32_t a = x[l];
+    v[l] = a;
+    below |= a < kLimit;
   }
-  // each thread reads and writes only its own lanes; the barrier orders the steps
   for (int it = 0; __syncthreads_or(below) && it < kMaxSteps; ++it) {
     below = 0;
     for (int l = threadIdx.x; l < lanes; l += kWhileThreads) {
-      int32_t v = out[l];
-      v += v < kLimit;
-      out[l] = v;
-      below |= v < kLimit;
+      int32_t a = v[l];
+      a += a < kLimit;
+      v[l] = a;
+      below |= a < kLimit;
     }
+  }
+  if (Shared) {
+    for (int l = threadIdx.x; l < lanes; l += kWhileThreads) out[l] = v[l];
   }
 }
 
@@ -192,10 +250,38 @@ int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 // Every array is int32 (rows, lanes), row-major; uint32 values pass as
 // their bits.  lanes >= 1.
 
-extern "C" int tz_vec_cond_while(const void* x, int lanes, void* out, void* stream) {
+// route: 0 "regs" (lanes <= kWhileThreads * kRegs), 1 "smem" (lanes * 4
+// bytes within the shared memory a block may opt in to), 2 "global"
+extern "C" int tz_vec_cond_while(const void* x, int lanes, int route, void* out, void* stream) {
+  const auto* xs = static_cast<const int32_t*>(x);
+  auto* o = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
   if (lanes <= 0) return invalid();
-  vec_cond_while_kernel<<<1, kWhileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), lanes, static_cast<int32_t*>(out));
+  if (route == 0) {
+    if (lanes > kWhileThreads * kRegs) return invalid();
+    // the fewest lanes a thread (1, 2, 4, 8); a block of whole warps
+    const int per = (lanes + kWhileThreads - 1) / kWhileThreads;
+    const int r = per <= 1 ? 1 : per <= 2 ? 2 : per <= 4 ? 4 : 8;
+    const int threads = ((lanes + r - 1) / r + 31) / 32 * 32;
+    switch (r) {
+      case 1: vec_cond_while_regs_kernel<1><<<1, threads, 0, s>>>(xs, lanes, o); break;
+      case 2: vec_cond_while_regs_kernel<2><<<1, threads, 0, s>>>(xs, lanes, o); break;
+      case 4: vec_cond_while_regs_kernel<4><<<1, threads, 0, s>>>(xs, lanes, o); break;
+      default: vec_cond_while_regs_kernel<8><<<1, threads, 0, s>>>(xs, lanes, o); break;
+    }
+    return done();
+  }
+  if (route == 1) {
+    const size_t bytes = static_cast<size_t>(lanes) * 4;
+    const cudaError_t err = cudaFuncSetAttribute(
+        vec_cond_while_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    vec_cond_while_kernel<true><<<1, kWhileThreads, bytes, s>>>(xs, lanes, o);
+    return done();
+  }
+  if (route != 2) return invalid();
+  vec_cond_while_kernel<false><<<1, kWhileThreads, 0, s>>>(xs, lanes, o);
   return done();
 }
 

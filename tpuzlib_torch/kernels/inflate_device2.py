@@ -930,7 +930,7 @@ def _window(dictionary) -> np.ndarray:
 
 
 def decode(data, dictionary=None, stride_bits: int | None = None, max_cursors: int | None = None,
-           device_expand: bool = False, **kwargs):
+           size_hint: int | None = None, device_expand: bool = False, mesh=None, **kwargs):
     """Decode the raw DEFLATE stream `data` (uint8) with its heavy work on
     `device`.  Returns the bytes as a uint8 ndarray when pass 3 runs on the
     host (the default), or as a 1-D uint8 tensor on `device` with
@@ -938,19 +938,25 @@ def decode(data, dictionary=None, stride_bits: int | None = None, max_cursors: i
     Raises DeviceDeclined, with the reason, for a stream the device path
     cannot decode.
 
-    dictionary: the history before the stream (a zlib preset dictionary);
-    keywords: device (default "cuda"); mesh: a parallel/mesh.Mesh whose
-    ranks share the decode (on their own devices; see mesh_decode);
-    force_repair: run the splice repair even where the splice validated;
-    bridge_chunk: tokens per native bridge call; max_bridges /
-    max_row_batches: the repair's caps."""
-    return decode_stream(data, dictionary, stride_bits, max_cursors, device_expand, **kwargs)[0]
+    The positional parameters are tpuzlib's, in its order.  dictionary:
+    the history before the stream (a zlib preset dictionary); size_hint:
+    the output's first capacity in the device expansion (default 8 bytes
+    an input byte and 64 KiB), which grows by retry where the output is
+    larger, so it changes no byte (the host expansion sizes its output
+    from the token tape, as tpuzlib's does); mesh: a parallel/mesh.Mesh
+    whose ranks share the decode (on their own devices; see mesh_decode).
+    Keywords: device (default "cuda"); force_repair: run the splice repair
+    even where the splice validated; bridge_chunk: tokens per native
+    bridge call; max_bridges / max_row_batches: the repair's caps."""
+    return decode_stream(data, dictionary, stride_bits, max_cursors, size_hint, device_expand,
+                         mesh, **kwargs)[0]
 
 
 def decode_stream(data, dictionary=None, stride_bits: int | None = None,
-                  max_cursors: int | None = None, device_expand: bool = False, *, device="cuda",
-                  mesh=None, force_repair: bool = False, bridge_chunk: int = 1024,
-                  max_bridges: int = 64, max_row_batches: int = 64):
+                  max_cursors: int | None = None, size_hint: int | None = None,
+                  device_expand: bool = False, mesh=None, *, device="cuda",
+                  force_repair: bool = False, bridge_chunk: int = 1024, max_bridges: int = 64,
+                  max_row_batches: int = 64):
     """decode(...) and the bit after the stream's final block: (bytes,
     end bit)."""
     buf = np.ascontiguousarray(np.asarray(data), dtype=np.uint8)
@@ -1002,7 +1008,7 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
         win = np.zeros(WINDOW, np.uint8)
         win[WINDOW - len(window):] = window
         return device_expand_all(tape, n, torch.from_numpy(win).to(comp.device),
-                                 8 * len(buf) + (1 << 16)), end
+                                 size_hint or 8 * len(buf) + (1 << 16)), end
 
 
 def _nbytes(x) -> int:
@@ -1048,10 +1054,12 @@ def device_expand_all(tape: torch.Tensor, n: int, window: torch.Tensor, out_cap:
 
 
 def inflate_device_v2(data, dictionary=None, stride_bits: int | None = None,
-                      max_cursors: int | None = None, device_expand: bool = False, **kwargs):
+                      max_cursors: int | None = None, size_hint: int | None = None,
+                      device_expand: bool = False, mesh=None, **kwargs):
     """decode(...), or None where it declines the stream (tpuzlib's
     contract: the caller then decodes another way)."""
     try:
-        return decode(data, dictionary, stride_bits, max_cursors, device_expand, **kwargs)
+        return decode(data, dictionary, stride_bits, max_cursors, size_hint, device_expand, mesh,
+                      **kwargs)
     except DeviceDeclined:
         return None

@@ -8,7 +8,11 @@ inputs.  Arrays are int32 (rows, lanes); uint32 values pass as their bits.
 
   vec_cond_while(x)        x (1, lanes): while some lane is below 100 and
                            fewer than 64 steps ran, add 1 to every lane
-                           below 100 (k_c);
+                           below 100 (k_c); on the card the lanes stay in
+                           registers, shared memory or device memory
+                           across the steps by their count (while_route;
+                           each route counts in _build.LAUNCHES as
+                           vec_cond_while_<route> too);
   fetch_rows(words, j, k)  (k, lanes): words[j + i] for i < k, 0 outside
                            the rows (k_d, k = 3);
   row_store_loop(rows, lanes)
@@ -46,9 +50,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .gather_probe import check_arrays, take_along, take_along_plain, wrap32
+from .gather_probe import check_arrays, staged_words, take_along, take_along_plain, wrap32
 
 LIMIT, MAX_STEPS = 100, 64  # k_c's condition
+# vec_cond_while's routes on the card, by where the lanes stay across the
+# steps: a thread's registers, up to REG_LANES (8 a thread of a block of
+# 1,024); shared memory, up to staged_words(); device memory past that
+WHILE_ROUTES = ("regs", "smem", "global")
+REG_LANES = 8 * 1024
 M32 = 0xFFFFFFFF
 
 
@@ -71,14 +80,24 @@ def vec_cond_while_plain(x: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def while_route(lanes: int, staged: int) -> str:
+    """vec_cond_while's route on the card for `lanes` lanes, `staged` the
+    int32 words a block may hold in shared memory (staged_words())."""
+    if lanes <= REG_LANES:
+        return "regs"
+    return "smem" if lanes <= staged else "global"
+
+
 def vec_cond_while(x: torch.Tensor) -> torch.Tensor:
-    """int32 (1, lanes): k_c's loop on x (1, lanes)."""
+    """int32 (1, lanes): k_c's loop on x (1, lanes); on the card by the
+    route while_route gives."""
     if _build.on_cpu(x):
         return vec_cond_while_plain(x)
     lanes = _row("vec_cond_while", x)
+    route = while_route(lanes, staged_words(x.device) if lanes > REG_LANES else 0)
     out = torch.empty_like(x)
-    _build.launch("vec_cond_while", "tz_vec_cond_while", x.device, x.data_ptr(), lanes,
-                  out.data_ptr())
+    _build.launch(("vec_cond_while", "vec_cond_while_" + route), "tz_vec_cond_while", x.device,
+                  x.data_ptr(), lanes, WHILE_ROUTES.index(route), out.data_ptr())
     return out
 
 

@@ -228,7 +228,7 @@ def sharded_deflate(data: np.ndarray, mesh, level: int = 6, shard_len: int | Non
 
 
 def sharded_inflate(data, mesh, stride_bits: int = 1 << 15, max_cursors: int = 4096,
-                    dictionary=None):
+                    size_hint: int | None = None, dictionary=None):
     """Mesh-parallel raw-DEFLATE decode (the multi-device inflate path):
     inflate_device_v2 with the cursor decode sharded over the mesh's ranks
     (kernels/inflate_device2.mesh_decode), the compressed stream
@@ -240,9 +240,10 @@ def sharded_inflate(data, mesh, stride_bits: int = 1 << 15, max_cursors: int = 4
     cursors, while the expansion resolves back-references by pointer
     doubling over the whole output (a DEFLATE reference may reach through
     the 32 KiB window of every earlier block), which sharded would need
-    an all_gather of the output a doubling step.  tpuzlib's size_hint
-    has no counterpart: the port's device decode takes none."""
+    an all_gather of the output a doubling step.  size_hint is the
+    decode's (the device expansion's first capacity; no byte depends on
+    it)."""
     from ..kernels.inflate_device2 import inflate_device_v2
 
     return inflate_device_v2(data, dictionary=dictionary, stride_bits=stride_bits,
-                             max_cursors=max_cursors, mesh=mesh)
+                             max_cursors=max_cursors, size_hint=size_hint, mesh=mesh)

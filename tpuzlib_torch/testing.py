@@ -142,6 +142,16 @@ def zlib_stream(data: np.ndarray, level: int = 6, wbits: int = 15,
     return b"".join(parts) + c.flush()
 
 
+def device_route(data, device="cpu", **options) -> np.ndarray:
+    """deflate()'s device route (api/deflate_api._deflate_device) on `data`
+    at any size, with deflate()'s options: the bytes deflate() gives on a
+    card from DEVICE_MIN_BYTES."""
+    from .api.deflate_api import Deflater, _deflate_device
+    from .common import u8_view
+
+    return _deflate_device(u8_view(data), Deflater(**options), device)
+
+
 def inflate_streams(n: int = 1 << 16, seed: int = 0) -> dict:
     """name -> (raw DEFLATE stream uint8, its bytes uint8) for every kind
     of block the device inflate meets, about n bytes of input each:
@@ -167,7 +177,7 @@ def inflate_streams(n: int = 1 << 16, seed: int = 0) -> dict:
         "stored": (raw(hidden[3 * n // 8 : 5 * n // 8]), hidden[3 * n // 8 : 5 * n // 8]),
         "sync flush": (raw(blend, flush_every=n // 8), blend),
         "hidden stored": (raw(hidden, mem_level=6), hidden),
-        "port encoder": (deflate(blend, format="raw", device="cpu"), blend),
+        "port encoder": (device_route(blend, format="raw"), blend),
     }
 
 
