@@ -62,7 +62,12 @@ tpuzlib_torch/kernels/csrc, then:
      decode's pieces apart, both expansions included;
   H  holds the CRC probe kernels (the read floor crc_rowsum, the bit
      unpack crc_unpack in u8, i32 and bf16, the GF(2) product gf2_bits_mm
-     on 8 MiB of bits unpacked beforehand, the tensor-core forms
+     on 8 MiB of bits unpacked beforehand (a wgmma kernel fed by TMA, K
+     split over a cluster), also on the same bits 3 elements off a
+     16-byte boundary (gf2_bits_mm_ldg, route "ldg", off the probes'
+     path; "H bits" gives both device times beside the library calls,
+     ldg_library_ms the bf16 product of those offset bits),
+     the tensor-core forms
      crc_forms_mm in bf16 and int8) to their plain versions on 256 MiB,
      requires both forms to give zlib's CRC through the host combine and
      to equal the table fold's, holds both forms on the same 256 MiB at
@@ -71,7 +76,7 @@ tpuzlib_torch/kernels/csrc, then:
      tile) the tools run beside the table fold (each "H time" line names
      the route of the rows), then runs the three probes of
      tpuzlib_torch/tools at 8 MiB; their launches are taken over those
-     runs;
+     runs, gf2_bits_mm's rows' by their route (crc32_probe.BITS_ROUTES);
   I  holds the gather and primitive probe kernels (gather_probe.cu,
      inflate_prims.cu) to their plain versions: take_along on (64, 4352)
      along axis 1 (x's row staged in shared memory) and on (64, 65536)
@@ -86,7 +91,13 @@ tpuzlib_torch/kernels/csrc, then:
      beside the byte bound the shared-memory request floor of their
      gathers; each loop row's launches are those of its design
      (gather_probe.LOOP_ROUTES) over the probes' runs; flat_gather (from the tools' 128 KiB table, staged, and from a
-     256 KiB one, flat_gather_large, through the cache), shift_screen and
+     256 KiB one, flat_gather_large, through the cache), shift_screen
+     (steps 16, its register route; shift_screen_staged, steps 40, off
+     the probes' path; each row's launches its route's,
+     gather_probe.SHIFT_ROUTES, and an "I shift" line its device time
+     also with the L2 evicted and its dirty lines written back by a 64 MiB
+     read before each launch, events around the launch alone,
+     flushed_device_ms) and
      scatter_max on 8 chunks of (2304, 128)
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
      tools/probe_primitives.py:48 sizes them, in the main path's batch of
@@ -186,8 +197,12 @@ outside the tensor cores (its table has no integer rate; a higher rate
 only lowers the bound), or, for the tensor-core products of H, the
 published dense bf16 or int8 rate (`op_rate` in the row).  library_ms is
 one PyTorch call computing the same function: the row sums for
-crc_rowsum, a float32 torch.mm for gf2_bits_mm (its row adds torch._int_mm
-as library_int8_ms), torch.gather for take_along (on in-range indices,
+crc_rowsum, the bf16 torch.mm(bits, m, out_dtype=torch.float32) for
+gf2_bits_mm and gf2_bits_mm_ldg (on the offset bits), the same function
+but for the parity (a float32 torch.mm
+where the card's torch refuses out_dtype: library_call says which; its row
+adds the float32 product as library_f32_ms and torch._int_mm as
+library_int8_ms), torch.gather for take_along (on in-range indices,
 int64 beforehand), torch.take for flat_gather, scatter_reduce_ "amax" for
 scatter_max; no single call computes any other kernel's function (the
 loop, the shift screen's 16 rolls under a max, the inflate primitives'
@@ -230,7 +245,11 @@ OFF_PATH = {"adler32": "the public Adler-32 runs adler32_scalar's kernel, which 
             "vec_cond_while_smem": "vec_cond_while keeps the probes' 128 and 8,192 lanes in "
                                    "registers; shared memory takes 8,193 to staged_words()",
             "vec_cond_while_global": "vec_cond_while runs through device memory only past "
-                                     "staged_words() lanes"}
+                                     "staged_words() lanes",
+            "gf2_bits_mm_ldg": "the probe's bits start on a 16-byte boundary (route tma); "
+                               "bits off one take the ldg route",
+            "shift_screen_staged": "the probe screens 16 steps, which the register route "
+                                   "takes; more than 16 take the staged route"}
 
 
 def emit(obj) -> None:
@@ -271,6 +290,37 @@ def device_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def flushed_ms(fn, reps: int = 20) -> float:
+    """Device time of fn() in ms with a cold, clean L2: before each of
+    `reps` calls a read of 64 MiB (more than the H100's 50 MB L2) evicts
+    what the L2 holds and writes its dirty lines back; CUDA events around
+    each call alone time it; all queued behind a sleep kernel (sized as
+    device_ms sizes it) after 3 warm-ups; the mean of the calls."""
+    evict = torch.ones(16 << 20, dtype=torch.int32, device=DEVICE)
+    total = torch.empty((), dtype=torch.int64, device=DEVICE)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * reps)]
+
+    def call(i):
+        torch.sum(evict, 0, out=total)
+        marks[2 * i].record()
+        fn()
+        marks[2 * i + 1].record()
+
+    for i in range(3):
+        call(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        call(i)
+        torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / reps
+    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * SLEEP_HZ))
+    for i in range(reps):
+        call(i)
+    torch.cuda.synchronize()
+    return sum(marks[2 * i].elapsed_time(marks[2 * i + 1]) for i in range(reps)) / reps
 
 
 def nbytes(x) -> int:
@@ -937,12 +987,28 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
     rows = big.view(-1, 1024)
     small = rows[: (8 << 20) // 1024]
     bits = cp.plane_bits(small)
+    # the same bits 3 elements past a 16-byte boundary: no tensor map takes
+    # them, the kernel's consumers load them (route "ldg", off the probes' path)
+    bits_ldg = torch.empty(bits.numel() + 8, dtype=torch.bfloat16, device=dev)[3:]
+    bits_ldg = bits_ldg[: bits.numel()].view(bits.shape)
+    bits_ldg.copy_(bits)
     m = cp.form_matrix(1024, torch.bfloat16, dev)
-    # the library calls: a float32 product of 0/1 values, exact, with TF32
-    # off so that it is the float32 product; and the int8 product
+    # the library calls: the bf16 product into float32 (the same function on
+    # the same input, but for the parity), else a float32 product of 0/1
+    # values, exact, with TF32 off so that it is the float32 product; and
+    # the int8 product
     torch.backends.cuda.matmul.allow_tf32 = False
     bits_f32, m_f32 = bits.float(), m.float()
     bits_i8, m_i8 = bits.to(torch.int8), m.to(torch.int8)
+    try:
+        torch.mm(bits[:1], m, out_dtype=torch.float32)
+        bits_library, ldg_library, bits_library_note = (
+            lambda: torch.mm(bits, m, out_dtype=torch.float32),
+            lambda: torch.mm(bits_ldg, m, out_dtype=torch.float32),
+            "torch.mm(bits, m, out_dtype=torch.float32), bf16")
+    except (TypeError, RuntimeError) as e:
+        bits_library = ldg_library = lambda: torch.mm(bits_f32, m_f32)
+        bits_library_note = "float32 torch.mm: this torch refuses out_dtype (%s)" % e
     # operations: an add a byte; a shift-and-mask and an add a bit; the
     # products' multiply-adds (8 bits x 32 columns x 2 a byte of the forms)
     cases = {"crc_rowsum": (lambda: cp.crc_rowsum(rows), lambda: cp.crc_rowsum_plain(rows), src,
@@ -954,18 +1020,38 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
             src, "tools/probe_crc2.py:122", (rows,), 16 * n)
     cases["gf2_bits_mm"] = (lambda: cp.gf2_bits_mm(bits, m), lambda: cp.gf2_bits_mm_plain(bits, m),
                             src, "tools/probe_crc2.py:179", (bits, m), 2 * bits.numel() * 32)
+    cases["gf2_bits_mm_ldg"] = (lambda: cp.gf2_bits_mm(bits_ldg, m),
+                                lambda: cp.gf2_bits_mm_plain(bits_ldg, m), src,
+                                "tools/probe_crc2.py:179", (bits_ldg, m), 2 * bits.numel() * 32)
     for dt, (torch_dtype, _) in cp.DTYPES.items():
         cases["crc_forms_mm_" + dt] = (
             lambda dt=dt: cp.crc_forms_mm(rows, dt), lambda dt=dt: cp.crc_forms_mm_plain(rows, dt),
             src, "tools/probe_crc.py:70", (rows, cp.form_matrix(1024, torch_dtype, dev)), 512 * n)
-    rates = {"gf2_bits_mm": BF16_RATE, "crc_forms_mm_bf16": BF16_RATE, "crc_forms_mm_i8": INT8_RATE}
+    rates = {"gf2_bits_mm": BF16_RATE, "gf2_bits_mm_ldg": BF16_RATE,
+             "crc_forms_mm_bf16": BF16_RATE, "crc_forms_mm_i8": INT8_RATE}
     out = check_kernels(cases, phase="H", rates=rates, library={
-        "crc_rowsum": lambda: rows.sum(1, dtype=torch.int32),
-        "gf2_bits_mm": lambda: torch.mm(bits_f32, m_f32)})
+        "crc_rowsum": lambda: rows.sum(1, dtype=torch.int32), "gf2_bits_mm": bits_library,
+        "gf2_bits_mm_ldg": ldg_library})
     for dt in cp.DTYPES:
         out["crc_forms_mm_" + dt]["also_replaces"] = "tools/probe_crc3.py:63 (the bf16 kernel)"
-    out["gf2_bits_mm"]["library_int8_ms"] = cuda_ms(lambda: torch._int_mm(bits_i8, m_i8))
-    del bits_f32, bits_i8
+    gf2 = out["gf2_bits_mm"]
+    gf2["library_call"] = bits_library_note
+    gf2["library_f32_ms"] = cuda_ms(lambda: torch.mm(bits_f32, m_f32))
+    gf2["library_int8_ms"] = cuda_ms(lambda: torch._int_mm(bits_i8, m_i8))
+    for name, x in (("gf2_bits_mm", bits), ("gf2_bits_mm_ldg", bits_ldg)):
+        out[name].update(kernel="gf2_bits_mm", rows_route=cp.bits_mm_route(x),
+                         device_ms=device_ms(cases[name][0]))
+        out[name]["device_pct_of_bound"] = 100 * out[name]["bound_ms"] / out[name]["device_ms"]
+    if (gf2["rows_route"], out["gf2_bits_mm_ldg"]["rows_route"]) != ("tma", "ldg"):
+        raise SystemExit("phase H: gf2_bits_mm's rows do not cover both routes")
+    emit({"phase": "H bits", **{k: gf2[k] for k in ("ms", "device_ms", "bound_ms",
+                                                     "device_pct_of_bound", "library_ms",
+                                                     "library_call", "library_f32_ms",
+                                                     "library_int8_ms")},
+          "ldg_ms": out["gf2_bits_mm_ldg"]["ms"],
+          "ldg_device_ms": out["gf2_bits_mm_ldg"]["device_ms"],
+          "ldg_library_ms": out["gf2_bits_mm_ldg"]["library_ms"]})
+    del bits_f32, bits_i8, bits_ldg
 
     want = zlib.crc32(big_host)
     fold = crc32_cuda.crc32_forms(big, 0, 1)
@@ -1011,7 +1097,9 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
     time_line("crc_rowsum", None, 1024, None, n, out["crc_rowsum"])
     for mode in cp.MODES:
         time_line("crc_unpack", mode, 1024, None, n, out["crc_unpack_" + mode])
-    time_line("gf2_bits_mm", "bf16", 1024, None, small.numel(), out["gf2_bits_mm"])
+    for name in ("gf2_bits_mm", "gf2_bits_mm_ldg"):
+        time_line("gf2_bits_mm", "bf16", 1024, None, small.numel(), out[name],
+                  out[name]["rows_route"])
     for dt, (torch_dtype, _) in cp.DTYPES.items():
         for B, tile in FORM_PAIRS:
             if (B, tile) == (1024, cp.TILES[0]):
@@ -1034,10 +1122,20 @@ def phase_h(big_host: np.ndarray, big) -> tuple:
           "i8_over_fold": i8_ms / fold_ms})
 
     _build.reset_launches()
+    for route in cp.BITS_ROUTES:
+        cp.BITS_ROUTES[route] = 0
     for probe in (probe_crc, probe_crc2, probe_crc3):
         probe.main(["--mib", "8"])
     torch.cuda.synchronize()
-    return out, {k: _build.LAUNCHES[k] for k in out}
+    if sum(cp.BITS_ROUTES.values()) != _build.LAUNCHES["gf2_bits_mm"]:
+        raise SystemExit("phase H: gf2_bits_mm's launches by route %s do not add up to %d"
+                         % (cp.BITS_ROUTES, _build.LAUNCHES["gf2_bits_mm"]))
+    launches = {k: _build.LAUNCHES[k] for k in out if k in _build.LAUNCHES}
+    # each gf2_bits_mm row's launches: its route's
+    for name in ("gf2_bits_mm", "gf2_bits_mm_ldg"):
+        launches[name] = cp.BITS_ROUTES[out[name]["rows_route"]]
+        out[name]["launches_by_route"] = dict(cp.BITS_ROUTES)
+    return out, launches
 
 
 def phase_i(smi: str) -> tuple:
@@ -1110,9 +1208,18 @@ def phase_i(smi: str) -> tuple:
         design[name] = "staged" if table.numel() <= staged else "ldg"
     if sorted(design.values()) != ["ldg"] * 4 + ["staged"] * 2:
         raise SystemExit("phase I: the gather rows do not cover both designs: %s" % design)
+    # shift_screen at the tool's 16 steps (the register route) and at 40,
+    # past its window (the staged route, off the probes' path)
     sx = ints(chunks)
-    cases["shift_screen"] = (lambda: gp.shift_screen(sx, 16), lambda: gp.shift_screen_plain(sx, 16),
-                             gsrc, "tools/probe_primitives.py:208", (sx,), 16 * sx.numel())
+    shift_routes = {}
+    for name, steps in (("shift_screen", 16), ("shift_screen_staged", 40)):
+        cases[name] = (lambda steps=steps: gp.shift_screen(sx, steps),
+                       lambda steps=steps: gp.shift_screen_plain(sx, steps), gsrc,
+                       "tools/probe_primitives.py:208", (sx,), steps * sx.numel())
+        shift_routes[name] = gp.shift_route(sx, steps)
+        kernel_of[name] = "shift_screen"
+    if sorted(shift_routes.values()) != sorted(gp.SHIFT_DESIGNS):
+        raise SystemExit("phase I: the shift rows do not cover every route: %s" % shift_routes)
     sidx, svals = ints(chunks, 0, chunks[1]), ints(chunks, 0, (1 << 31) - 1)
     sidx64, sout = sidx.long(), torch.zeros(chunks, dtype=torch.int32, device=DEVICE)
     cases["scatter_max"] = (lambda: gp.scatter_max(sidx, svals, chunks[1]),
@@ -1208,6 +1315,16 @@ def phase_i(smi: str) -> tuple:
         rows[name]["kernel"] = kernel
     for name, route in while_route.items():  # each row's launches: its route's
         rows[name].update(kernel="vec_cond_while", design=route, steps=while_steps[name])
+    # the shift screen's 18.9 MB fit the 50 MB L2: its device time again
+    # with the L2 evicted before each launch
+    for name, route in shift_routes.items():
+        rows[name]["design"] = route
+        rows[name]["flushed_device_ms"] = flushed_ms(cases[name][0])
+        rows[name]["flushed_pct_of_bound"] = 100 * rows[name]["bound_ms"] / rows[name][
+            "flushed_device_ms"]
+        emit({"phase": "I shift", **{k: rows[name][k] for k in (
+            "name", "design", "ms", "device_ms", "flushed_device_ms", "bound_ms",
+            "device_pct_of_bound", "flushed_pct_of_bound")}})
     one = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
     one64 = one.long()
     floor, lib_floor = lambda: gp.take_along(one, one, 1), lambda: torch.gather(one, 1, one64)
@@ -1223,17 +1340,21 @@ def phase_i(smi: str) -> tuple:
                        for k, v in rows_us.items()}})
 
     _build.reset_launches()
-    for d in gp.LOOP_ROUTES:
-        gp.LOOP_ROUTES[d] = 0
+    for counts in (gp.LOOP_ROUTES, gp.SHIFT_ROUTES):
+        for d in counts:
+            counts[d] = 0
     for probe in (probe_gather, probe_primitives, probe_inflate_prims, probe_inflate_prims2):
         probe.main([])
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES[kernel_of.get(k, k)] for k in rows}
-    if sum(gp.LOOP_ROUTES.values()) != _build.LAUNCHES["take_along_loop"]:
-        raise SystemExit("phase I: take_along_loop's launches by design %s do not add up to %d"
-                         % (gp.LOOP_ROUTES, _build.LAUNCHES["take_along_loop"]))
+    for kernel, counts in (("take_along_loop", gp.LOOP_ROUTES), ("shift_screen", gp.SHIFT_ROUTES)):
+        if sum(counts.values()) != _build.LAUNCHES[kernel]:
+            raise SystemExit("phase I: %s's launches by design %s do not add up to %d"
+                             % (kernel, counts, _build.LAUNCHES[kernel]))
     for name, d in loop_designs.items():  # a loop row's launches: its design's
         launches[name] = gp.LOOP_ROUTES[d]
+    for name, d in shift_routes.items():  # a shift row's launches: its route's
+        launches[name] = gp.SHIFT_ROUTES[d]
     return rows, launches
 
 

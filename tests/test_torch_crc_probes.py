@@ -195,6 +195,32 @@ def test_gf2_bits_mm_matches_the_tools_mm_kernel():
     assert torch.equal(got, crc32_probe.crc_forms_mm(torch.from_numpy(x)))
 
 
+@pytest.mark.parametrize("fill", ["random", "ones"])
+@pytest.mark.parametrize("K", [128, 256, 384, 640, 1024, 2048, 4096])
+def test_gf2_bits_mm_matches_the_tools_mm_kernel_on_random_matrices(K, fill):
+    """The tool's kernel at more shapes, K = 8 x block (block 16 to 512),
+    on random 0/1 M and random bits or all ones (a column's sum then its
+    count of ones in M, up to K): the plain version gives its columns."""
+    tile, block, nb = 8, K // 8, 16
+    rng = np.random.default_rng(K)
+    bits = (np.ones((nb, K), np.float32) if fill == "ones"
+            else rng.integers(0, 2, (nb, K)).astype(np.float32))
+    m = rng.integers(0, 2, (K, 32)).astype(np.float32)
+    want = np.asarray(pl.pallas_call(
+        _mm_kernel(tile, block),
+        out_shape=jax.ShapeDtypeStruct((nb, 32), jnp.int32),
+        grid=(nb // tile,),
+        in_specs=[pl.BlockSpec((tile, K), lambda i: (i, 0)),
+                  pl.BlockSpec((K, 32), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((tile, 32), lambda i: (i, 0)),
+        interpret=True,
+    )(jnp.asarray(bits, jnp.bfloat16), jnp.asarray(m)))
+    tbits, tm = (torch.from_numpy(a).to(torch.bfloat16) for a in (bits, m))
+    got = crc32_probe.gf2_bits_mm(tbits, tm)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, (bits.astype(np.int64) @ m.astype(np.int64)) & 1)
+
+
 def test_plain_versions_work_in_row_slices(monkeypatch):
     """Slices of a few rows give what one slice gives, for every kernel."""
     x = torch.from_numpy(_bytes(37, 1024, 13))

@@ -11,9 +11,14 @@ exact equality, to the plain version and to the tool's kernel in
 interpret mode on the same seeded numpy input.  crc_unpack's kernel
 builds its bit planes as the forms kernel does and sums them a plane at a
 time (__dp4a in i32, bf16x2 FMAs flushed every 32 words in bf16): its
-accumulators are replayed on words of random and all-0xFF bytes.  The
-route helpers (forms_route, loop_design, vec_cond_while's while_route)
-are held at their boundaries.  No card is needed.
+accumulators are replayed on words of random and all-0xFF bytes.
+shift_screen's register route screens a chunk's body in warp tiles, its
+lanes' predecessors from the lanes before them, and the words around it
+one at a time (gather_probe.card_shift_plain): the replay is held to the
+plain version.  gf2_bits_mm's checks are held to what its card call
+refuses.  The route helpers (forms_route, bits_mm_route, loop_design,
+shift_route, vec_cond_while's while_route) are held at their
+boundaries.  No card is needed.
 """
 
 import functools
@@ -277,3 +282,98 @@ def test_while_route_at_its_limits(lanes, route):
     assert ip.REG_LANES == 8 * 1024
     assert ip.while_route(lanes, H100_STAGED_WORDS) == route
     assert route in ip.WHILE_ROUTES
+
+
+# ---- gf2_bits_mm ----------------------------------------------------------------
+
+@pytest.mark.parametrize("offset", list(range(9)))
+def test_bits_mm_route_from_alignment(offset):
+    """bf16 bits on a 16-byte boundary (every 8 elements) go by TMA."""
+    buf = torch.zeros(4 * 128 + 16, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    bits = buf[offset : offset + 4 * 128].view(4, 128)
+    assert cp.bits_mm_route(bits) == ("tma" if offset % 8 == 0 else "ldg")
+
+
+@pytest.mark.parametrize("row", [0, 1, 2, 5])
+@pytest.mark.parametrize("K", [128, 384, 1024])
+def test_bits_mm_route_keeps_tma_for_later_rows(K, row):
+    """A row's pitch, 2K bytes, is a multiple of 256: bits from any row of
+    bits on a 16-byte boundary start on one too, and go by TMA."""
+    bits = torch.zeros(8, K, dtype=torch.bfloat16)
+    assert bits.data_ptr() % 16 == 0
+    assert cp.bits_mm_route(bits[row:]) == "tma"
+
+
+_BITS = torch.zeros(4, 256, dtype=torch.bfloat16)
+_M = torch.zeros(256, 32, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits,m,exc", [
+    (_BITS, _M.float(), TypeError),
+    (_BITS.reshape(-1), _M, ValueError),
+    (_BITS[:, ::2], _M[:128], ValueError),
+    (_BITS[:, :0], _M[:0], ValueError),
+    (_BITS[:, :64].contiguous(), _M[:64], ValueError),
+    (_BITS[:, :128].contiguous(), _M, ValueError),
+    (_BITS, torch.zeros(256, 33, dtype=torch.bfloat16), ValueError),
+    (_BITS, _M.to("meta"), ValueError),
+], ids=["m_f32", "bits_1d", "bits_strided", "k0", "k64", "m_rows", "m_33_cols", "two_devices"])
+def test_gf2_bits_mm_refuses_what_its_kernel_does(bits, m, exc):
+    """The checks a card call makes before its launch (_check_bits), run on
+    the CPU by the plain version; test_torch_crc_probes.py holds the
+    others."""
+    with pytest.raises(exc):
+        cp.gf2_bits_mm(bits, m)
+
+
+def test_gf2_bits_mm_of_no_rows():
+    """No rows give an empty (0, 32) parity, as the card call does without
+    a launch."""
+    got = cp.gf2_bits_mm(_BITS[:0], _M)
+    assert got.shape == (0, 32) and got.dtype == torch.int32
+
+
+# ---- shift_screen ---------------------------------------------------------------
+
+@pytest.mark.parametrize("steps,route", [(0, "regs"), (1, "regs"), (gp.SHIFT_WINDOW, "regs"),
+                                         (gp.SHIFT_WINDOW + 1, "staged"), (40, "staged"),
+                                         (gp.MAX_STEPS, "staged")])
+def test_shift_route_at_its_window(steps, route):
+    x = torch.zeros(2, 3, 129, dtype=torch.int32)
+    assert gp.shift_route(x, steps) == route
+
+
+def test_shift_route_refuses_what_shift_screen_does():
+    x = torch.zeros(3, 129, dtype=torch.int32)
+    for bad, steps in ((x, gp.MAX_STEPS + 1), (x, -1), (x.reshape(-1), 16),
+                       (torch.zeros(65536, 1, 1, dtype=torch.int32), 16)):
+        with pytest.raises(ValueError):
+            gp.shift_route(bad, steps)
+
+
+@pytest.mark.parametrize("offset", range(4))
+@pytest.mark.parametrize("n", [1, 3, 10, 16, 19, 20, 23, 129, 1000])
+def test_shift_split_bounds_the_body(n, offset):
+    """The body starts on a 16-byte boundary at or past word SHIFT_WINDOW
+    (no word of it wraps) and ends at the chunk's last whole int4."""
+    v0, n4 = gp.shift_split(n, offset)
+    assert (offset + v0) % 4 == 0 and gp.SHIFT_WINDOW <= v0 < gp.SHIFT_WINDOW + 4
+    v1 = v0 + 4 * n4
+    if n >= v0:
+        assert v1 <= n < v1 + 4
+    else:
+        assert n4 == 0
+
+
+@pytest.mark.parametrize("steps", [0, 1, 15, 16])
+@pytest.mark.parametrize("offset", range(4))
+@pytest.mark.parametrize("n", [1, 3, 10, 19, 20, 23, 129, 1000, 4353])
+def test_card_shift_replay_matches_plain(n, offset, steps):
+    """The register route's split (head and tail words alone, the body in
+    warp tiles whose lanes 28-31 send the words before the tile) gives
+    the plain screen on 3 chunks of n words, each chunk's first word at its
+    own offset of a 16-byte boundary."""
+    rng = np.random.default_rng(n + 7 * offset + steps)
+    x = torch.from_numpy(rng.integers(I32.min, I32.max, (3, 1, n), dtype=np.int32))
+    assert torch.equal(gp.card_shift_plain(x, steps, offset), gp.shift_screen_plain(x, steps))

@@ -266,6 +266,19 @@ def test_shift_screen_matches_k_roll(rows):
     _equal(gp.shift_screen(_t(one), 16), _call(k_roll, one.shape, jnp.int32, one))
 
 
+@pytest.mark.parametrize("shape", [(1, 129), (3, 43), (1, 10), (2, 5)])
+def test_shift_screen_matches_k_roll_on_other_chunks(shape):
+    """k_roll's global shift on chunks of 129 and 10 words, and the card's
+    register route (gp.card_shift_plain) at each offset of a 16-byte
+    boundary."""
+    rng = np.random.default_rng(sum(shape))
+    x = rng.integers(I32.min, I32.max, shape, dtype=np.int32)
+    want = _call(k_roll, x.shape, jnp.int32, x)
+    _equal(gp.shift_screen(_t(x), 16), want)
+    for offset in range(4):
+        _equal(gp.card_shift_plain(_t(x), 16, offset), want)
+
+
 def test_shift_screen_takes_chunks_and_short_arrays():
     rng = np.random.default_rng(9)
     x = rng.integers(I32.min, I32.max, (3, 2, 5), dtype=np.int32)

@@ -27,8 +27,8 @@ dtype.  `tile` is the number of blocks a CUDA block owns.
 
 On a CUDA tensor each wrapper launches its kernel and counts it in
 _build.LAUNCHES (crc_unpack per mode, crc_forms_mm per dtype, and in
-FORM_ROUTES per route); on a CPU tensor it runs the plain version beside
-it.  The plain versions are exact (float64 products of 0/1 values) and
+FORM_ROUTES per route; gf2_bits_mm in BITS_ROUTES per route); on a CPU
+tensor it runs the plain version beside it.  The plain versions are exact (float64 products of 0/1 values) and
 work in row slices, so their working memory stays near 512 MiB at any
 size.
 
@@ -37,6 +37,9 @@ M's rows scaled (csrc/crc32_probe.cu): card_order, card_matrix_rows and
 card_image give that order, M's rows in it and their image in the
 kernel's shared-memory layout; card_forms_plain replays the kernel's
 arithmetic on the host; forms_route gives the route of its rows.
+gf2_bits_mm's kernel splits K over a cluster of CUDA blocks whose leader
+adds the others' sums, exact in any order (every partial sum is an
+integer below 2^24); bits_mm_route gives the route of its bits.
 """
 
 from __future__ import annotations
@@ -55,12 +58,14 @@ TILES = (256, 512, 1024)  # blocks a CUDA block of crc_forms_mm (the tools' tile
 DTYPES = {"bf16": (torch.bfloat16, 0), "i8": (torch.int8, 1)}
 MODES = {"u8": 1, "i32": 2, "bf16": 3}  # crc_unpack; mode 0 is crc_rowsum
 MAX_ROW = 1 << 23  # a row's byte sum stays below 2^31
-BITS_K = 128  # gf2_bits_mm's K is a multiple of this (16 for each of its 8 warps)
+BITS_K = 128  # gf2_bits_mm's K is a multiple of this
 SLICE = 32  # bytes of each row in a K slice of crc_forms_mm's kernel
-# crc_forms_mm's routes for the rows, by the code the kernel takes: by TMA
-# (rows on a 16-byte boundary), or loaded by the consumers (any offset)
+# the routes of crc_forms_mm's rows and gf2_bits_mm's bits, by the code the
+# kernel takes: by TMA (on a 16-byte boundary), or loaded by the consumers
+# (any offset)
 ROUTES = ("tma", "ldg")
 FORM_ROUTES = {route: 0 for route in ROUTES}  # crc_forms_mm's launches by route
+BITS_ROUTES = {route: 0 for route in ROUTES}  # gf2_bits_mm's launches by route (its bits')
 _WORK = 1 << 29  # bytes a plain version works on at once
 
 
@@ -159,9 +164,17 @@ def gf2_bits_mm_plain(bits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return _by_rows(lambda c: ((c.double() @ md).long() & 1).int(), bits, 10 * bits.shape[1])
 
 
+def bits_mm_route(bits: torch.Tensor) -> str:
+    """The route of gf2_bits_mm's bits on the card: "tma" where they start
+    on a 16-byte boundary (what a TMA tensor map takes; a row's pitch, 2K
+    bytes, is a multiple of 256), else "ldg", the kernel's consumers loading
+    the rows' words themselves."""
+    return "tma" if bits.data_ptr() % 16 == 0 else "ldg"
+
+
 def gf2_bits_mm(bits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """int32[nb, 32]: (bits @ m) & 1 for 0/1 entries; bits bf16 (nb, K),
-    m bf16 (K, 32)."""
+    m bf16 (K, 32); the bits go by the route bits_mm_route gives."""
     if _build.on_cpu(bits):
         return gf2_bits_mm_plain(bits, m)
     _check_bits(bits, m)
@@ -169,8 +182,11 @@ def gf2_bits_mm(bits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         raise ValueError("gf2_bits_mm: m must start on a 32-byte boundary")
     out = torch.empty(bits.shape[0], 32, dtype=torch.int32, device=bits.device)
     if bits.shape[0]:
+        route = bits_mm_route(bits)
         _build.launch("gf2_bits_mm", "tz_gf2_bits_mm", bits.device, bits.data_ptr(),
-                      bits.shape[0], bits.shape[1], m.data_ptr(), out.data_ptr())
+                      bits.shape[0], bits.shape[1], ROUTES.index(route), m.data_ptr(),
+                      out.data_ptr())
+        BITS_ROUTES[route] += 1
     return out
 
 

@@ -34,10 +34,9 @@
 // plane of four bytes or of a byte pair) and sum a plane at a time, by
 // __dp4a in i32 and by bf16x2 FMAs in bf16, whose sums become integers
 // once every 32 words (RowAcc).
-// gf2_bits_mm has its bits in memory already: warp-level nvcuda::wmma,
-// m16n16k16 in bf16; a block owns 32 rows and its 8 warps split K, loading
-// their fragments straight from device memory, so that the 8 MiB of the
-// tool (8,192 rows) still give 256 blocks.
+// gf2_bits_mm has its bits in memory already: a warp-specialised wgmma
+// kernel with both operands streamed by TMA into shared memory, 128 rows a
+// CUDA block and K split over a cluster (its note, below).
 //
 // crc_forms_mm is a warp-specialised wgmma kernel.  A CUDA block owns
 // `tile` rows (the tools' tile: 256, 512 or 1024): two consumer warpgroups
@@ -90,11 +89,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
-
-using namespace nvcuda;
 
 // ---- row sums: the read floor and the bit unpack ------------------------
 
@@ -260,16 +256,6 @@ crc_rowsum_kernel(const uint8_t* __restrict__ data, long long nb, int row,
 
 // ---- the GF(2) products on the tensor cores ------------------------------
 
-constexpr int kSplit = 8;    // gf2_bits_mm: warps of a CUDA block, each a K range of its rows
-constexpr int kBitsR = 2;    // gf2_bits_mm: row tiles of 16 a warp (32 rows a CUDA block)
-
-template <typename T> struct AccOf;
-template <> struct AccOf<__nv_bfloat16> { using type = float; };
-template <> struct AccOf<signed char> { using type = int; };
-
-template <typename T, int R>
-using AccFrags = wmma::fragment<wmma::accumulator, 16, 16, 16, typename AccOf<T>::type>[R][2];
-
 // crc_forms_mm's shape: two consumer warpgroups and a producer warp; K in
 // slices of kSlice bytes a row (a stage) through a ring of kStages
 constexpr int kConsumers = 2;
@@ -343,8 +329,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// B's descriptor: a K-major 32 x (128-byte row) box of M at shared address
-// `addr`, 128-byte swizzle, 8-row groups 1024 bytes apart
+// a K-major operand's descriptor: rows of 128 bytes of K at shared address
+// `addr`, 128-byte swizzle, 8-row groups 1024 bytes apart (crc_forms_mm's
+// B, a 32-row box of M; gf2_bits_mm's A, 64 rows of bits)
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
@@ -607,69 +594,219 @@ crc_forms_mm_kernel(const __grid_constant__ CUtensorMap rows, const uint8_t* __r
 }
 
 // gf2_bits_mm: out[row] = bits[row] (K bf16 0/1) @ M (K x 32 bf16 0/1) & 1.
-// A CUDA block owns 32 rows; its 8 warps split K, each loading its A and B
-// fragments straight from device memory (M stays in L2), and add their sums
-// in shared memory at the end.  Bits that are not 32-byte aligned, and the
-// last rows of a ragged nb, go through a staged tile of the warp.
-__global__ void __launch_bounds__(kSplit * 32)
-gf2_bits_mm_kernel(const __nv_bfloat16* __restrict__ bits, long long nb, int K,
-                   const __nv_bfloat16* __restrict__ m, int32_t* __restrict__ out, bool aligned) {
-  constexpr int R = kBitsR;
-  __shared__ __align__(32) float part[kSplit][R * 16 * 32];
-  __shared__ __align__(32) __nv_bfloat16 stage[kSplit][16 * 16];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long row0 = static_cast<long long>(blockIdx.x) * R * 16;
-  const bool direct = aligned && row0 + R * 16 <= nb;
-  const int span = K / kSplit;
-  AccFrags<__nv_bfloat16, R> acc;
+// A warp-specialised wgmma kernel with both operands in shared memory.  A
+// CUDA block owns kBitsRows rows: two consumer warpgroups of 64 rows each,
+// and one producer warp whose lane 0 keeps kBitsStages stages in flight
+// through an mbarrier ring, each stage kBitsK K elements: a TMA box of the
+// block's rows (128 bytes of each, 128-byte swizzle, zeros past nb) and M's
+// kBitsK x 32 slice by a second tensor map (64-byte rows, 64-byte swizzle).
+// The consumers run wgmma m64n32k16 with A, their rows, K-major and B, M as
+// the caller lays it out ((K, 32) row-major), N-major through the
+// instruction's transpose flag, so M needs no image.  A block reads M once
+// for 128 rows, a quarter of the bits' bytes from L2.  K is split over a
+// cluster of kBitsCluster blocks, each a range of the stages, so that the
+// tools' 8,192 rows (64 row blocks) still fill the card; the cluster's
+// leader adds its peers' f32 sums from their shared memory and writes the
+// parity.  Every partial sum is an integer below 2^24, exact in f32 in any
+// order.  Bits off a 16-byte boundary (no tensor map takes them) are loaded
+// by the consumers into the same swizzled layout, each warpgroup its own
+// rows, as 4-byte words (two and a funnel shift where the bits lie 2 bytes
+// off a 4-byte boundary); M still comes by TMA.
+constexpr int kBitsK = 64;                    // K elements a stage: 128 bytes of a row
+constexpr int kBitsRows = kConsumers * 64;    // rows of a CUDA block
+constexpr int kBitsStages = 6;               // one CUDA block an SM (4 measured slower)
+constexpr int kBitsCluster = 2;               // CUDA blocks sharing a row block, a K range each
+constexpr int kBitsThreads = kConsumers * 128 + 32;
+constexpr int kBitsA = kBitsRows * kBitsK * 2;  // bytes of bits a stage
+constexpr int kBitsB = kBitsK * 32 * 2;         // bytes of M a stage
+constexpr int kBitsStage = kBitsA + kBitsB;
+constexpr int kBitsPart = kConsumers * 128 * 16 * 4;  // the consumers' f32 sums, for the leader
+constexpr int kBitsSmem = kBitsStages * kBitsStage + kBitsPart + 2 * kBitsStages * 8 + 1024;
+
+// M's descriptor: 16 K rows of 32 bf16 (64 bytes each) at shared address
+// `addr`, N-major, 64-byte swizzle, 8-row groups 512 bytes apart.  N is one
+// swizzle atom wide, so the offset between atoms along N is never used; it
+// is set to the same 512 bytes.
+__device__ __forceinline__ uint64_t m_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (32ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
+// d = A (64 x 16 bf16 at adesc, K-major) @ B (16 x 32 bf16 at bdesc,
+// N-major) + d
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t adesc, uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(adesc), "l"(bdesc), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; what a block wrote to its
+// shared memory before is then visible to the others
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+}
+
+// the 16 bytes at `p` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float4 ld_peer(const void* p, uint32_t rank) {
+  uint32_t at;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(at) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(at)
+               : "memory");
+  return v;
+}
+
+// the "ldg" route: thread t of a warpgroup stores 16-byte chunk i % 8 of
+// row i / 8 of its 64 rows (i = t + 128 j) of stage s into dst, in the
+// layout TMA's 128-byte swizzle gives (chunk c of row r at c ^ r % 8); the
+// rows past nb as zeros.  Every row starts `mis` (0 or 2) bytes past a
+// 4-byte boundary, since its pitch, 2K bytes, is a multiple of 256.
+__device__ __forceinline__ void load_bits(unsigned char* dst, const unsigned char* bits, long long nb,
+                                          int K, long long row, int s, int t, int mis) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    wmma::fill_fragment(acc[r][0], 0.f);
-    wmma::fill_fragment(acc[r][1], 0.f);
-  }
-#pragma unroll 2
-  for (int k = w * span; k < (w + 1) * span; k += 16) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1;
-    wmma::load_matrix_sync(b0, m + static_cast<long long>(k) * 32, 32);
-    wmma::load_matrix_sync(b1, m + static_cast<long long>(k) * 32 + 16, 32);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      const long long first = row0 + r * 16;
-      if (direct) {
-        wmma::load_matrix_sync(a, bits + first * K + k, K);
-      } else {  // lane: row lane / 2, elements 8 * (lane % 2) of the tile
-        const long long g = first + (lane >> 1);
-        uint32_t u[4] = {0u, 0u, 0u, 0u};
-        if (g < nb) {
-          const uint16_t* h = reinterpret_cast<const uint16_t*>(bits + g * K + k + (lane & 1) * 8);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) u[e] = h[2 * e] | (static_cast<uint32_t>(h[2 * e + 1]) << 16);
-        }
-        *reinterpret_cast<uint4*>(stage[w] + (lane >> 1) * 16 + (lane & 1) * 8) =
-            make_uint4(u[0], u[1], u[2], u[3]);
-        __syncwarp();
-        wmma::load_matrix_sync(a, stage[w], 16);
-        __syncwarp();
+  for (int j = 0; j < 4; ++j) {
+    const int i = t + 128 * j, r = i >> 3, c = i & 7;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row + r < nb) {
+      const uint32_t* q = reinterpret_cast<const uint32_t*>(
+          bits + (row + r) * 2LL * K + s * (2 * kBitsK) + c * 16 - mis);
+      if (mis == 0) {
+        v = make_uint4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+      } else {
+        const uint32_t w0 = __ldg(q), w1 = __ldg(q + 1), w2 = __ldg(q + 2), w3 = __ldg(q + 3),
+                       w4 = __ldg(q + 4);
+        v = make_uint4(__funnelshift_r(w0, w1, 16), __funnelshift_r(w1, w2, 16),
+                       __funnelshift_r(w2, w3, 16), __funnelshift_r(w3, w4, 16));
       }
-      wmma::mma_sync(acc[r][0], a, b0, acc[r][0]);
-      wmma::mma_sync(acc[r][1], a, b1, acc[r][1]);
     }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    wmma::store_matrix_sync(part[w] + r * 512, acc[r][0], 32, wmma::mem_row_major);
-    wmma::store_matrix_sync(part[w] + r * 512 + 16, acc[r][1], 32, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < R * 16 * 32; e += kSplit * 32) {
-    float s = 0.f;  // exact: every partial and the total are integers below 2^24
-#pragma unroll
-    for (int v = 0; v < kSplit; ++v) s += part[v][e];
-    const long long g = row0 + (e >> 5);
-    if (g < nb) out[g * 32 + (e & 31)] = static_cast<int32_t>(s) & 1;
+    *reinterpret_cast<uint4*>(dst + r * 128 + ((c ^ (r & 7)) << 4)) = v;
   }
 }
+
+// Tma: the bits by `bmap` (a tensor map of bits, (nb, K) bf16); else loaded
+// by the consumers.  mmap: a tensor map of M, (K, 32) bf16.
+template <bool Tma>
+__global__ void __cluster_dims__(kBitsCluster, 1, 1) __launch_bounds__(kBitsThreads)
+gf2_bits_mm_kernel(const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap mmap,
+                   const unsigned char* __restrict__ bits, long long nb, int K,
+                   int32_t* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float4* part = reinterpret_cast<float4*>(smem + kBitsStages * kBitsStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBitsStages * kBitsStage + kBitsPart);
+  uint64_t* empty = full + kBitsStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t rank = cluster_rank();
+  const long long row0 = static_cast<long long>(blockIdx.x / kBitsCluster) * kBitsRows;
+  // this block's stages [lo, hi) of K / kBitsK; a range may be empty
+  const int stages = K / kBitsK;
+  const int lo = static_cast<int>(static_cast<long long>(stages) * rank / kBitsCluster);
+  const int hi = static_cast<int>(static_cast<long long>(stages) * (rank + 1) / kBitsCluster);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBitsStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  const bool consumer = warp < kConsumers * 4;
+  if (!consumer) {
+    // the producer: stage s into ring slot (s - lo) % kBitsStages once
+    // every consumer warp has released that slot's last stage
+    if (lane == 0) {
+      for (int s = lo; s < hi; ++s) {
+        const int i = s - lo, st = i % kBitsStages;
+        mbar_wait(&empty[st], ((i / kBitsStages) & 1) ^ 1);
+        unsigned char* buf = smem + st * kBitsStage;
+        mbar_expect_tx(&full[st], Tma ? kBitsStage : kBitsB);
+        tma_box(buf + kBitsA, &mmap, 0, s * kBitsK, &full[st]);
+        if (Tma) tma_box(buf, &bmap, s * kBitsK, static_cast<int>(row0), &full[st]);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wg = warp >> 2;
+    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(bits) & 3);
+    for (int s = lo; s < hi; ++s) {
+      const int i = s - lo, st = i % kBitsStages;
+      mbar_wait(&full[st], (i / kBitsStages) & 1);
+      unsigned char* buf = smem + st * kBitsStage;
+      if (!Tma) {
+        load_bits(buf + wg * 64 * 128, bits, nb, K, row0 + 64 * wg, s, threadIdx.x & 127, mis);
+        // the generic stores made visible to wgmma's reads, then the warpgroup's barrier
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+      }
+      const uint32_t a = smem_u32(buf) + wg * 64 * 128, b = smem_u32(buf + kBitsA);
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < kBitsK / 16; ++q) wgmma_ss(acc, b_desc(a + 32 * q), m_desc(b + 1024 * q));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's wgmmas are done: release its slot
+      pin(acc);
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(i - 1) % kBitsStages]);
+      }
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    if (kBitsCluster > 1 && rank != 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        part[q * kConsumers * 128 + threadIdx.x] =
+            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
+  }
+  if (kBitsCluster > 1) cluster_sync();
+  if (consumer && rank == 0) {
+    for (uint32_t peer = 1; peer < kBitsCluster; ++peer) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = ld_peer(&part[q * kConsumers * 128 + threadIdx.x], peer);
+        acc[4 * q] += v.x;
+        acc[4 * q + 1] += v.y;
+        acc[4 * q + 2] += v.z;
+        acc[4 * q + 3] += v.w;
+      }
+    }
+    const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    const long long ra = row0 + 64 * wg + 16 * wq + g, rb = ra + 8;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // accumulator 4j + e: row g (e < 2) or g + 8, column 8j + 2t + e % 2
+      if (ra < nb)
+        *reinterpret_cast<int2*>(out + ra * 32 + 8 * j + 2 * t) =
+            make_int2(static_cast<int>(acc[4 * j]) & 1, static_cast<int>(acc[4 * j + 1]) & 1);
+      if (rb < nb)
+        *reinterpret_cast<int2*>(out + rb * 32 + 8 * j + 2 * t) =
+            make_int2(static_cast<int>(acc[4 * j + 2]) & 1, static_cast<int>(acc[4 * j + 3]) & 1);
+    }
+  }
+  if (kBitsCluster > 1) cluster_sync();  // no block leaves while its leader reads it
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -745,6 +882,43 @@ int launch_forms_route(const void* data, long long nb, int block, int tile, int 
   return launch_forms_tile<T, false>(data, nb, block, tile, mimg, out, stream);
 }
 
+// the two tensor maps of gf2_bits_mm: M (K, 32) in boxes of kBitsK rows,
+// and where Tma the bits (nb, K) in boxes of kBitsRows rows x kBitsK
+template <bool Tma>
+int launch_bits(const void* bits, long long nb, int K, const void* m, void* out,
+                cudaStream_t stream) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t found = encode_tiled(&encode);
+  if (found != cudaSuccess) return static_cast<int>(found);
+  CUtensorMap bmap{}, mmap{};
+  const cuuint32_t steps[2] = {1, 1};
+  const cuuint64_t mdims[2] = {32, static_cast<cuuint64_t>(K)}, mstrides[1] = {64};
+  const cuuint32_t mbox[2] = {32, kBitsK};
+  if (encode(&mmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(m), mdims, mstrides,
+             mbox, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Tma) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(nb)};
+    const cuuint64_t strides[1] = {2 * static_cast<cuuint64_t>(K)};
+    const cuuint32_t box[2] = {kBitsK, kBitsRows};
+    if (encode(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(bits), dims, strides,
+               box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = gf2_bits_mm_kernel<Tma>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBitsSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks =
+      static_cast<unsigned>((nb + kBitsRows - 1) / kBitsRows * kBitsCluster);
+  kernel<<<blocks, kBitsThreads, kBitsSmem, stream>>>(
+      bmap, mmap, static_cast<const unsigned char*>(bits), nb, K, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // mode: 0 the bytes' sum (crc_rowsum); 1, 2, 3 the bit unpack in u8, i32,
@@ -783,15 +957,17 @@ extern "C" int tz_crc_forms_mm(const void* data, long long nb, int block, int ti
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bits: bf16[nb, K], m: bf16[K, 32] (32-byte aligned), K a multiple of 128.
+// bits: bf16[nb, K], 1 <= nb < 2^31 - kBitsRows, K a positive multiple of
+// 128; route: 0 the bits by TMA (16-byte aligned), 1 loaded by the
+// consumers (any offset of a bf16); m: bf16[K, 32], 32-byte aligned.
 // out: int32[nb, 32].
-extern "C" int tz_gf2_bits_mm(const void* bits, long long nb, int K, const void* m, void* out,
-                              void* stream) {
-  if (K <= 0 || K % (16 * kSplit)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool aligned = (reinterpret_cast<uintptr_t>(bits) & 31) == 0;
-  gf2_bits_mm_kernel<<<static_cast<unsigned>((nb + kBitsR * 16 - 1) / (kBitsR * 16)),
-                       kSplit * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(bits), nb, K, static_cast<const __nv_bfloat16*>(m),
-      static_cast<int32_t*>(out), aligned);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int tz_gf2_bits_mm(const void* bits, long long nb, int K, int route, const void* m,
+                              void* out, void* stream) {
+  if (K <= 0 || K % (2 * kBitsK) || nb <= 0 || nb >= (1LL << 31) - kBitsRows ||
+      (route != 0 && route != 1) || reinterpret_cast<uintptr_t>(m) % 32 ||
+      reinterpret_cast<uintptr_t>(bits) % 2 || (route == 0 && reinterpret_cast<uintptr_t>(bits) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (route == 0) return launch_bits<true>(bits, nb, K, m, out, s);
+  return launch_bits<false>(bits, nb, K, m, out, s);
 }

@@ -75,9 +75,8 @@
 // neighbouring threads on neighbouring elements, so that the index reads
 // and the output writes coalesce and the gathers fall in L1 or L2.
 // scatter_max has each thread atomicMax
-// its value into the zeroed output.  shift_screen stages a block's words
-// and the `steps` words before them (wrapping within the chunk) in shared
-// memory, and each thread reads its predecessors there.
+// its value into the zeroed output.  shift_screen keeps a warp's 128 words
+// and their 16 predecessors in registers (its note, below).
 
 #include <atomic>
 #include <cstdint>
@@ -400,27 +399,154 @@ scatter_max_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ 
 }
 
 // b chunks of n words, each shifted within itself: out[p] = the signed max
-// over s in [1, steps] of x[(p - s) mod n] ^ x[p], and 0.  A block owns
-// kThreads words of one chunk (blockIdx.y) and stages them with the
-// `steps` words before them.
+// over s in [1, steps] of x[(p - s) mod n] ^ x[p], and 0.
+//
+// Bound: 8 bytes a word (x read, out written) at 3.35 TB/s; a word's steps
+// xors and maxes come near that at steps = 16 (32 integer steps a word on
+// 64 lanes an SM and clock).  So the register route keeps every operand in
+// registers and moves 16 bytes a load and a store:
+//   - a chunk's body, from the first 16-byte boundary at or past its word
+//     kShiftWindow to its last whole 16 bytes, goes in warp tiles of 32 int4s,
+//     each lane one int4 (4 words) in and one out;
+//   - a lane's 16 predecessors are the int4s of the 4 lanes before it, by 4
+//     shuffles a word; where they lie before the tile, lanes 28-31 hold them
+//     (one more 16-byte load each, the tile's 16 words before it, from L1 or
+//     L2) and send them in place of their own for the shuffles that wrap;
+//   - a grid-stride loop over the tiles, up to a card's worth of resident
+//     blocks (loading the next tile before the current one's arithmetic
+//     measured slower, probes/bits_shift_breakdown.py); offsets within a
+//     tile are 32-bit;
+//   - the words before the body (which may wrap, the only ones) and after
+//     it, at most 19 + 3 a chunk, go one a thread, each with its
+//     predecessors' loads issued together; only they wrap, more than once
+//     only where the chunk is shorter than the shift.
+// Steps above kShiftWindow take the staged route: a block's words and the
+// `steps` before them in shared memory, the wrap only in a chunk's first
+// blocks.
+constexpr int kShiftWindow = 16;  // the register route's steps at most
+constexpr int kShiftWarps = 8;    // warps of a register-route block
+
+// word p of the chunk at cx (n words) screened alone, against its steps
+// (at most kShiftWindow) predecessors, their loads issued together
+__device__ __forceinline__ int32_t shift_word(const int32_t* cx, long long n, long long p,
+                                              int steps) {
+  const int32_t cur = __ldg(cx + p);
+  int32_t v[kShiftWindow];
+#pragma unroll
+  for (int s = 1; s <= kShiftWindow; ++s) {
+    long long q = p - s;
+    while (q < 0) q += n;  // more than once only in a chunk shorter than the shift
+    v[s - 1] = s <= steps ? __ldg(cx + q) : cur;  // cur ^ cur adds nothing
+  }
+  int32_t acc = 0;
+#pragma unroll
+  for (int s = 0; s < kShiftWindow; ++s) acc = max(acc, v[s] ^ cur);
+  return acc;
+}
+
+// the tile at tp (32 int4s of a chunk's body; `left` of them from tp on):
+// lane's int4, zeros past the body, and for lanes 28-31 the int4 32 before
+// theirs (the tile's 16 words before it)
+__device__ __forceinline__ void load_tile(const int4* tp, long long left, int lane, int4& cur,
+                                          int4& hd) {
+  cur = lane < left ? __ldg(tp + lane) : make_int4(0, 0, 0, 0);
+  hd = lane >= 28 ? __ldg(tp + lane - 32) : make_int4(0, 0, 0, 0);
+}
+
+// a lane's 4 words screened against their 16 predecessors: w[16 + k] is
+// word k of its int4, w[16 - 4d + k] word k of the int4 d before it, taken
+// from lane - d, or for d > lane from the hd of lane 32 - d + lane, which
+// sends hd in place of cur for the shuffles of distance 32 - lane or more
+template <bool Full>
+__device__ __forceinline__ int4 screen4(const int4& cur, const int4& hd, int lane, int steps) {
+  int32_t w[20];
+  w[16] = cur.x, w[17] = cur.y, w[18] = cur.z, w[19] = cur.w;
+#pragma unroll
+  for (int d = 1; d <= 4; ++d) {
+    const int4 src = lane >= 32 - d ? hd : cur;
+    const int from = (lane - d) & 31;
+    w[16 - 4 * d] = __shfl_sync(0xffffffffu, src.x, from);
+    w[17 - 4 * d] = __shfl_sync(0xffffffffu, src.y, from);
+    w[18 - 4 * d] = __shfl_sync(0xffffffffu, src.z, from);
+    w[19 - 4 * d] = __shfl_sync(0xffffffffu, src.w, from);
+  }
+  int32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int32_t c = w[16 + k];
+    int32_t acc = 0;
+#pragma unroll
+    for (int s = 1; s <= kShiftWindow; ++s)
+      if (Full || s <= steps) acc = max(acc, w[16 + k - s] ^ c);
+    o[k] = acc;
+  }
+  return make_int4(o[0], o[1], o[2], o[3]);
+}
+
+// the register route, steps <= kShiftWindow (Full: steps == kShiftWindow);
+// chunk blockIdx.y; x and out equally far past a 16-byte boundary
+template <bool Full>
+__global__ void __launch_bounds__(kShiftWarps * 32)
+shift_screen_regs(const int32_t* __restrict__ x, long long n, int steps,
+                  int32_t* __restrict__ out) {
+  const long long first = static_cast<long long>(blockIdx.y) * n;
+  const int32_t* cx = x + first;
+  int32_t* co = out + first;
+  // the body: words [v0, v0 + 4 n4), v0 the first on a 16-byte boundary
+  // at or past word kShiftWindow
+  const int v0 =
+      kShiftWindow + static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(cx) & 15)) & 15) >> 2);
+  const long long n4 = n > v0 ? (n - v0) >> 2 : 0, v1 = v0 + 4 * n4;
+  if (blockIdx.x == 0) {  // the words before the body and after it, a thread each
+    const int head = static_cast<int>(n < v0 ? n : v0);
+    const long long t = threadIdx.x;
+    if (t < head) co[t] = shift_word(cx, n, t, steps);
+    else if (v1 + t - head < n) co[v1 + t - head] = shift_word(cx, n, v1 + t - head, steps);
+  }
+  const int lane = threadIdx.x & 31;
+  const long long tiles = (n4 + 31) >> 5, stride = static_cast<long long>(gridDim.x) * kShiftWarps;
+  long long tile = static_cast<long long>(blockIdx.x) * kShiftWarps + (threadIdx.x >> 5);
+  const int4* bx = reinterpret_cast<const int4*>(cx + v0);
+  int4* bo = reinterpret_cast<int4*>(co + v0);
+  for (; tile < tiles; tile += stride) {
+    int4 cur, hd;
+    load_tile(bx + 32 * tile, n4 - 32 * tile, lane, cur, hd);
+    const int4 r = screen4<Full>(cur, hd, lane, steps);
+    if (lane < n4 - 32 * tile) bo[32 * tile + lane] = r;
+  }
+}
+
+// the staged route: a block owns kThreads words of chunk blockIdx.y and
+// stages them with the `steps` words before them
 __global__ void __launch_bounds__(kThreads)
-shift_screen_kernel(const int32_t* __restrict__ x, long long n, int steps,
+shift_screen_staged(const int32_t* __restrict__ x, long long n, int steps,
                     int32_t* __restrict__ out) {
   extern __shared__ int32_t tile[];  // steps + kThreads words
-  const int32_t* cx = x + static_cast<long long>(blockIdx.y) * n;
+  const long long first = static_cast<long long>(blockIdx.y) * n;
+  const int32_t* cx = x + first;
   const long long base = static_cast<long long>(blockIdx.x) * kThreads;
-  for (int j = threadIdx.x; j < steps + kThreads; j += kThreads) {
-    long long p = (base - steps + j) % n;  // may wrap more than once when n < steps
-    if (p < 0) p += n;
-    tile[j] = cx[p];
+  const long long left = n - base;
+  const int count = steps + static_cast<int>(left < kThreads ? left : kThreads);
+  if (base >= steps) {
+    const int32_t* bx = cx + (base - steps);
+    for (int j = threadIdx.x; j < count; j += kThreads) tile[j] = __ldg(bx + j);
+  } else {  // a chunk's first words: their predecessors wrap
+    for (int j = threadIdx.x; j < count; j += kThreads) {
+      long long p = base - steps + j;
+      if (p < 0) {
+        p += n;
+        if (p < 0) p = (p % n + n) % n;  // a chunk shorter than the shift
+      }
+      tile[j] = __ldg(cx + p);
+    }
   }
   __syncthreads();
-  const long long p = base + threadIdx.x;
-  if (p >= n) return;
-  const int32_t cur = tile[steps + threadIdx.x];
+  const int t = threadIdx.x;
+  if (t >= left) return;
+  const int32_t cur = tile[steps + t];
   int32_t acc = 0;
-  for (int s = 1; s <= steps; ++s) acc = max(acc, tile[steps + threadIdx.x - s] ^ cur);
-  out[static_cast<long long>(blockIdx.y) * n + p] = acc;
+  for (int s = 1; s <= steps; ++s) acc = max(acc, tile[steps + t - s] ^ cur);
+  out[first + base + t] = acc;
 }
 
 // ---- the card --------------------------------------------------------------------
@@ -662,15 +788,37 @@ extern "C" int tz_scatter_max(const void* idx, const void* vals, int b, int r, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: int32 (b, n); 0 <= steps <= 4096 (shared memory: 4 (steps + 256) bytes).
-extern "C" int tz_shift_screen(const void* x, int b, long long n, int steps, void* out,
+// x, out: int32 (b, n), 1 <= b <= 65535, n >= 1, each as far past a 16-byte
+// boundary as the other; route: 0 the registers (0 <= steps <= 16), 1 the
+// staged route (0 <= steps <= 4096; shared memory: 4 (steps + 256) bytes).
+extern "C" int tz_shift_screen(const void* x, int b, long long n, int steps, int route, void* out,
                                void* stream) {
-  if (b <= 0 || n <= 0 || steps < 0 || steps > 4096) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFFLL || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(b));
-  shift_screen_kernel<<<grid, kThreads, (steps + kThreads) * sizeof(int32_t),
-                        static_cast<cudaStream_t>(stream)>>>(static_cast<const int32_t*>(x), n,
-                                                             steps, static_cast<int32_t*>(out));
+  if (b <= 0 || b > 65535 || n <= 0 || steps < 0 || steps > 4096 || blocks > 0x7FFFFFFFLL ||
+      (route != 0 && route != 1) || (route == 0 && steps > kShiftWindow) ||
+      reinterpret_cast<uintptr_t>(x) % 4 ||
+      (reinterpret_cast<uintptr_t>(x) - reinterpret_cast<uintptr_t>(out)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* xs = static_cast<const int32_t*>(x);
+  auto* o = static_cast<int32_t*>(out);
+  if (route == 1) {
+    shift_screen_staged<<<dim3(static_cast<unsigned>(blocks), b), kThreads,
+                          (steps + kThreads) * sizeof(int32_t), s>>>(xs, n, steps, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const Card* c = nullptr;
+  const cudaError_t err = current_card(&c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a warp a tile of 128 words; blocks enough for the chunks' tiles, at
+  // most a card's worth of resident blocks across the chunks (at least 1:
+  // a chunk's first block also takes its words outside the body)
+  long long grid = (n / 4 + 32 * kShiftWarps - 1) / (32 * kShiftWarps);
+  const long long fill = (static_cast<long long>(c->sms) * (kSmThreads / (kShiftWarps * 32)) + b - 1) / b;
+  if (grid > fill) grid = fill;
+  if (grid < 1) grid = 1;
+  const dim3 g(static_cast<unsigned>(grid), b);
+  if (steps == kShiftWindow) shift_screen_regs<true><<<g, kShiftWarps * 32, 0, s>>>(xs, n, steps, o);
+  else shift_screen_regs<false><<<g, kShiftWarps * 32, 0, s>>>(xs, n, steps, o);
   return static_cast<int>(cudaGetLastError());
 }

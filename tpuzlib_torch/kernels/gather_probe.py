@@ -31,7 +31,11 @@ all take and give int32 (uint32 values pass as their bits):
                    the signed max over s in [1, steps] of
                    roll(x, s) ^ x on the flattened array, and 0 (k_roll's
                    16 shifts by one of the row-major array, element 0
-                   receiving the last).
+                   receiving the last); on the card steps up to
+                   SHIFT_WINDOW run from registers, more from shared
+                   memory (shift_route; SHIFT_ROUTES counts the launches
+                   of each); shift_split and card_shift_plain replay the
+                   register route's split of a chunk and its lanes.
 
 scatter_max and shift_screen take a leading batch dimension: a 3-D input
 is that many independent chunks.  On a CUDA tensor each wrapper launches
@@ -47,12 +51,17 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
 
 INT32_MIN = -(1 << 31)
-MAX_STEPS = 4096  # shift_screen's steps (its shared memory tile)
+MAX_STEPS = 4096  # shift_screen's steps (its staged route's shared memory tile)
+SHIFT_WINDOW = 16  # shift_screen's steps at most on its register route (kShiftWindow in
+# csrc/gather_probe.cu, whose entry point refuses that route past it)
+SHIFT_DESIGNS = ("regs", "staged")  # shift_screen's routes, by the code the kernel takes
+SHIFT_ROUTES = {design: 0 for design in SHIFT_DESIGNS}  # shift_screen's launches by route
 LOOP_DESIGNS = ("ldg", "staged")  # take_along_loop's designs, by the code the kernel takes
 LOOP_ROUTES = {design: 0 for design in LOOP_DESIGNS}  # take_along_loop's launches by design
 
@@ -315,13 +324,16 @@ def scatter_max(idx: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tenso
     return out
 
 
-def _check_shift(x: torch.Tensor, steps: int) -> None:
-    check_arrays("shift_screen", x, dims=(2, 3))
+def _check_shift(x: torch.Tensor, steps: int) -> int:
+    """x's CUDA index, or -1 for the CPU; raises on inputs shift_screen
+    refuses."""
+    device = check_arrays("shift_screen", x, dims=(2, 3))
     if x.numel() == 0 or (x.dim() == 3 and x.shape[0] > 65535):
         raise ValueError("shift_screen: 1 to 65,535 non-empty chunks, got shape %s"
                          % (tuple(x.shape),))
     if not 0 <= steps <= MAX_STEPS:
         raise ValueError("shift_screen: steps must be in [0, %d], got %r" % (MAX_STEPS, steps))
+    return device
 
 
 def shift_screen_plain(x: torch.Tensor, steps: int = 16) -> torch.Tensor:
@@ -333,15 +345,102 @@ def shift_screen_plain(x: torch.Tensor, steps: int = 16) -> torch.Tensor:
     return acc.reshape(x.shape)
 
 
+def _shift_design(steps: int) -> str:
+    """shift_screen's route for `steps`: "regs" up to SHIFT_WINDOW steps (a
+    lane's predecessors in registers), else "staged" (a block's words and
+    theirs in shared memory)."""
+    return "regs" if steps <= SHIFT_WINDOW else "staged"
+
+
+def shift_route(x: torch.Tensor, steps: int) -> str:
+    """The route of shift_screen(x, steps) on the card (_shift_design).
+    Raises where shift_screen would."""
+    _check_shift(x, steps)
+    return _shift_design(steps)
+
+
+def shift_split(n: int, offset: int) -> tuple:
+    """(v0, n4): the register route's body of a chunk of n words whose first
+    word lies `offset` words past a 16-byte boundary: n4 int4s from word
+    v0, the first on a boundary at or past word SHIFT_WINDOW (so no word
+    of the body wraps).  The words before v0 and from v0 + 4 n4 on go one
+    at a time."""
+    v0 = SHIFT_WINDOW + (4 - offset % 4) % 4
+    return v0, max(0, (n - v0) // 4)
+
+
+def _screen_word(flat, p: int, steps: int) -> int:
+    n, acc = flat.size, 0
+    for s in range(1, steps + 1):
+        acc = max(acc, int(flat[(p - s) % n] ^ flat[p]))
+    return acc
+
+
+def card_shift_plain(x: torch.Tensor, steps: int = 16, offset: int = 0) -> torch.Tensor:
+    """shift_screen by its register route on the card, for x's first word
+    `offset` words past a 16-byte boundary: each chunk split by shift_split,
+    the words outside the body one at a time, the body in warp tiles of 32
+    int4s, lane l's 4 words against the int4s of lanes l - 1 .. l - 4, those
+    before the tile sent by lanes 28-31 (the int4 32 before their own) for
+    the shuffles that wrap."""
+    _check_shift(x, steps)
+    if steps > SHIFT_WINDOW:
+        raise ValueError("card_shift_plain: the register route takes at most %d steps"
+                         % SHIFT_WINDOW)
+    chunks = _chunks(x).flatten(1).numpy()
+    out = np.zeros_like(chunks)
+    n = chunks.shape[1]
+    lane = np.arange(32)
+    for c, flat in enumerate(chunks):
+        v0, n4 = shift_split(n, offset + c * n)
+        v1 = v0 + 4 * n4
+        for p in [*range(min(v0, n)), *range(v1, n)]:
+            out[c, p] = _screen_word(flat, p, steps)
+        tiles = -(-n4 // 32)
+        if not tiles:
+            continue
+        body = np.zeros((tiles * 32 + 1, 4), flat.dtype)  # a row of zeros past the body
+        body[:n4] = flat[v0:v1].reshape(-1, 4)
+        cur = body[np.minimum(np.arange(tiles * 32), n4).reshape(tiles, 32)]
+        before = flat[v0 - 16 + 128 * np.arange(tiles)[:, None] + np.arange(16)]
+        hd = before.reshape(tiles, 4, 4)  # the tile's 16 words before it, for lanes 28-31
+        w = np.zeros((tiles, 32, 20), flat.dtype)
+        w[:, :, 16:] = cur
+        for d in range(1, 5):
+            src = (lane - d) % 32
+            sent = np.where((src >= 32 - d)[None, :, None], hd[:, np.maximum(src - 28, 0)],
+                            cur[:, src])
+            w[:, :, 16 - 4 * d:20 - 4 * d] = sent
+        got = np.zeros((tiles, 32, 4), flat.dtype)
+        for k in range(4):
+            for s in range(1, steps + 1):
+                got[:, :, k] = np.maximum(got[:, :, k], w[:, :, 16 + k - s] ^ w[:, :, 16 + k])
+        out[c, v0:v1] = got.reshape(-1, 4)[:n4].reshape(-1)
+    return torch.from_numpy(out).reshape(x.shape)
+
+
 def shift_screen(x: torch.Tensor, steps: int = 16) -> torch.Tensor:
     """int32 of x's shape: the signed max of 0 and x[p - s] ^ x[p] over s
     in [1, steps], p and p - s flat row-major positions of x (r, w),
-    wrapping, or of each chunk of x (b, r, w)."""
-    if _build.on_cpu(x):
-        return shift_screen_plain(x, steps)
-    _check_shift(x, steps)
-    b = x.shape[0] if x.dim() == 3 else 1
-    out = torch.empty_like(x)
-    _build.launch("shift_screen", "tz_shift_screen", x.device, x.data_ptr(), b, x.numel() // b,
-                  steps, out.data_ptr())
-    return out
+    wrapping, or of each chunk of x (b, r, w).  On the card the output lies
+    as far past a 16-byte boundary as x (the register route stores 16
+    bytes at once where it loads them)."""
+    # a card call's checks, in one pass: what _check_shift requires
+    dims = x.dim()
+    if (x.is_cuda and x.dtype is torch.int32 and (dims == 2 or dims == 3) and x.is_contiguous()
+            and 0 <= steps <= MAX_STEPS):
+        b, n = x.shape[0] if dims == 3 else 1, x.numel()
+        if n and b <= 65535:
+            ptr = x.data_ptr()
+            offset = ptr % 16 // 4
+            out = (torch.empty(n + offset, dtype=torch.int32, device=x.device)[offset:].view(x.shape)
+                   if offset else torch.empty_like(x))
+            route = _shift_design(steps)
+            _build.launch("shift_screen", "tz_shift_screen", x.get_device(), ptr, b, n // b, steps,
+                          SHIFT_DESIGNS.index(route), out.data_ptr())
+            SHIFT_ROUTES[route] += 1
+            return out
+    # the CPU, or inputs the card call refuses: _check_shift raises on those
+    if _check_shift(x, steps) >= 0:
+        raise ValueError("shift_screen: no kernel for these inputs")
+    return shift_screen_plain(x, steps)
