@@ -102,6 +102,9 @@ tpuzlib_torch/kernels/csrc, then:
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
      tools/probe_primitives.py:48 sizes them, in the main path's batch of
      8), the inflate primitives at 8,192 lanes (G1's cursor count),
+     gather_store_loop's and col_min_sum's rows with
+     over_floor_device_ms, their device time less the "I launch floor"
+     line's (timed first, floor_device_ms),
      vec_cond_while also at the shared-memory limit (vec_cond_while_smem)
      and one lane past it (vec_cond_while_global), each row naming its
      route (`design`; the probes' 128 and 8,192 lanes take "regs", so the
@@ -1279,10 +1282,23 @@ def phase_i(smi: str) -> tuple:
         rows[name]["smem_requests"] = requests
         rows[name]["smem_floor_ms"] = requests / (SMS * SLEEP_HZ) * 1e3
         rows[name]["smem_floor_random_ms"] = 3.53 * rows[name]["smem_floor_ms"]
+    # the launch floor: take_along on (1, 1), timed both ways, first, so
+    # that the rows below can give their device time's excess over it
+    one = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
+    one64 = one.long()
+    floor, lib_floor = lambda: gp.take_along(one, one, 1), lambda: torch.gather(one, 1, one64)
+    floor_ms, lib_floor_ms = cuda_ms(floor), cuda_ms(lib_floor)
+    floor_device_ms = device_ms(floor)
+    emit({"phase": "I launch floor", "kernel": "take_along", "shape": [1, 1],
+          "ms": floor_ms, "device_ms": floor_device_ms, "library_ms": lib_floor_ms,
+          "library_device_ms": device_ms(lib_floor), "over_library": floor_ms / lib_floor_ms})
     # device time of bare launches: the wrappers' host time holds these rows
     for name, row in rows.items():
         row["device_ms"] = device_ms(cases[name][0])
         row["device_pct_of_bound"] = 100 * row["bound_ms"] / row["device_ms"]
+        if name in ("gather_store_loop", "col_min_sum"):
+            row["over_floor_device_ms"] = row["device_ms"] - floor_device_ms
+            row["floor_device_ms"] = floor_device_ms
         if name in library:
             row["library_device_ms"] = device_ms(library[name])
             # ms and library_ms are 10 calls each, and these calls are
@@ -1302,7 +1318,8 @@ def phase_i(smi: str) -> tuple:
         emit({"phase": "I device", **{k: row[k] for k in ("name", "ms", "device_ms", "bound_ms",
                                                            "device_pct_of_bound", "library_ms")},
               "library_device_ms": row.get("library_device_ms"),
-              **{k: row[k] for k in ("design", "over_library", "x_sector_bytes", "steady_ms",
+              **{k: row[k] for k in ("over_floor_device_ms", "design", "over_library",
+                                     "x_sector_bytes", "steady_ms",
                                      "library_steady_ms", "steady_over_library", "smem_floor_ms",
                                      "smem_floor_random_ms", "smem_floor_pct") if k in row}})
     axis0 = ("tools/probe_primitives.py:188 k_tala0, tools/probe_inflate_prims.py:50 k_a, "
@@ -1325,13 +1342,6 @@ def phase_i(smi: str) -> tuple:
         emit({"phase": "I shift", **{k: rows[name][k] for k in (
             "name", "design", "ms", "device_ms", "flushed_device_ms", "bound_ms",
             "device_pct_of_bound", "flushed_pct_of_bound")}})
-    one = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
-    one64 = one.long()
-    floor, lib_floor = lambda: gp.take_along(one, one, 1), lambda: torch.gather(one, 1, one64)
-    floor_ms, lib_floor_ms = cuda_ms(floor), cuda_ms(lib_floor)
-    emit({"phase": "I launch floor", "kernel": "take_along", "shape": [1, 1],
-          "ms": floor_ms, "device_ms": device_ms(floor), "library_ms": lib_floor_ms,
-          "library_device_ms": device_ms(lib_floor), "over_library": floor_ms / lib_floor_ms})
     # the host µs of each piece of a call, the earlier path beside this one's
     rows_us = launch_breakdown.breakdown()
     emit({"phase": "I launch probe", "nvidia_smi": smi, **launch_breakdown.summary(rows_us),

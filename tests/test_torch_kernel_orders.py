@@ -16,9 +16,12 @@ shift_screen's register route screens a chunk's body in warp tiles, its
 lanes' predecessors from the lanes before them, and the words around it
 one at a time (gather_probe.card_shift_plain): the replay is held to the
 plain version.  gf2_bits_mm's checks are held to what its card call
-refuses.  The route helpers (forms_route, bits_mm_route, loop_design,
-shift_route, vec_cond_while's while_route) are held at their
-boundaries.  No card is needed.
+refuses.  gather_store_loop's kernel computes each lane's rows from one
+floor mod and offsets summed once (inflate_prims.store_loop_steps): the
+replay, gathered, is held to the plain version and to the tool's k_e in
+interpret mode at the index rule's edges.  The route helpers
+(forms_route, bits_mm_route, loop_design, shift_route, vec_cond_while's
+while_route) are held at their boundaries.  No card is needed.
 """
 
 import functools
@@ -377,3 +380,83 @@ def test_card_shift_replay_matches_plain(n, offset, steps):
     rng = np.random.default_rng(n + 7 * offset + steps)
     x = torch.from_numpy(rng.integers(I32.min, I32.max, (3, 1, n), dtype=np.int32))
     assert torch.equal(gp.card_shift_plain(x, steps, offset), gp.shift_screen_plain(x, steps))
+
+
+# ---- gather_store_loop and col_min_sum ----------------------------------------
+
+# tools/probe_inflate_prims.py:131-148, k_e with NW = nw (its 8-row tiles
+# over words padded with zero rows to a multiple of 8: a row in the pad
+# reads 0, as a row outside [0, nw) does) and `steps` steps
+def _store_loop_kernel(nw, steps):
+    tiles = -(-nw // 8)
+
+    def k_e(w_ref, j_ref, o_ref):
+        def cond(st):
+            it, _ = st
+            return it < steps
+
+        def body(st):
+            it, j = st
+            v = j >> 3
+            sb = jnp.broadcast_to(j & 7, (8, j.shape[1]))
+            g = jnp.zeros((1, j.shape[1]), jnp.uint32)
+            for t in range(tiles):
+                tile = w_ref[t * 8 : (t + 1) * 8, :]
+                gt = jnp.take_along_axis(tile, sb, axis=0)[0:1]
+                g = jnp.where(v == t, gt, g)
+            o_ref[pl.ds(it, 1), :] = g
+            return it + 1, (j + 3) % (nw - 1)
+
+        jax.lax.while_loop(cond, body, (jnp.int32(0), j_ref[:]))
+
+    return k_e
+
+
+@pytest.mark.parametrize("steps", [1, 15, 16, 17, 33])
+@pytest.mark.parametrize("nw", [2, 3, 4, 5, 40, 4353])
+def test_store_loop_steps_replay_matches_plain_and_k_e(nw, steps):
+    """gather_store_loop's rows as its card kernel computes them (one floor
+    mod, then a chunk's first row plus an offset a step), gathered, against the plain
+    version and k_e in interpret mode; j at int32's ends, at -3..-1 and at
+    nw - 4 .. nw + 3 (rows below 0 and past the words read 0 at step 0)."""
+    rng = np.random.default_rng(nw * 41 + steps)
+    lanes = 128
+    words = rng.integers(0, 1 << 32, (nw, lanes), dtype=np.uint64).astype(np.uint32)
+    j = rng.integers(-3 * nw, 3 * nw, (1, lanes), dtype=np.int32)
+    edges = [I32.min, I32.max, -3, -2, -1, *range(nw - 4, nw + 4)]
+    j[0, : len(edges)] = edges
+    padded = np.zeros((-(-nw // 8) * 8, lanes), np.uint32)
+    padded[:nw] = words
+    want = np.asarray(pl.pallas_call(_store_loop_kernel(nw, steps),
+                                     out_shape=jax.ShapeDtypeStruct((steps, lanes), jnp.uint32),
+                                     interpret=True)(jnp.asarray(padded), jnp.asarray(j)))
+    tw, tj = torch.from_numpy(words.view(np.int32)), torch.from_numpy(j)
+    rows = ip.store_loop_steps(tj, nw, steps)
+    assert rows.shape == (steps, lanes) and rows.dtype == torch.int64
+    assert bool(((rows[1:] >= 0) & (rows[1:] < nw - 1)).all())  # no range check after step 0
+    inside = (rows >= 0) & (rows < nw)
+    got = torch.where(inside, torch.gather(tw, 0, rows.clamp(0, nw - 1)), 0)
+    assert np.array_equal(got.numpy(), want.view(np.int32))
+    assert torch.equal(got, ip.gather_store_loop_plain(tw, tj, steps))
+
+
+@pytest.mark.parametrize("nw", [2, 3, 40])
+def test_store_loop_steps_of_no_steps(nw):
+    j = torch.tensor([[I32.min, -1, 0, nw]], dtype=torch.int32)
+    rows = ip.store_loop_steps(j, nw, 0)
+    assert rows.shape == (0, 4) and rows.dtype == torch.int64
+
+
+@pytest.mark.parametrize("nw,steps", [(1, 4), (0, 1), (40, -1)])
+def test_store_loop_steps_refuses(nw, steps):
+    with pytest.raises(ValueError):
+        ip.store_loop_steps(torch.zeros(1, 3, dtype=torch.int32), nw, steps)
+
+
+def test_col_min_sum_refuses_what_its_kernel_does():
+    for x, exc in ((torch.zeros(0, 4, dtype=torch.int32), ValueError),
+                   (torch.zeros(2, 4, dtype=torch.int64), TypeError),
+                   (torch.zeros(4, 2, dtype=torch.int32).t(), ValueError),
+                   (torch.zeros(2, 3, 4, dtype=torch.int32), ValueError)):
+        with pytest.raises(exc):
+            ip.col_min_sum(x)

@@ -454,6 +454,18 @@ def test_col_min_sum_matches_k_f(wide):
     _equal(ip.col_min_sum(_t(x)), want)
 
 
+@pytest.mark.parametrize("lanes", [3, 128])
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 33])
+def test_col_min_sum_matches_k_f_at_chunk_edges(rows, lanes):
+    """Rows around the card kernel's chunk of 16, with a column of
+    INT32_MAX (its min and a sum that wraps) and one of INT32_MIN."""
+    rng = np.random.default_rng(rows * 7 + lanes)
+    x = rng.integers(I32.min, I32.max, (rows, lanes), dtype=np.int32)
+    x[:, 0], x[:, 1] = I32.max, I32.min
+    want = _call(k_f, (2, lanes), jnp.int32, x)
+    _equal(ip.col_min_sum(_t(x)), want)
+
+
 # tools/probe_inflate_prims2.py:58-64
 def k_g(r_ref, e_ref, o_ref):
     Lrow = jax.lax.broadcasted_iota(jnp.int32, (16, 128), 0)

@@ -1,10 +1,31 @@
-// Device helpers shared by the match-screen kernels.
+// Helpers shared by the kernels: the match screens' device helpers, and
+// the card's SM count.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace tz {
+
+// The current device's streaming multiprocessors, read once a device (a
+// race only reads the same value twice).
+inline cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cached[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  int n = cached[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    cached[dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
 
 constexpr int kMinMatch = 3;
 

@@ -33,6 +33,15 @@
 // its launch.  Designs: one thread a lane, rows a loop inside it, stores
 // coalesced across lanes.
 //
+// gather_store_loop and col_min_sum are held by the round trips to the L2
+// inside the launch: each step or row is a load.  A thread computes a
+// chunk of 16 steps' rows in registers, from one floor mod and then one
+// add and compare a step on offsets summed beforehand (no division and no
+// chain of steps), or takes 16 rows, and issues all their loads through
+// the read-only path before it uses any, so 16 steps or rows cost one
+// round trip.  Their grids spread the lanes over every SM (blocks of 64
+// threads at 8,192 lanes, 128 blocks), and up to 128 lanes are one block.
+//
 // vec_cond_while is one CUDA block that holds every lane and tests the
 // condition with __syncthreads_or, since lanes in different blocks could
 // not share it.  Its 64 steps depend on each other through that vote, so
@@ -52,15 +61,30 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kOneBlock = 128;  // lanes up to which a grid spread over the SMs is one block
+constexpr int kChunk = 16;      // steps or rows whose loads a thread issues together
 constexpr int kWhileThreads = 1024;  // vec_cond_while's one block
 constexpr int kRegs = 8;  // vec_cond_while: lanes a thread keeps in registers
 constexpr int kLimit = 100, kMaxSteps = 64;  // k_c's condition
 
 __host__ __device__ __forceinline__ unsigned blocks_for(int lanes) {
   return static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
+}
+
+// threads a block for a kernel of a thread a lane: one block (whole
+// warps) up to kOneBlock lanes; past that the fewest, a power of two from
+// 32 up to kThreads, that spread the lanes over every SM
+int spread_threads(int lanes, int sms) {
+  if (lanes <= kOneBlock) return (lanes + 31) / 32 * 32;
+  const int per = (lanes + sms - 1) / sms;
+  int t = 32;
+  while (t < per && t < kThreads) t *= 2;
+  return t;
 }
 
 __device__ __forceinline__ uint32_t shr(uint32_t x, uint32_t s) { return s < 32u ? x >> s : 0u; }
@@ -148,33 +172,113 @@ row_store_loop_kernel(int rows, int lanes, int32_t* __restrict__ out) {
   for (int it = 0; it < rows; ++it) out[static_cast<long long>(it) * lanes + l] = it;
 }
 
+// ---- gather_store_loop and col_min_sum: a lane's loads all in flight -------
+//
+// A chunk of kChunk steps (gather_store_loop) or rows (col_min_sum) is
+// loaded, every load issued, before the first of them is used: one round
+// trip to the L2 a chunk.  gather_store_loop's rows come first, from
+// registers: step 0 reads row j0 (0 outside [0, nw)); step t >= 1 row
+// (r1 + (t - 1) s) mod m, where m = nw - 1, r1 = floor_mod(wrap32(j0 + 3),
+// m) and s = 3 mod m, which is the tool's (j + 3) mod m a step.  The
+// offsets d[k] = k s mod m are the same for every lane and are summed
+// while j's load is in flight; a step's row is then one add_mod of its
+// chunk's first row and its offset, no step waits on the one before, and
+// the chunks' first rows step by 16 s mod m.  All values lie in [0, m), so
+// no sum wraps and no range check is left after step 0.
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t m) {
+  const uint32_t t = a + b;
+  return t >= m ? t - m : t;
+}
+
+// steps t0 .. t0 + kChunk - 1 (those before `steps` where Tail): their
+// rows, then their loads, then their stores; `base` is the row of step t0
+// (of step 1 in the first chunk, whose step 0 reads j0)
+template <bool First, bool Tail>
+__device__ __forceinline__ void store_chunk(const int32_t* __restrict__ col, int nw, int lanes,
+                                            int t0, int steps, int32_t j0, uint32_t base,
+                                            const uint32_t (&d)[kChunk], uint32_t m,
+                                            int32_t* __restrict__ oc) {
+  uint32_t at[kChunk];
+  bool ok[kChunk];
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) {
+    if (First && k == 0) {
+      at[k] = static_cast<uint32_t>(j0);
+      ok[k] = at[k] < static_cast<uint32_t>(nw);
+    } else {
+      at[k] = add_mod(base, d[First ? k - 1 : k], m);
+      ok[k] = true;
+    }
+    if (Tail) ok[k] = ok[k] && t0 + k < steps;
+  }
+  int32_t v[kChunk];
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    v[k] = ok[k] ? __ldg(col + static_cast<long long>(at[k]) * lanes) : 0;
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    if (!Tail || t0 + k < steps) oc[static_cast<long long>(t0 + k) * lanes] = v[k];
+}
+
 __global__ void __launch_bounds__(kThreads)
 gather_store_loop_kernel(const int32_t* __restrict__ words, int nw, int lanes,
-                         const int32_t* __restrict__ j, int steps, int32_t* __restrict__ out) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
+                         const int32_t* __restrict__ j, int steps, uint32_t s,
+                         int32_t* __restrict__ out) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  int jj = j[l];
-  for (int it = 0; it < steps; ++it) {
-    out[static_cast<long long>(it) * lanes + l] =
-        jj >= 0 && jj < nw ? words[static_cast<long long>(jj) * lanes + l] : 0;
-    jj = static_cast<int>(static_cast<uint32_t>(jj) + 3u) % (nw - 1);  // jnp's %: a floor mod
-    if (jj < 0) jj += nw - 1;
+  const int32_t* col = words + l;
+  int32_t* oc = out + l;
+  const int32_t j0 = __ldg(j + l);
+  const uint32_t m = static_cast<uint32_t>(nw - 1);
+  uint32_t d[kChunk];
+  d[0] = 0u;
+#pragma unroll
+  for (int k = 1; k < kChunk; ++k) d[k] = add_mod(d[k - 1], s, m);
+  const int r = static_cast<int32_t>(static_cast<uint32_t>(j0) + 3u) % (nw - 1);  // jnp's %: a floor mod
+  uint32_t base = static_cast<uint32_t>(r < 0 ? r + (nw - 1) : r);
+  if (steps < kChunk) {
+    store_chunk<true, true>(col, nw, lanes, 0, steps, j0, base, d, m, oc);
+    return;
+  }
+  store_chunk<true, false>(col, nw, lanes, 0, steps, j0, base, d, m, oc);
+  base = add_mod(base, d[kChunk - 1], m);  // the row of step kChunk
+  const uint32_t dn = add_mod(d[kChunk - 1], s, m);
+  int t0 = kChunk;
+  for (; t0 + kChunk <= steps; t0 += kChunk, base = add_mod(base, dn, m))
+    store_chunk<false, false>(col, nw, lanes, t0, steps, j0, base, d, m, oc);
+  if (t0 < steps) store_chunk<false, true>(col, nw, lanes, t0, steps, j0, base, d, m, oc);
+}
+
+// rows r0 .. r0 + kChunk - 1 (those before `rows` where Tail) loaded, then
+// folded into the min and the uint32 (wrapping) sum
+template <bool Tail>
+__device__ __forceinline__ void min_sum_chunk(const int32_t* __restrict__ col, int lanes, int r0,
+                                              int rows, int32_t& mn, uint32_t& sum) {
+  int32_t v[kChunk];
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    if (!Tail || r0 + k < rows) v[k] = __ldg(col + static_cast<long long>(r0 + k) * lanes);
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) {
+    if (Tail && r0 + k >= rows) break;
+    mn = min(mn, v[k]);
+    sum += static_cast<uint32_t>(v[k]);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 col_min_sum_kernel(const int32_t* __restrict__ x, int rows, int lanes, int32_t* __restrict__ out) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  int32_t m = x[l];
-  uint32_t s = static_cast<uint32_t>(m);
-  for (int r = 1; r < rows; ++r) {
-    const int32_t v = x[static_cast<long long>(r) * lanes + l];
-    m = min(m, v);
-    s += static_cast<uint32_t>(v);
-  }
-  out[l] = m;
-  out[lanes + l] = static_cast<int32_t>(s);
+  const int32_t* col = x + l;
+  int32_t mn = INT32_MAX;
+  uint32_t sum = 0u;
+  int r0 = 0;
+  for (; r0 + kChunk <= rows; r0 += kChunk) min_sum_chunk<false>(col, lanes, r0, rows, mn, sum);
+  if (r0 < rows) min_sum_chunk<true>(col, lanes, r0, rows, mn, sum);
+  out[l] = mn;
+  out[lanes + l] = static_cast<int32_t>(sum);
 }
 
 // out (17, lanes): rows 0-15 r >> (16 - L) (arithmetic), row 16 the mask
@@ -307,17 +411,27 @@ extern "C" int tz_row_store_loop(int rows, int lanes, void* out, void* stream) {
 extern "C" int tz_gather_store_loop(const void* words, int nw, int lanes, const void* j, int steps,
                                     void* out, void* stream) {
   if (lanes <= 0 || nw < 2 || steps <= 0) return invalid();
-  gather_store_loop_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int sms = 0;
+  const cudaError_t err = tz::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = spread_threads(lanes, sms);
+  gather_store_loop_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(words), nw, lanes, static_cast<const int32_t*>(j), steps,
-      static_cast<int32_t*>(out));
+      3u % static_cast<uint32_t>(nw - 1), static_cast<int32_t*>(out));
   return done();
 }
 
 // x (rows, lanes) with rows >= 1, out (2, lanes)
 extern "C" int tz_col_min_sum(const void* x, int rows, int lanes, void* out, void* stream) {
   if (lanes <= 0 || rows <= 0) return invalid();
-  col_min_sum_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), rows, lanes, static_cast<int32_t*>(out));
+  int sms = 0;
+  const cudaError_t err = tz::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = spread_threads(lanes, sms);
+  col_min_sum_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(static_cast<const int32_t*>(x), rows,
+                                                            lanes, static_cast<int32_t*>(out));
   return done();
 }
 

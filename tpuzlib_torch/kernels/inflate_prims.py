@@ -21,7 +21,12 @@ inputs.  Arrays are int32 (rows, lanes); uint32 values pass as their bits.
   gather_store_loop(words, j, steps)
                            (steps, lanes): row `it` is words[j] (0 outside
                            the rows), then j = (j + 3) mod (nw - 1) (k_e);
-  col_min_sum(x)           (2, lanes): each column's min and int32 sum (k_f);
+                           on the card a thread computes its rows as
+                           store_loop_steps gives them, 16 a chunk, and
+                           issues a chunk's loads together;
+  col_min_sum(x)           (2, lanes): each column's min and int32 sum
+                           (k_f); on the card a thread a lane issues 16
+                           rows' loads a chunk together;
   var_shifts(r, e)         (17, lanes): r >> (16 - L) for L < 16, then the
                            uint32 mask (1 << e) - 1, 0xFFFFFFFF for e
                            outside [0, 32) (k_g);
@@ -59,6 +64,7 @@ LIMIT, MAX_STEPS = 100, 64  # k_c's condition
 WHILE_ROUTES = ("regs", "smem", "global")
 REG_LANES = 8 * 1024
 M32 = 0xFFFFFFFF
+STORE_CHUNK = 16  # gather_store_loop's steps a thread loads at once (kChunk, csrc/inflate_prims.cu)
 
 
 def _row(name: str, *tensors: torch.Tensor) -> int:
@@ -170,6 +176,38 @@ def gather_store_loop_plain(words: torch.Tensor, j: torch.Tensor, steps: int = 1
         out.append(_rows_at(words, jj))
         jj = wrap32(jj + 3).long() % (words.shape[0] - 1)
     return torch.cat(out)
+
+
+def _add_mod(a, b, m: int):
+    """(a + b) mod m for a, b in [0, m): ints or int64 tensors."""
+    t = a + b
+    return t - m * (t >= m)
+
+
+def store_loop_steps(j: torch.Tensor, nw: int, steps: int) -> torch.Tensor:
+    """int64 (steps, lanes): the row each of gather_store_loop's steps reads
+    for j (1, lanes), as the card's kernel computes it: j itself at step 0
+    (a row outside [0, nw) reads 0); at step t >= 1 (r1 + (t - 1) s) mod m,
+    where m = nw - 1, r1 = floor_mod(wrap32(j + 3), m) and s = 3 mod m: in
+    chunks of STORE_CHUNK steps, each row its chunk's first row plus an
+    offset k s mod m (the offsets summed once, the same for every lane),
+    each sum less m where it reaches m, the chunks' first rows stepping by
+    STORE_CHUNK s mod m.  The rows from step 1 on lie in [0, m)."""
+    if nw < 2 or steps < 0:
+        raise ValueError("store_loop_steps: nw >= 2 and steps >= 0, got %r, %r" % (nw, steps))
+    m, s, j0 = nw - 1, 3 % (nw - 1), j.long().reshape(-1)
+    d = [0]
+    for _ in range(1, STORE_CHUNK):
+        d.append(_add_mod(d[-1], s, m))
+    dn = _add_mod(d[-1], s, m)
+    base = wrap32(j0 + 3).long() % m  # the row of step 1
+    rows = [j0]
+    for t in range(1, steps):
+        c, k = divmod(t, STORE_CHUNK)
+        if c and not k:  # a chunk's first step
+            base = _add_mod(base, d[-1] if c == 1 else dn, m)
+        rows.append(_add_mod(base, d[k - 1] if c == 0 else d[k], m))
+    return torch.stack(rows) if steps else j0.new_zeros((0, j0.numel()))
 
 
 def gather_store_loop(words: torch.Tensor, j: torch.Tensor, steps: int = 16) -> torch.Tensor:
