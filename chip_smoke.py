@@ -101,9 +101,11 @@ tpuzlib_torch/kernels/csrc, then:
      scatter_max on 8 chunks of (2304, 128)
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
      tools/probe_primitives.py:48 sizes them, in the main path's batch of
-     8), the inflate primitives at 8,192 lanes (G1's cursor count),
-     gather_store_loop's and col_min_sum's rows with
-     over_floor_device_ms, their device time less the "I launch floor"
+     8), the inflate primitives at 8,192 lanes (G1's cursor count)
+     (fetch_rows', gather_store_loop's and tree_decode's byte bounds count
+     the words they read: the rows' distinct words in range, and
+     tree_decode's table rows 1-15), every row with
+     over_floor_device_ms, its device time less the "I launch floor"
      line's (timed first, floor_device_ms),
      vec_cond_while also at the shared-memory limit (vec_cond_while_smem)
      and one lane past it (vec_cond_while_global), each row naming its
@@ -331,6 +333,13 @@ def nbytes(x) -> int:
     if torch.is_tensor(x):
         return x.numel() * x.element_size()
     return sum(nbytes(y) for y in x) if isinstance(x, (tuple, list)) else 0
+
+
+def rows_read(rows, nw: int) -> int:
+    """Bytes of the distinct int32 words of a (nw, lanes) array read at
+    rows (int64 (steps, lanes)): each lane's distinct rows in [0, nw)."""
+    r = torch.where((rows >= 0) & (rows < nw), rows, -1).sort(0).values
+    return 4 * int((r[0] >= 0).sum() + ((r[1:] != r[:-1]) & (r[1:] >= 0)).sum())
 
 
 def max_abs_err(a, b) -> int:
@@ -1245,16 +1254,21 @@ def phase_i(smi: str) -> tuple:
         kernel_of[name] = "vec_cond_while_" + while_route[name]
     if sorted(while_route.values()) != sorted(ip.WHILE_ROUTES):
         raise SystemExit("phase I: the loop rows do not cover every route: %s" % while_route)
+    # the row kernels' bytes: j, each distinct word of words they read, out
     words, j = ints((40, lanes)), ints((1, lanes), 0, 37)
+    fetched = rows_read(j.long() + torch.arange(3, device=DEVICE)[:, None], 40)
     cases["fetch_rows"] = (lambda: ip.fetch_rows(words, j, 3),
                            lambda: ip.fetch_rows_plain(words, j, 3), isrc,
-                           "tools/probe_inflate_prims.py:105", (words, j), 3 * lanes)
+                           "tools/probe_inflate_prims.py:105",
+                           lambda got: nbytes(j) + fetched + nbytes(got), 3 * lanes)
     cases["row_store_loop"] = (lambda: ip.row_store_loop(24, lanes, DEVICE),
                                lambda: ip.row_store_loop_plain(24, lanes, DEVICE), isrc,
                                "tools/probe_inflate_prims.py:58", (), 24 * lanes)
+    stored = rows_read(ip.store_loop_steps(j, 40, 16), 40)
     cases["gather_store_loop"] = (lambda: ip.gather_store_loop(words, j, 16),
                                   lambda: ip.gather_store_loop_plain(words, j, 16), isrc,
-                                  "tools/probe_inflate_prims.py:131", (words, j), 16 * lanes)
+                                  "tools/probe_inflate_prims.py:131",
+                                  lambda got: nbytes(j) + stored + nbytes(got), 16 * lanes)
     cx = ints((16, lanes), 0, 1000)
     cases["col_min_sum"] = (lambda: ip.col_min_sum(cx), lambda: ip.col_min_sum_plain(cx), isrc,
                             "tools/probe_inflate_prims2.py:46", (cx,), 2 * cx.numel())
@@ -1264,8 +1278,11 @@ def phase_i(smi: str) -> tuple:
     _, *cols = inflate_cuda.canon_tables(FIXED_LITLEN_LENGTHS, "litlen")
     tabs = [torch.from_numpy(np.tile(c[:, None], (1, lanes))).to(DEVICE) for c in cols]
     w = ints((1, lanes))
+    # tree_decode's bytes: w, rows 1-15 of its tables (row 0 is never read), out
     cases["tree_decode"] = (lambda: ip.tree_decode(w, *tabs), lambda: ip.tree_decode_plain(w, *tabs),
-                            isrc, "tools/probe_inflate_prims2.py:82", (w, *tabs), 16 * lanes)
+                            isrc, "tools/probe_inflate_prims2.py:82",
+                            lambda got: nbytes(w) + nbytes([t[1:] for t in tabs]) + nbytes(got),
+                            16 * lanes)
     win = (*(ints((1, lanes)) for _ in range(3)), ints((1, lanes), 0, 32), ints((1, lanes), 0, 21))
     cases["window64"] = (lambda: ip.window64(*win), lambda: ip.window64_plain(*win), isrc,
                          "tools/probe_inflate_prims2.py:139", win, 3 * lanes)
@@ -1296,9 +1313,8 @@ def phase_i(smi: str) -> tuple:
     for name, row in rows.items():
         row["device_ms"] = device_ms(cases[name][0])
         row["device_pct_of_bound"] = 100 * row["bound_ms"] / row["device_ms"]
-        if name in ("gather_store_loop", "col_min_sum"):
-            row["over_floor_device_ms"] = row["device_ms"] - floor_device_ms
-            row["floor_device_ms"] = floor_device_ms
+        row["over_floor_device_ms"] = row["device_ms"] - floor_device_ms
+        row["floor_device_ms"] = floor_device_ms
         if name in library:
             row["library_device_ms"] = device_ms(library[name])
             # ms and library_ms are 10 calls each, and these calls are

@@ -244,7 +244,7 @@ def caller(fn, *args):
     def go():
         err = fn(*ptrs, stream)
         if err:
-            raise SystemExit("store_min_breakdown: a launch was refused (%d)" % err)
+            raise SystemExit("%s: a launch was refused (%d)" % (os.path.basename(sys.argv[0]), err))
     return go
 
 

@@ -409,6 +409,29 @@ def test_fetch_rows_matches_k_d():
     _equal(ip.fetch_rows(_t(words), _t(j), 3), want)
 
 
+def _fetch_reference(words, j, k):
+    """words[j + i, lane] for i < k, 0 where j + i is outside [0, nw): numpy, int64 rows."""
+    r = j.astype(np.int64) + np.arange(k)[:, None]
+    inside = (r >= 0) & (r < words.shape[0])
+    out = np.zeros((k, words.shape[1]), np.int32)
+    at, lane = np.nonzero(inside)
+    out[at, lane] = words[r[at, lane], lane]
+    return out
+
+
+@pytest.mark.parametrize("nw", [0, 1, 40, 4353])
+@pytest.mark.parametrize("k", [1, 2, 3, 15, 16, 17, 33])
+def test_fetch_rows_plain_at_its_edges(k, nw):
+    """k around the card kernel's chunk of 16, no rows to 4,353, j at
+    int32's ends and where the rows start below 0 or end past nw."""
+    rng = np.random.default_rng(k * 11 + nw)
+    words = rng.integers(I32.min, I32.max, (nw, 128), dtype=np.int32)
+    j = rng.integers(-3 * nw - 3, 3 * nw + 3, (1, 128), dtype=np.int32)
+    edges = [I32.min, I32.max, *range(-k, 0), *range(nw - k, nw + 1)]
+    j[0, : len(edges)] = edges
+    _equal(ip.fetch_rows_plain(_t(words), _t(j), k), _fetch_reference(words, j, k))
+
+
 # tools/probe_inflate_prims.py:131-148
 def k_e(w_ref, j_ref, o_ref):
     def cond(st):
@@ -525,8 +548,11 @@ def test_canon_tables_match_tpuzlib():
         assert all(np.array_equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("table", ["fixed", "one code: no match", "random tables"])
-def test_tree_decode_matches_k_h(table):
+TREE_TABLES = ["fixed", "one code: no match", "random tables"]
+
+
+def _tree_inputs(table):
+    """w (1, 128) and the tables cnt, first, off (16, 128) of a TREE_TABLES kind."""
     rng = np.random.default_rng(8)
     w = _u32(rng, (1, 128))
     if table == "random tables":  # differences that wrap, every comparison's sign
@@ -538,10 +564,33 @@ def test_tree_decode_matches_k_h(table):
         lengths = FIXED_LITLEN_LENGTHS if table == "fixed" else np.array([1] + [0] * 287)
         _, cnt16, first16, off16 = inflate_cuda.canon_tables(lengths, "litlen")
         cnt, first, off = _tiles(cnt16, first16, off16)
+    return w, cnt, first, off
+
+
+@pytest.mark.parametrize("table", TREE_TABLES)
+def test_tree_decode_matches_k_h(table):
+    w, cnt, first, off = _tree_inputs(table)
     want = _call(k_h, (2, 128), jnp.int32, w, cnt, first, off)
     if table == "one code: no match":
         assert (want[0] == 99).any() and (want[0] == 1).any()
     _equal(ip.tree_decode(*map(_t, (w, cnt, first, off))), want)
+
+
+@pytest.mark.parametrize("table", TREE_TABLES)
+def test_tree_decode_ignores_row_0(table):
+    """Row 0 of cnt, first and off, random int32 with int32's ends, changes
+    neither k_h nor the plain version: the card kernel never loads it."""
+    w, *tabs = _tree_inputs(table)
+    want = _call(k_h, (2, 128), jnp.int32, w, *tabs)
+    rng = np.random.default_rng(19)
+    poisoned = [t.copy() for t in tabs]
+    for n, t in enumerate(poisoned):
+        t[0] = rng.integers(I32.min, I32.max, 128, dtype=np.int32)
+        t[0, n : n + 2] = I32.min, I32.max
+    assert not any(np.array_equal(p[0], t[0]) for p, t in zip(poisoned, tabs))
+    assert np.array_equal(_call(k_h, (2, 128), jnp.int32, w, *poisoned), want)
+    _equal(ip.tree_decode_plain(*map(_t, (w, *poisoned))), want)
+    _equal(ip.tree_decode_plain(*map(_t, (w, *tabs))), want)
 
 
 LE = 288

@@ -33,14 +33,19 @@
 // its launch.  Designs: one thread a lane, rows a loop inside it, stores
 // coalesced across lanes.
 //
-// gather_store_loop and col_min_sum are held by the round trips to the L2
-// inside the launch: each step or row is a load.  A thread computes a
-// chunk of 16 steps' rows in registers, from one floor mod and then one
-// add and compare a step on offsets summed beforehand (no division and no
-// chain of steps), or takes 16 rows, and issues all their loads through
-// the read-only path before it uses any, so 16 steps or rows cost one
-// round trip.  Their grids spread the lanes over every SM (blocks of 64
-// threads at 8,192 lanes, 128 blocks), and up to 128 lanes are one block.
+// gather_store_loop, col_min_sum, fetch_rows and tree_decode are held by
+// the round trips to the L2 inside the launch: each step or row is a
+// load.  A thread computes a chunk of 16 steps' rows in registers, from
+// one floor mod and then one add and compare a step on offsets summed
+// beforehand (no division and no chain of steps), or takes 16 rows, or
+// fetch_rows' rows j + i after j's load (4 at a time, the last chunk
+// predicated), and issues all their loads through the read-only path
+// before it uses any, so a chunk of steps or rows costs one round trip.  tree_decode loads w and rows
+// 1-15 of its three tables (row 0 is never selected) before any compare
+// and selects the rank in registers, so it makes one round trip where a
+// load at the selected row would make a second.  Their grids
+// spread the lanes over every SM (blocks of 64 threads at 8,192 lanes,
+// 128 blocks), and up to 128 lanes are one block.
 //
 // vec_cond_while is one CUDA block that holds every lane and tests the
 // condition with __syncthreads_or, since lanes in different blocks could
@@ -68,6 +73,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kOneBlock = 128;  // lanes up to which a grid spread over the SMs is one block
 constexpr int kChunk = 16;      // steps or rows whose loads a thread issues together
+constexpr int kFetchChunk = 4;  // fetch_rows: rows whose loads a thread issues together
 constexpr int kWhileThreads = 1024;  // vec_cond_while's one block
 constexpr int kRegs = 8;  // vec_cond_while: lanes a thread keeps in registers
 constexpr int kLimit = 100, kMaxSteps = 64;  // k_c's condition
@@ -150,18 +156,6 @@ vec_cond_while_kernel(const int32_t* __restrict__ x, int lanes, int32_t* __restr
   }
   if (Shared) {
     for (int l = threadIdx.x; l < lanes; l += kWhileThreads) out[l] = v[l];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fetch_rows_kernel(const int32_t* __restrict__ words, int nw, int lanes,
-                  const int32_t* __restrict__ j, int k, int32_t* __restrict__ out) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
-  if (l >= lanes) return;
-  const long long j0 = j[l];
-  for (int i = 0; i < k; ++i) {
-    const long long r = j0 + i;
-    out[static_cast<long long>(i) * lanes + l] = r >= 0 && r < nw ? words[r * lanes + l] : 0;
   }
 }
 
@@ -297,30 +291,95 @@ __device__ __forceinline__ uint32_t rev16(uint32_t w) {
   return __brev(w & 0xFFFFu) >> 16;
 }
 
-// out (2, lanes): the first code length L >= 1 whose table range holds
-// the window's L-bit prefix (99 for none), and the rank at L clipped to
-// [0, 15]; cnt, first, off: int32 (16, lanes)
+// ---- fetch_rows and tree_decode: a lane's loads all in flight -------------
+//
+// fetch_rows: j's load, then rows j + i in chunks of kFetchChunk, each
+// chunk's rows loaded through the read-only path before its first store,
+// then stored a row at a time (coalesced across lanes); a row outside [0,
+// nw) gives 0.  Whole chunks while kFetchChunk rows are left, then one
+// chunk predicated on i < k: the probes' k = 3 is that one chunk.  On an
+// H100 the same chunks in one predicated loop issued each load after the
+// last one's store, and chunks of 16 were slower at k = 3.  The range
+// test j >= -i && j < nw - i is exact in 32 bits for i < 2^20 (the entry
+// point refuses a larger k): no sum wraps at int32's ends, and j + i is
+// formed only for a row inside.
+template <bool Tail>
+__device__ __forceinline__ void fetch_chunk(const int32_t* __restrict__ col, int nw, int lanes,
+                                            int32_t j0, int i0, int k, int32_t* __restrict__ oc) {
+  int32_t v[kFetchChunk];
+#pragma unroll
+  for (int t = 0; t < kFetchChunk; ++t) {
+    const int i = i0 + t;
+    v[t] = (!Tail || i < k) && j0 >= -i && j0 < nw - i
+               ? __ldg(col + static_cast<long long>(j0 + i) * lanes)
+               : 0;
+  }
+#pragma unroll
+  for (int t = 0; t < kFetchChunk; ++t)
+    if (!Tail || i0 + t < k) oc[static_cast<long long>(i0 + t) * lanes] = v[t];
+}
+
 __global__ void __launch_bounds__(kThreads)
+fetch_rows_kernel(const int32_t* __restrict__ words, int nw, int lanes,
+                  const int32_t* __restrict__ j, int k, int32_t* __restrict__ out) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= lanes) return;
+  const int32_t j0 = __ldg(j + l);
+  const int32_t* col = words + l;
+  int32_t* oc = out + l;
+  int i0 = 0;
+  for (; i0 + kFetchChunk <= k; i0 += kFetchChunk)
+    fetch_chunk<false>(col, nw, lanes, j0, i0, k, oc);
+  if (i0 < k) fetch_chunk<true>(col, nw, lanes, j0, i0, k, oc);
+}
+
+// tree_decode, out (2, lanes): the first code length L >= 1 whose table
+// range holds the window's L-bit prefix (99 for none), and the rank at L
+// clipped to [0, 15]; cnt, first, off: int32 (16, lanes).  The length
+// selected is 1..15 (99 clips to 15), so row 0 is never read: w and rows
+// 1-15 of the three tables, 46 loads, go out through the read-only path
+// before any compare, one round trip.  A chain from L = 15 down to 1,
+// unrolled and in registers, keeps the last (shortest) length whose range
+// holds its code and the rank there, off + code - first in uint32; it
+// starts from L = 15's rank, the no-match case.  The match is the tools'
+// int32 compare on the wrapped difference.  The rank is summed at every
+// length and selected, not assigned in a branch: from `if (match) { off_sel
+// = off[L]; ... }` ptxas made each off[L] a load predicated on its match
+// into one register, and loads that write one register wait for each
+// other, a round trip each.  The kernel takes a ceiling of 128 registers
+// in place of the launch bound (its blocks stay at most kThreads): under
+// __launch_bounds__(kThreads) ptxas kept to 64 and issued the loads in
+// two batches behind a wait.
+__global__ void __maxnreg__(128)
 tree_decode_kernel(const int32_t* __restrict__ w, const int32_t* __restrict__ cnt,
                    const int32_t* __restrict__ first, const int32_t* __restrict__ off, int lanes,
                    int32_t* __restrict__ out) {
-  const int l = blockIdx.x * kThreads + threadIdx.x;
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  const int32_t rv = static_cast<int32_t>(rev16(static_cast<uint32_t>(w[l])));
+  const uint32_t wl = static_cast<uint32_t>(__ldg(w + l));
+  int32_t c[16], f[16], o[16];  // rows 1-15; [0] unused
+#pragma unroll
+  for (int L = 1; L < 16; ++L) {
+    const long long at = static_cast<long long>(L) * lanes + l;
+    c[L] = __ldg(cnt + at);
+    f[L] = __ldg(first + at);
+    o[L] = __ldg(off + at);
+  }
+  const int32_t rv = static_cast<int32_t>(rev16(wl));
   int sel = 99;
+  uint32_t rank = static_cast<uint32_t>(o[15]) + static_cast<uint32_t>(rv >> 1) -
+                  static_cast<uint32_t>(f[15]);
 #pragma unroll
   for (int L = 15; L >= 1; --L) {
-    const int32_t code = rv >> (16 - L);
-    const int32_t f = first[static_cast<long long>(L) * lanes + l];
-    const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(code) - static_cast<uint32_t>(f));
-    if (code >= f && d < cnt[static_cast<long long>(L) * lanes + l]) sel = L;
+    const int32_t cl = rv >> (16 - L);
+    const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(cl) - static_cast<uint32_t>(f[L]));
+    const bool hit = cl >= f[L] && d < c[L];
+    sel = hit ? L : sel;
+    rank = hit ? static_cast<uint32_t>(o[L]) + static_cast<uint32_t>(cl) - static_cast<uint32_t>(f[L])
+               : rank;
   }
-  const int Lc = sel < 15 ? sel : 15;
-  const int32_t code = rv >> (16 - Lc);
-  const long long at = static_cast<long long>(Lc) * lanes + l;
   out[l] = sel;
-  out[lanes + l] = static_cast<int32_t>(static_cast<uint32_t>(off[at]) + static_cast<uint32_t>(code) -
-                                        static_cast<uint32_t>(first[at]));
+  out[lanes + l] = static_cast<int32_t>(rank);
 }
 
 // out (3, lanes): the 64-bit window's low and high words at bit sh of
@@ -389,11 +448,16 @@ extern "C" int tz_vec_cond_while(const void* x, int lanes, int route, void* out,
   return done();
 }
 
-// words (nw, lanes), j (1, lanes), out (k, lanes); k >= 1
+// words (nw, lanes), j (1, lanes), out (k, lanes); k in [1, 2^20)
 extern "C" int tz_fetch_rows(const void* words, int nw, int lanes, const void* j, int k,
                              void* out, void* stream) {
-  if (lanes <= 0 || nw < 0 || k <= 0) return invalid();
-  fetch_rows_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (lanes <= 0 || nw < 0 || k <= 0 || k >= 1 << 20) return invalid();
+  int sms = 0;
+  const cudaError_t err = tz::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = spread_threads(lanes, sms);
+  fetch_rows_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(words), nw, lanes, static_cast<const int32_t*>(j), k,
       static_cast<int32_t*>(out));
   return done();
@@ -448,7 +512,12 @@ extern "C" int tz_var_shifts(const void* r, const void* e, int lanes, void* out,
 extern "C" int tz_tree_decode(const void* w, const void* cnt, const void* first, const void* off,
                               int lanes, void* out, void* stream) {
   if (lanes <= 0) return invalid();
-  tree_decode_kernel<<<blocks_for(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int sms = 0;
+  const cudaError_t err = tz::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = spread_threads(lanes, sms);
+  tree_decode_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(w), static_cast<const int32_t*>(cnt),
       static_cast<const int32_t*>(first), static_cast<const int32_t*>(off), lanes,
       static_cast<int32_t*>(out));

@@ -14,7 +14,10 @@ inputs.  Arrays are int32 (rows, lanes); uint32 values pass as their bits.
                            each route counts in _build.LAUNCHES as
                            vec_cond_while_<route> too);
   fetch_rows(words, j, k)  (k, lanes): words[j + i] for i < k, 0 outside
-                           the rows (k_d, k = 3);
+                           the rows (k_d, k = 3); on the card a thread a
+                           lane loads j, then issues a chunk of 4 rows'
+                           loads together before it stores them, the
+                           last chunk predicated on i < k;
   row_store_loop(rows, lanes)
                            (rows, lanes): row `it` set to `it` in step `it`
                            of a loop (k_b);
@@ -36,7 +39,10 @@ inputs.  Arrays are int32 (rows, lanes); uint32 values pass as their bits.
                            lengths of (16, lanes) tables: the first length
                            L >= 1 whose range holds the L-bit code (99 for
                            none) and the rank at that length, or at 15 when
-                           none matched (k_h);
+                           none matched (k_h); on the card a thread a lane
+                           loads w and rows 1-15 of the tables (row 0 is
+                           never selected) together, then selects the
+                           length and its rank in registers;
   table_lookup(ents, rank) ents[clip(rank, 0, rows - 1)] by lane: take_along
                            on axis 0 (k_i);
   window64(a, b, c, sh, o) (3, lanes): the 64-bit window at bit sh of the
@@ -45,7 +51,9 @@ inputs.  Arrays are int32 (rows, lanes); uint32 values pass as their bits.
 
 k_a (the uint32 sublane gather) is gather_probe.take_along(x, idx, 0,
 fill=-1).  The tools' where-chains over 8-row tiles (k_d, k_e, k_i) are a
-TPU workaround: each lane loads its word.  On a CUDA tensor each wrapper
+TPU workaround: each lane loads its word.  gather_store_loop,
+col_min_sum, fetch_rows and tree_decode spread their lanes over every SM
+of the card (one block up to 128 lanes).  On a CUDA tensor each wrapper
 launches its kernel and counts it in _build.LAUNCHES; on a CPU tensor it
 runs the plain version beside it, which keeps uint32 values in int64.
 """
