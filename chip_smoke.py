@@ -101,7 +101,12 @@ tpuzlib_torch/kernels/csrc, then:
      scatter_max on 8 chunks of (2304, 128)
      (the positions of one chunk, 32 KiB of context and 256 KiB, as
      tools/probe_primitives.py:48 sizes them, in the main path's batch of
-     8), the inflate primitives at 8,192 lanes (G1's cursor count)
+     8; route smem, a chunk's slab of columns max-scattered in shared
+     memory) and on one chunk into staged_words() + 1 rows
+     (scatter_max_global: route global, off the probes' path), each row
+     naming its route (`design`), its launches its route's
+     (gather_probe.SCATTER_ROUTES, launches_by_route), the inflate
+     primitives at 8,192 lanes (G1's cursor count)
      (fetch_rows', gather_store_loop's and tree_decode's byte bounds count
      the words they read: the rows' distinct words in range, and
      tree_decode's table rows 1-15), every row with
@@ -254,7 +259,9 @@ OFF_PATH = {"adler32": "the public Adler-32 runs adler32_scalar's kernel, which 
             "gf2_bits_mm_ldg": "the probe's bits start on a 16-byte boundary (route tma); "
                                "bits off one take the ldg route",
             "shift_screen_staged": "the probe screens 16 steps, which the register route "
-                                   "takes; more than 16 take the staged route"}
+                                   "takes; more than 16 take the staged route",
+            "scatter_max_global": "the probe scatters into 256 rows, which the smem route "
+                                  "takes; more than staged_words() rows take the global route"}
 
 
 def emit(obj) -> None:
@@ -1232,12 +1239,25 @@ def phase_i(smi: str) -> tuple:
         kernel_of[name] = "shift_screen"
     if sorted(shift_routes.values()) != sorted(gp.SHIFT_DESIGNS):
         raise SystemExit("phase I: the shift rows do not cover every route: %s" % shift_routes)
-    sidx, svals = ints(chunks, 0, chunks[1]), ints(chunks, 0, (1 << 31) - 1)
-    sidx64, sout = sidx.long(), torch.zeros(chunks, dtype=torch.int32, device=DEVICE)
-    cases["scatter_max"] = (lambda: gp.scatter_max(sidx, svals, chunks[1]),
-                            lambda: gp.scatter_max_plain(sidx, svals, chunks[1]), gsrc,
-                            "tools/probe_primitives.py:196", (sidx, svals), sidx.numel())
-    library["scatter_max"] = lambda: sout.scatter_reduce_(1, sidx64, svals, "amax")
+    # scatter_max into the batch's 2,304 rows (route smem: a chunk's slab of
+    # columns in shared memory) and into staged_words() + 1 rows (route
+    # global, off the probes' path: an atomic an element into zeros)
+    scatter_routes = {}
+    for name, shape, rows in (("scatter_max", chunks, chunks[1]),
+                              ("scatter_max_global", (1, *chunks[1:]), staged + 1)):
+        sidx, svals = ints(shape, 0, rows), ints(shape, 0, (1 << 31) - 1)
+        sidx64 = sidx.long()
+        sout = torch.zeros(shape[0], rows, shape[2], dtype=torch.int32, device=DEVICE)
+        cases[name] = (lambda sidx=sidx, svals=svals, rows=rows: gp.scatter_max(sidx, svals, rows),
+                       lambda sidx=sidx, svals=svals, rows=rows: gp.scatter_max_plain(sidx, svals,
+                                                                                      rows),
+                       gsrc, "tools/probe_primitives.py:196", (sidx, svals), sidx.numel())
+        library[name] = (lambda sout=sout, sidx64=sidx64, svals=svals:
+                         sout.scatter_reduce_(1, sidx64, svals, "amax"))
+        scatter_routes[name] = gp.scatter_route(sidx, rows)
+        kernel_of[name] = "scatter_max"
+    if sorted(scatter_routes.values()) != sorted(gp.SCATTER_DESIGNS):
+        raise SystemExit("phase I: the scatter rows do not cover every route: %s" % scatter_routes)
 
     # the inflate primitives at 8,192 lanes; operations: one a lane and step.
     # vec_cond_while keeps 8,192 lanes in registers; its rows _smem (at the
@@ -1309,6 +1329,8 @@ def phase_i(smi: str) -> tuple:
     emit({"phase": "I launch floor", "kernel": "take_along", "shape": [1, 1],
           "ms": floor_ms, "device_ms": floor_device_ms, "library_ms": lib_floor_ms,
           "library_device_ms": device_ms(lib_floor), "over_library": floor_ms / lib_floor_ms})
+    for name, route in scatter_routes.items():
+        rows[name]["design"] = route
     # device time of bare launches: the wrappers' host time holds these rows
     for name, row in rows.items():
         row["device_ms"] = device_ms(cases[name][0])
@@ -1366,14 +1388,15 @@ def phase_i(smi: str) -> tuple:
                        for k, v in rows_us.items()}})
 
     _build.reset_launches()
-    for counts in (gp.LOOP_ROUTES, gp.SHIFT_ROUTES):
+    for counts in (gp.LOOP_ROUTES, gp.SHIFT_ROUTES, gp.SCATTER_ROUTES):
         for d in counts:
             counts[d] = 0
     for probe in (probe_gather, probe_primitives, probe_inflate_prims, probe_inflate_prims2):
         probe.main([])
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES[kernel_of.get(k, k)] for k in rows}
-    for kernel, counts in (("take_along_loop", gp.LOOP_ROUTES), ("shift_screen", gp.SHIFT_ROUTES)):
+    for kernel, counts in (("take_along_loop", gp.LOOP_ROUTES), ("shift_screen", gp.SHIFT_ROUTES),
+                           ("scatter_max", gp.SCATTER_ROUTES)):
         if sum(counts.values()) != _build.LAUNCHES[kernel]:
             raise SystemExit("phase I: %s's launches by design %s do not add up to %d"
                              % (kernel, counts, _build.LAUNCHES[kernel]))
@@ -1381,6 +1404,9 @@ def phase_i(smi: str) -> tuple:
         launches[name] = gp.LOOP_ROUTES[d]
     for name, d in shift_routes.items():  # a shift row's launches: its route's
         launches[name] = gp.SHIFT_ROUTES[d]
+    for name, d in scatter_routes.items():  # a scatter row's launches: its route's
+        launches[name] = gp.SCATTER_ROUTES[d]
+        rows[name]["launches_by_route"] = dict(gp.SCATTER_ROUTES)
     return rows, launches
 
 

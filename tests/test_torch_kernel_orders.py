@@ -460,3 +460,79 @@ def test_col_min_sum_refuses_what_its_kernel_does():
                    (torch.zeros(2, 3, 4, dtype=torch.int32), ValueError)):
         with pytest.raises(exc):
             ip.col_min_sum(x)
+
+
+# ---- scatter_max ----------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,route", [(1, "smem"), (2304, "smem"), (H100_STAGED_WORDS, "smem"),
+                                        (H100_STAGED_WORDS + 1, "global"), ((1 << 31) - 1, "global")])
+def test_scatter_route_at_the_staged_limit(rows, route):
+    idx = torch.zeros(2, 3, 5, dtype=torch.int32)
+    assert gp.scatter_route(idx, rows, H100_STAGED_WORDS) == route
+    assert gp.scatter_route(idx[0], rows, rows) == "smem"
+    if rows > 1:
+        assert gp.scatter_route(idx, rows, rows - 1) == "global"
+
+
+def test_scatter_route_refuses_what_scatter_max_does():
+    idx = torch.zeros(3, 4, dtype=torch.int32)
+    for bad, rows in ((idx, 0), (idx, 1 << 31), (idx[:0], 4), (idx.reshape(-1), 4),
+                      (idx.long(), 4)):
+        with pytest.raises((ValueError, TypeError)):
+            gp.scatter_route(bad, rows, H100_STAGED_WORDS)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("b,r,w,rows", [(8, 2304, 128, 2304), (1, 256, 128, 256), (1, 1, 1, 1),
+                                        (3, 5, 127, 4353), (2, 600, 12, H100_STAGED_WORDS),
+                                        (1, 9, 129, 7), (70000, 2, 4, 3), (2, 40, 132, 3632),
+                                        (9, 3, 64, 14528)])
+def test_scatter_slabs_cover_each_column_once_and_fit(b, r, w, rows, sms):
+    """The smem route's plan: slabs of 8 columns (a 32-byte sector of a
+    row), 4 where 8 would leave more than half the SMs without a block,
+    fewer where the slab would not fit the staged words; a block a
+    multiple of 32 no narrower than its slab; its blocks cover every
+    (chunk, column) exactly once."""
+    cols, threads = gp.scatter_slabs(b, r, w, rows, sms, H100_STAGED_WORDS)
+    want = 8 if 2 * b * -(-w // 8) >= sms else 4
+    while rows * want > H100_STAGED_WORDS:
+        want //= 2
+    assert cols == want and rows * cols <= H100_STAGED_WORDS
+    assert threads % 32 == 0 and max(32, cols) <= threads <= gp.SCATTER_THREADS
+    assert threads == gp.scatter_threads(r, w, rows, cols)
+    blocks = gp.scatter_blocks(b, w, cols)
+    assert len(blocks) == b * -(-w // cols)
+    seen = np.zeros((b, w), np.int64)
+    for k, c0, nc in blocks:
+        assert 1 <= nc <= cols and c0 % cols == 0
+        seen[k, c0:c0 + nc] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,r,w,rows,cols", [(8, 2304, 128, 2304, 8), (1, 256, 128, 256, 4),
+                                             (1, 2304, 128, 2304, 4), (3, 5, 127, 4353, 4),
+                                             (2, 600, 12, H100_STAGED_WORDS, 1),
+                                             (9, 3, 64, 14528, 4), (9, 3, 64, 14529, 2)])
+def test_scatter_slabs_on_an_h100(b, r, w, rows, cols):
+    """On 132 SMs: the encoder batch's (8, 2304, 128) in slabs of 8
+    columns (128 blocks of 512 threads, 72 KiB each), one chunk and the
+    tool's (256, 128) in slabs of 4; the staged words cap the width."""
+    assert gp.scatter_slabs(b, r, w, rows, 132, H100_STAGED_WORDS)[0] == cols
+    if (b, w) == (8, 128):
+        assert gp.scatter_slabs(b, r, w, rows, 132, H100_STAGED_WORDS)[1] == 512
+        assert len(gp.scatter_blocks(b, w, cols)) == 128
+
+
+@pytest.mark.parametrize("r,w,rows,cols,threads", [(2304, 128, 2304, 8, 512), (256, 128, 256, 4, 256),
+                                                   (1, 1, 1, 1, 32), (5, 127, 4353, 4, 512),
+                                                   (40, 5, 40, 4, 160), (3, 8, 3, 8, 32)])
+def test_scatter_threads(r, w, rows, cols, threads):
+    """A thread a unit of each of max(r, rows) rows (4 columns where w and
+    cols are multiples of 4, else 1), in warps, up to 512."""
+    assert gp.scatter_threads(r, w, rows, cols) == threads
+
+
+@pytest.mark.parametrize("rows", [0, H100_STAGED_WORDS + 1])
+def test_scatter_slabs_refuse_rows_past_the_staged_words(rows):
+    with pytest.raises(ValueError):
+        gp.scatter_slabs(1, 4, 4, rows, 132, H100_STAGED_WORDS)

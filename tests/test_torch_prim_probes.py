@@ -228,6 +228,29 @@ def test_scatter_max_matches_k_scatter(loaded, rows):
         assert want[3, 5] == vals[:, 5].max() and want[rows - 1, 6] >= vals[0, 6]
 
 
+@pytest.mark.parametrize("cols", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("rows,w", [(16, 128), (37, 5), (40, 129), (256, 128)])
+def test_slab_replay_matches_plain_and_k_scatter(rows, w, cols):
+    """The card's smem route replayed on the host (a zeroed slab a block,
+    its elements max-scattered, values of 0 or less skipped, written out)
+    on 3 chunks, each held exactly to the plain version and to the tool's
+    k_scatter in interpret mode, a slab's last columns fewer where cols
+    does not divide w."""
+    rng = np.random.default_rng(rows * 10 + w + cols)
+    vals = rng.integers(0, I32.max, (3, rows, w), dtype=np.int32)
+    vals[:, 1] = rng.integers(I32.min, 1, (3, w))  # values of 0 or less lose to the zeros
+    idx = rng.integers(-rows, rows, (3, rows, w), dtype=np.int32)
+    idx[:, :, 0] = 3 % rows  # a column of duplicates
+    idx[:, :4, 1:5] = [[-1, rows, -rows - 1, I32.min][: min(4, w - 1)]] * 4  # wrapped, dropped
+    got = gp.slab_scatter_plain(_t(idx), _t(vals), rows, cols)
+    assert torch.equal(got, gp.scatter_max_plain(_t(idx), _t(vals), rows))
+    for k in range(3):
+        want = _call(_scatter_kernel(True), (rows, w), jnp.int32, vals[k], idx[k])
+        _equal(got[k], want)
+    two_d = gp.slab_scatter_plain(_t(idx[0]), _t(vals[0]), rows, cols)
+    assert torch.equal(two_d, got[0])
+
+
 def test_scatter_max_takes_chunks():
     rng = np.random.default_rng(5)
     idx = rng.integers(-3, 12, (3, 8, 16), dtype=np.int32)

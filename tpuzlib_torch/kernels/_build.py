@@ -59,7 +59,7 @@ _ARGTYPES = {
     "tz_take_along": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
     "tz_take_along_loop": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
     "tz_flat_gather": [_P, _L, _P, _L, _P, _P],
-    "tz_scatter_max": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "tz_scatter_max": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tz_shift_screen": [_P, _I, _L, _I, _I, _P, _P],
     "tz_vec_cond_while": [_P, _I, _I, _P, _P],
     "tz_fetch_rows": [_P, _I, _I, _P, _I, _P, _P],

@@ -71,12 +71,15 @@
 // Measured on an H100 (probes/forms_breakdown.py): 7.4x faster on (4352,
 // 128) than a thread an element with a % a step.
 //
-// The other kernels, simple first: one thread an output element,
-// neighbouring threads on neighbouring elements, so that the index reads
-// and the output writes coalesce and the gathers fall in L1 or L2.
-// scatter_max has each thread atomicMax
-// its value into the zeroed output.  shift_screen keeps a warp's 128 words
-// and their 16 predecessors in registers (its note, below).
+// scatter_max moves its indices and values in and its output out once
+// (28.3 MB on the encoder batch's (8, 2304, 128): 8.5 us at 3.35 TB/s).
+// Chunk k, column c only ever writes column c of chunk k, so a CUDA block
+// owns a chunk and a slab of adjacent columns and max-scatters them in
+// shared memory (route "smem", its note below); where not even one
+// column's output fits a block's shared memory, a thread an element
+// atomicMaxes into the output, which the caller zeroes (route "global").
+// shift_screen keeps a warp's 128 words and their 16 predecessors in
+// registers (its note, below).
 
 #include <atomic>
 #include <cstdint>
@@ -381,8 +384,115 @@ flat_gather_kernel(const int32_t* __restrict__ table, long long T, bool tvec,
   }
 }
 
+// ---- scatter_max -----------------------------------------------------------------
+//
 // b chunks of (r, w) indices and values into b chunks of (rows, w):
 // out[k, idx[k, i, c], c] = max(out[...], vals[k, i, c]); out starts at 0.
+//
+// Route "smem": block blockIdx.x owns chunk k and the slab of nc <= cols
+// adjacent columns from c0 (the host chooses cols and the block size,
+// gather_probe.scatter_slabs):
+//   - the thread of unit q of row t / L (L units a row: 4 columns each
+//     by one 16-byte load where Vec, else 1) issues the loads of
+//     kScatterBatch of its rows, idx and vals, then zeroes its share of
+//     the (rows, nc) slab in shared memory while they are in flight;
+//   - after __syncthreads() it applies each element by a shared-memory
+//     atomicMax (ATOMS.MAX), then loads its next rows; a value of 0 or
+//     less changes nothing in a slab that starts at 0, and is skipped;
+//   - after __syncthreads() the block writes the slab out once, a row's
+//     nc words a unit (16-byte stores where Vec), so every output word is
+//     written by the kernel, with no global atomic and no zeroing launch.
+// The slab is column-major (slab_at): a warp's atomics on one column land
+// on banks of random rows, and a slab needs rows * nc words, so one
+// column fits up to rows = tz_gather_staged_words().  Measured on an H100
+// (probes/scatter_breakdown.py, (8, 2304, 128)): 3.0x faster than an
+// atomic an element into zeros, 2.2x with the L2 evicted; slabs of 8
+// columns (a 32-byte sector of a row) beat 4 and 16; row-major slabs, with
+// or without padding, lost; one row's loads a thread won 5% in a warm L2
+// and lost 25% in a cold one.
+constexpr int kScatterBatch = 4;  // a thread's rows loaded before it updates
+
+__host__ __device__ __forceinline__ long long slab_words(int rows, int cols) {
+  return static_cast<long long>(rows) * cols;
+}
+
+__device__ __forceinline__ int slab_at(int row, int j, int rows, int cols) {
+  return j * rows + row;
+}
+
+// slab = max(slab, v) at idx's row of column j, by scatter_max's index rule
+__device__ __forceinline__ void slab_max(int32_t* slab, int i, int32_t v, int j, int rows,
+                                         int cols) {
+  if (i < 0) i += rows;  // no overflow: rows < 2^31
+  if (v > 0 && static_cast<unsigned>(i) < static_cast<unsigned>(rows))
+    atomicMax(slab + slab_at(i, j, rows, cols), v);
+}
+
+template <bool Vec>
+__global__ void __launch_bounds__(kStagedThreads)
+scatter_max_smem(const int32_t* __restrict__ idx, const int32_t* __restrict__ vals, int r, int w,
+                 int rows, int cols, int32_t* __restrict__ out) {
+  extern __shared__ int4 staged4[];
+  int32_t* slab = reinterpret_cast<int32_t*>(staged4);
+  const int slabs = (w + cols - 1) / cols;
+  const int k = blockIdx.x / slabs, c0 = (blockIdx.x - k * slabs) * cols;
+  const int nc = min(cols, w - c0);
+  constexpr int per = Vec ? 4 : 1;  // columns a unit
+  const int units = nc / per, pass = blockDim.x / units;  // pass: rows a pass
+  const int q = threadIdx.x % units, first = threadIdx.x / units;
+  const bool active = first < pass;
+  const int j0 = q * per;
+  const long long base = static_cast<long long>(k) * r * w + c0 + j0;
+  const int step = kScatterBatch * pass;
+  int4 iv[kScatterBatch], vv[kScatterBatch];
+  auto load = [&](int r0) {
+#pragma unroll
+    for (int u = 0; u < kScatterBatch; ++u) {
+      const int row = r0 + u * pass;
+      if (row < r) {
+        const long long at = base + static_cast<long long>(row) * w;
+        iv[u] = load_unit<Vec>(idx + at, 0);
+        vv[u] = load_unit<Vec>(vals + at, 0);
+      }
+    }
+  };
+  if (active) load(first);
+  const int words = static_cast<int>(slab_words(rows, nc));
+  for (int e = threadIdx.x * 4; e + 3 < words; e += blockDim.x * 4)
+    *reinterpret_cast<int4*>(slab + e) = make_int4(0, 0, 0, 0);
+  for (int e = (words & ~3) + threadIdx.x; e < words; e += blockDim.x) slab[e] = 0;
+  __syncthreads();
+  if (active) {
+    for (int r0 = first; r0 < r; r0 += step) {
+      if (r0 != first) load(r0);
+#pragma unroll
+      for (int u = 0; u < kScatterBatch; ++u) {
+        if (r0 + u * pass >= r) break;
+        slab_max(slab, iv[u].x, vv[u].x, j0, rows, nc);
+        if (Vec) {
+          slab_max(slab, iv[u].y, vv[u].y, j0 + 1, rows, nc);
+          slab_max(slab, iv[u].z, vv[u].z, j0 + 2, rows, nc);
+          slab_max(slab, iv[u].w, vv[u].w, j0 + 3, rows, nc);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  int32_t* o = out + static_cast<long long>(k) * rows * w + c0 + j0;
+  for (int row = first; row < rows; row += pass) {
+    int32_t* orow = o + static_cast<long long>(row) * w;
+    if (Vec) {
+      *reinterpret_cast<int4*>(orow) =
+          make_int4(slab[slab_at(row, j0, rows, nc)], slab[slab_at(row, j0 + 1, rows, nc)],
+                    slab[slab_at(row, j0 + 2, rows, nc)], slab[slab_at(row, j0 + 3, rows, nc)]);
+    } else {
+      *orow = slab[slab_at(row, j0, rows, nc)];
+    }
+  }
+}
+
+// Route "global": a thread an element, atomicMax into the zeroed output.
 __global__ void __launch_bounds__(kThreads)
 scatter_max_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ vals, int b,
                    int r, int w, int rows, int32_t* __restrict__ out) {
@@ -587,7 +697,9 @@ cudaError_t current_card(const Card** out) {
           reinterpret_cast<const void*>(flat_gather_kernel<true, true>),
           reinterpret_cast<const void*>(flat_gather_kernel<true, false>),
           reinterpret_cast<const void*>(take_along_loop_staged<0>),
-          reinterpret_cast<const void*>(take_along_loop_staged<1>)};
+          reinterpret_cast<const void*>(take_along_loop_staged<1>),
+          reinterpret_cast<const void*>(scatter_max_smem<true>),
+          reinterpret_cast<const void*>(scatter_max_smem<false>)};
       for (const void* k : staged)
         if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         c.smem_block)) != cudaSuccess)
@@ -777,14 +889,39 @@ extern "C" int tz_flat_gather(const void* table, long long T, const void* idx, l
   return static_cast<int>(cudaGetLastError());
 }
 
-// idx, vals: int32 (b, r, w); out: int32 (b, rows, w), zeroed by the caller.
+// idx, vals: int32 (b, r, w); out: int32 (b, rows, w).  cols >= 1: route
+// "smem", slabs of `cols` columns on blocks of `threads` (a multiple of 32
+// from 32 to 512, at least cols), every output word written by the kernel;
+// the slab, slab_words(rows, cols) words, must fit a block's shared
+// memory.  cols == 0: route "global", out zeroed by the caller.
 extern "C" int tz_scatter_max(const void* idx, const void* vals, int b, int r, int w, int rows,
-                              void* out, void* stream) {
+                              int cols, int threads, void* out, void* stream) {
   const long long n = static_cast<long long>(b) * r * w;
-  if (n <= 0 || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  scatter_max_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(vals), b, r, w, rows,
-      static_cast<int32_t*>(out));
+  if (b <= 0 || r <= 0 || w <= 0 || rows <= 0 || cols < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* is = static_cast<const int32_t*>(idx);
+  const auto* vs = static_cast<const int32_t*>(vals);
+  auto* o = static_cast<int32_t*>(out);
+  if (cols == 0) {
+    scatter_max_kernel<<<grid_for(n), kThreads, 0, s>>>(is, vs, b, r, w, rows, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const Card* c = nullptr;
+  const cudaError_t err = current_card(&c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(b) * ((w + cols - 1LL) / cols);
+  const long long bytes = 4 * slab_words(rows, cols);
+  if (threads < 32 || threads > kStagedThreads || threads % 32 || threads < cols ||
+      blocks > 0x7FFFFFFFLL || bytes > c->smem_block)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = w % 4 == 0 && cols % 4 == 0 && aligned16(idx) && aligned16(vals) &&
+                   aligned16(out);
+  if (vec)
+    scatter_max_smem<true><<<static_cast<unsigned>(blocks), threads, bytes, s>>>(is, vs, r, w, rows,
+                                                                                 cols, o);
+  else
+    scatter_max_smem<false><<<static_cast<unsigned>(blocks), threads, bytes, s>>>(is, vs, r, w,
+                                                                                  rows, cols, o);
   return static_cast<int>(cudaGetLastError());
 }
 

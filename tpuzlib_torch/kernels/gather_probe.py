@@ -26,7 +26,14 @@ all take and give int32 (uint32 values pass as their bits):
                    zeros (rows, w) max-scattered along rows:
                    out[idx[i, c], c] = max(out[...], vals[i, c]) (k_scatter,
                    whose values were zeros); an index below 0 counts from
-                   the end, one still outside [0, rows) is dropped;
+                   the end, one still outside [0, rows) is dropped; on the
+                   card a block max-scatters a chunk's slab of columns in
+                   shared memory where one column's rows fit
+                   staged_words(), else each element goes to the output by
+                   a global atomic (scatter_route; SCATTER_ROUTES counts
+                   the launches of each); scatter_slabs gives the slabs'
+                   width and block, scatter_blocks the blocks' slabs, and
+                   slab_scatter_plain replays the slab route on the host;
   shift_screen(x, steps)
                    the signed max over s in [1, steps] of
                    roll(x, s) ^ x on the flattened array, and 0 (k_roll's
@@ -64,6 +71,9 @@ SHIFT_DESIGNS = ("regs", "staged")  # shift_screen's routes, by the code the ker
 SHIFT_ROUTES = {design: 0 for design in SHIFT_DESIGNS}  # shift_screen's launches by route
 LOOP_DESIGNS = ("ldg", "staged")  # take_along_loop's designs, by the code the kernel takes
 LOOP_ROUTES = {design: 0 for design in LOOP_DESIGNS}  # take_along_loop's launches by design
+SCATTER_DESIGNS = ("smem", "global")  # scatter_max's routes, by the code the kernel takes
+SCATTER_ROUTES = {design: 0 for design in SCATTER_DESIGNS}  # scatter_max's launches by route
+SCATTER_THREADS = 512  # its largest block (kStagedThreads in csrc/gather_probe.cu)
 
 
 def wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -310,18 +320,114 @@ def scatter_max_plain(idx: torch.Tensor, vals: torch.Tensor, rows: int) -> torch
     return out[0] if idx.dim() == 2 else out
 
 
+def _scatter_design(rows: int, staged: int) -> str:
+    """scatter_max's route for `rows` output rows: "smem" where one
+    column's rows fit `staged` words of shared memory, else "global"."""
+    return "smem" if rows <= staged else "global"
+
+
+def scatter_route(idx: torch.Tensor, rows: int, staged: int = None) -> str:
+    """The route of scatter_max(idx, ..., rows) on the card: "smem" (a
+    chunk's slab of columns max-scattered in shared memory) where rows is
+    at most `staged` words (staged_words() of idx's card by default), else
+    "global" (a global atomic an element into zeros).  Raises where
+    scatter_max would."""
+    _check_scatter(idx, idx, rows)
+    if staged is None:
+        staged = staged_words(idx.device)
+    return _scatter_design(rows, staged)
+
+
+def scatter_slabs(b: int, r: int, w: int, rows: int, sms: int, staged: int) -> tuple:
+    """(cols, threads): the slab width and the block size of scatter_max's
+    smem route for b chunks of (r, w) into (rows, w), on a card of `sms`
+    SMs whose blocks may stage `staged` words.  cols is 8 (a 32-byte
+    sector of each row of idx and vals, the fewest L2 requests), or 4 (a
+    16-byte load) where slabs of 8 would leave more than half the SMs
+    without a block, and at most the widest power of two whose slab (rows
+    * cols words) fits `staged`; threads by scatter_threads."""
+    if not 1 <= rows <= staged:
+        raise ValueError("scatter_slabs: rows must be in [1, %d], got %r" % (staged, rows))
+    cols = 8 if 2 * b * -(-w // 8) >= sms else 4
+    while rows * cols > staged:
+        cols //= 2
+    return cols, scatter_threads(r, w, rows, cols)
+
+
+def scatter_threads(r: int, w: int, rows: int, cols: int) -> int:
+    """The smem route's block for slabs of `cols` columns: a multiple of 32
+    up to SCATTER_THREADS that gives each of max(r, rows) rows' units a
+    thread (a unit: 4 columns where w and cols are multiples of 4, else 1)."""
+    units = cols // 4 if w % 4 == 0 and cols % 4 == 0 else cols
+    return min(SCATTER_THREADS, max(32, -(-max(r, rows) * units // 32) * 32))
+
+
+def scatter_blocks(b: int, w: int, cols: int) -> list:
+    """The (chunk, first column, columns) of each block of the smem route,
+    in blockIdx order: chunk k's slabs of `cols` columns, the last one
+    narrower where cols does not divide w."""
+    return [(k, c0, min(cols, w - c0)) for k in range(b) for c0 in range(0, w, cols)]
+
+
+def slab_scatter_plain(idx: torch.Tensor, vals: torch.Tensor, rows: int,
+                       cols: int) -> torch.Tensor:
+    """scatter_max by its smem route on the card, on the host: for each
+    block of scatter_blocks, a zeroed column-major slab (column j's row i
+    at j * rows + i), the block's elements max-scattered into it (those of
+    value 0 or less skipped), then written out."""
+    _check_scatter(idx, vals, rows)
+    i, v = _chunks(idx).numpy().astype(np.int64), _chunks(vals).numpy()
+    b, _, w = i.shape
+    i = np.where(i < 0, i + rows, i)
+    out = np.empty((b, rows, w), np.int32)
+    for k, c0, nc in scatter_blocks(b, w, cols):
+        slab = np.zeros(rows * nc, np.int32)
+        ii, vv = i[k, :, c0:c0 + nc], v[k, :, c0:c0 + nc]
+        ok = (ii >= 0) & (ii < rows) & (vv > 0)
+        at = np.arange(nc) * rows + ii
+        np.maximum.at(slab, at[ok], vv[ok])
+        out[k, :, c0:c0 + nc] = slab.reshape(nc, rows).T
+    out = torch.from_numpy(out)
+    return out[0] if idx.dim() == 2 else out
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_plan(index: int, b: int, r: int, w: int, rows: int) -> tuple:
+    """(route, cols, threads) of scatter_max on card `index`."""
+    staged = _staged_words(index)
+    route = _scatter_design(rows, staged)
+    if route == "global":
+        return route, 0, 0
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return (route, *scatter_slabs(b, r, w, rows, sms, staged))
+
+
 def scatter_max(idx: torch.Tensor, vals: torch.Tensor, rows: int) -> torch.Tensor:
     """int32 (rows, w), or (b, rows, w) for b chunks: zeros with vals
     max-scattered along the rows, out[idx[i, c], c] = max(out[...],
-    vals[i, c]); idx and vals (r, w) or (b, r, w)."""
-    if _build.on_cpu(idx):
-        return scatter_max_plain(idx, vals, rows)
+    vals[i, c]); idx and vals (r, w) or (b, r, w).  On the card by the
+    route scatter_route gives: "smem" writes every output word itself,
+    "global" atomics into zeros."""
+    # a card call's checks, in one pass: what _check_scatter requires
+    dims, index = idx.dim(), idx.get_device()
+    if (idx.is_cuda and vals.get_device() == index and idx.dtype is torch.int32
+            and vals.dtype is torch.int32 and (dims == 2 or dims == 3) and idx.shape == vals.shape
+            and idx.is_contiguous() and vals.is_contiguous() and 0 < rows < 1 << 31):
+        *lead, r, w = idx.shape
+        b = lead[0] if lead else 1
+        if b and r and w:
+            route, cols, threads = _scatter_plan(index, b, r, w, rows)
+            out = (torch.empty((*lead, rows, w), dtype=torch.int32, device=idx.device) if cols
+                   else torch.zeros((*lead, rows, w), dtype=torch.int32, device=idx.device))
+            _build.launch("scatter_max", "tz_scatter_max", index, idx.data_ptr(),
+                          vals.data_ptr(), b, r, w, rows, cols, threads, out.data_ptr())
+            SCATTER_ROUTES[route] += 1
+            return out
+    # the CPU, or inputs the card call refuses: _check_scatter raises on those
     _check_scatter(idx, vals, rows)
-    b, r, w = _chunks(idx).shape
-    out = torch.zeros(*idx.shape[:-2], rows, w, dtype=torch.int32, device=idx.device)
-    _build.launch("scatter_max", "tz_scatter_max", idx.device, idx.data_ptr(), vals.data_ptr(),
-                  b, r, w, rows, out.data_ptr())
-    return out
+    if idx.get_device() >= 0:
+        raise ValueError("scatter_max: no kernel for these inputs")
+    return scatter_max_plain(idx, vals, rows)
 
 
 def _check_shift(x: torch.Tensor, steps: int) -> int:
