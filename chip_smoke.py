@@ -49,13 +49,16 @@ tpuzlib_torch/kernels/csrc, then:
      at level 6, times the decode at 32, 64 and 128 threads a block, and
      counts the tape's symbols whose codes the lookup tables miss; G2 runs
      tpuzlib_torch.inflate on zlib levels 6 (32 MiB), 1 and 9 (8 MiB),
-     C's 32 MiB gzip, fixed blocks, sync-flush markers, a raw stream and
-     8 MiB of text, whose splice must validate with no repair, then
-     inflate_device_v2 with device or host expansion, and a forced splice
-     repair of the text stream, and requires every output to equal its
-     input, and every inflate() output to come from the device route with
-     no fallback to the host engine (the decode's two launch counts are
-     taken over G2); the census
+     C's 32 MiB gzip, fixed blocks, sync-flush markers and 8 MiB of text,
+     whose splice must validate with no repair, then inflate_device_v2
+     with device or host expansion, and a forced splice repair of the text
+     stream, and requires every output to equal its input, and every
+     inflate() output to come from the device route with no fallback to
+     the host engine, but for a raw stream and a zlib stream under 256
+     KiB (512 KiB of the text), which inflate()'s route rule keeps on the
+     host route: their device counters must not move (the raw stream's
+     device decode is held by the v2 rows) (the decode's two launch
+     counts are taken over G2); the census
      lines say, per stream, whether its splice validates under the port's
      rule (any kept flagged EOB declines), under tpuzlib's (only each
      cursor's first flag) and with no flag at all; G3 times the level-6
@@ -194,7 +197,23 @@ tpuzlib_torch/kernels/csrc, then:
      deflate.device and inflate.device equal to the bytes in and out, no
      fallback; N3 runs one warm make_encode_batch_v3 batch with the
      telemetry on under torch.cuda.set_sync_debug_mode("error"): its
-     overflow counter and the encoder upload and read back nothing.
+     overflow counter and the encoder upload and read back nothing;
+  O  runs the host codec with its native library switched off
+     (testing.no_native, after N; bindings.lib() must raise inside and
+     the library be back on after): O1 the numpy Deflater (zlib, one
+     append) on 8 MiB of the corpus at levels 1, 6 and 9, each stream
+     decoded by zlib, with its MB/s, its size over zlib.compress's at the
+     level and the host's core count; O2 deflate() of the 8 MiB on the
+     card, decoded by zlib, the encoder's four kernels launched and one
+     checksum scalar; O3 inflate() on the card of zlib's level-6 stream
+     of it, equal bytes, inflate_decode launched, every byte from the
+     device route with no fallback (a splice repair bridges with the
+     vectorized decoder), the counters and each stage's host seconds
+     (the telemetry on for this call) printed; O4 crc32_host and
+     adler32_host of the 8 MiB, each equal to zlib's.  O2's and O3's
+     launches, each counted from 0 just before its call, are given on
+     the kernels line as launches_o, apart from the main path's
+     launches, which alone the check of the launches reads.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -843,6 +862,7 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
     validate (no repair) unless the repair is forced.  Returns each
     stream's raw DEFLATE payload by name."""
     import tpuzlib_torch
+    from tpuzlib_torch.api import inflate_api
     from tpuzlib_torch.kernels import inflate_device2 as d2
     from tpuzlib_torch.testing import corpus as make_corpus, counters_since, zlib_stream
     from tpuzlib_torch.utils import trace
@@ -857,13 +877,17 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
         "zlib sync flush / 64 KiB": (zlib_stream(small, 6, flush_every=1 << 16), small),
         "raw L6": (zlib_stream(small, 6, wbits=-15), small),
         "zlib L6 text": (zlib_stream(text, 6), text),
+        "zlib L6 text, 512 KiB": (zlib_stream(text[: 512 << 10], 6), text[: 512 << 10]),
     }
+    if len(streams["zlib L6 text, 512 KiB"][0]) >= inflate_api.DEVICE_MIN_BYTES:
+        raise SystemExit("phase G2: the small stream is not under inflate()'s device floor")
     # each stream's raw DEFLATE payload: a zlib stream's less its 2-byte
     # header and 4-byte trailer
     payload = {}
     for name, (wire, _) in streams.items():
         a = np.frombuffer(wire, np.uint8)
         payload[name] = a if name.startswith("raw") else a[2:-4]
+    del payload["zlib L6 text, 512 KiB"]  # the host route's: no census
 
     inflate = tpuzlib_torch.inflate
     v2 = d2.inflate_device_v2
@@ -881,6 +905,8 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
          None),
         ("inflate raw L6", w("raw L6"), small, inflate, {}, None),
         ("inflate zlib L6 text", w("zlib L6 text"), text, inflate, {}, 0),
+        ("inflate zlib L6 text, 512 KiB", w("zlib L6 text, 512 KiB"), text[: 512 << 10], inflate,
+         {}, None),
         ("v2 host expand", raw6, corpus, v2, {"device_expand": False}, None),
         ("v2 device expand", raw6, corpus, v2, {"device_expand": True}, None),
         ("v2 device expand, sync flush / 64 KiB", payload["zlib sync flush / 64 KiB"], small,
@@ -891,6 +917,10 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
         ("v2 device expand, forced repair, text", text_raw, text, v2,
          {"device_expand": True, "force_repair": True}, 1),
     ]
+    # inflate()'s route rule keeps a raw stream and one under its floor on
+    # the host route: the device route's counters must not move for them
+    # (the raw stream's device decode is held by the v2 rows)
+    host_rows = {"inflate raw L6", "inflate zlib L6 text, 512 KiB"}
     bad = []
     for name, wire, want, fn, kw, repairs in runs:
         before = trace.get_counters()
@@ -917,6 +947,10 @@ def phase_g2(corpus, z6: bytes, gzip32: np.ndarray) -> dict:
                                                   "inflate.device"))
         if not equal:
             bad.append(name)
+        elif name in host_rows:
+            if route != (0, 0, 0):
+                bad.append("%s (fallbacks %d + %d, %d bytes from the device route, want the "
+                           "host route: 0 + 0, 0)" % (name, *route))
         elif fn is inflate and route != (0, 0, 2 * len(want)):
             # both calls' bytes must come from the device route: the host
             # engine behind it would hide a wrong decode
@@ -1980,6 +2014,113 @@ def phase_n(corpus, z6: bytes, smi: str) -> None:
         raise SystemExit("phase N: %s" % ", ".join(bad))
 
 
+def phase_o(corpus, smi: str) -> dict:
+    """The host codec with its native library switched off
+    (testing.no_native), around the card's kernels: the numpy Deflater
+    at levels 1, 6 and 9 (O1), deflate() on the card (O2), inflate() of
+    zlib's stream on the card (O3), and the numpy checksums (O4), on 8 MiB
+    of the corpus.  Returns the launches of O2 and O3, each counted from
+    0 just before its call."""
+    import tpuzlib_torch
+    from tpuzlib_torch import testing
+    from tpuzlib_torch.codec import deflate_engine
+    from tpuzlib_torch.kernels import _build
+    from tpuzlib_torch.kernels.adler32 import adler32_host
+    from tpuzlib_torch.kernels.crc32 import crc32_host
+    from tpuzlib_torch.native import bindings
+    from tpuzlib_torch.utils import trace
+
+    data = corpus[: 8 << 20]
+    raw = data.tobytes()
+    ncores = deflate_engine._ncores()
+    bad, launches = [], collections.Counter()
+    with testing.no_native():
+        try:
+            bindings.lib()
+            bad.append("the native library answers while switched off")
+        except RuntimeError:
+            pass
+        # O1: the Deflater (zlib container, one append) on the numpy route
+        for level in (1, 6, 9):
+            t0 = time.perf_counter()
+            d = tpuzlib_torch.Deflater(level=level)
+            wire = np.concatenate(d.append(data) + d.finish()).tobytes()
+            dt = time.perf_counter() - t0
+            zlen = len(zlib.compress(raw, level))
+            ok = zlib.decompress(wire) == raw
+            emit({"phase": "O1", "card": smi, "ncores": ncores, "level": level,
+                  "bytes_in": len(raw), "bytes_out": len(wire), "zlib_bytes_out": zlen,
+                  "ratio_to_zlib": len(wire) / zlen, "s": dt, "MBps": len(raw) / dt / 1e6,
+                  "zlib_decodes": ok})
+            bad += [] if ok else ["O1 level %d" % level]
+
+        # O2: deflate() on the card: the encoder's kernels and the trailer's
+        # Adler-32 in one adler32_scalar launch
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        wire = tpuzlib_torch.deflate(data, device=DEVICE).tobytes()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        o2 = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches.update(o2)
+        enc = ("near_screen", "far_screen", "segment_parse", "pack_words")
+        ok = (zlib.decompress(wire) == raw and all(o2.get(k, 0) > 0 for k in enc)
+              and o2.get("adler32_scalar", 0) + o2.get("crc32_scalar", 0) == 1)
+        emit({"phase": "O2", "card": smi, "ncores": ncores, "bytes_in": len(raw),
+              "bytes_out": len(wire), "s": dt, "MBps": len(raw) / dt / 1e6, "launches": o2,
+              "ok": ok})
+        bad += [] if ok else ["O2"]
+
+        # O3: inflate() on the card of zlib's level-6 stream: the decode's
+        # two kernels, the numpy header scan and expansion around them
+        z = zlib.compress(raw, 6)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        before = trace.get_counters()
+        was = trace.telemetry_enabled()
+        trace.enable()
+        trace.reset()
+        t0 = time.perf_counter()
+        try:
+            out = tpuzlib_torch.inflate(z, device=DEVICE)
+            torch.cuda.synchronize()
+        finally:
+            dt = time.perf_counter() - t0
+            stages = {k: v["seconds"] for k, v in trace.get_telemetry().items()}
+            trace.enable(was)
+            trace.reset()
+        moved = testing.counters_since(before)
+        o3 = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches.update(o3)
+        fallbacks = {k: moved.get(k, 0) for k in ("inflate.device_fallback",
+                                                  "inflate.device_mismatch_fallback")}
+        # the device route gave every byte (a splice repair bridges with
+        # the vectorized decoder): no fallback to the host route
+        routed = moved.get("inflate.device", 0) == len(raw) and not any(fallbacks.values())
+        ok = out.tobytes() == raw and o3.get("inflate_decode", 0) > 0 and routed
+        emit({"phase": "O3", "card": smi, "ncores": ncores, "bytes_in": len(z),
+              "bytes_out": len(raw), "s": dt, "MBps": len(raw) / dt / 1e6, "counts": moved,
+              "fallbacks": fallbacks, "launches": o3, "stage_s": stages, "ok": ok})
+        bad += [] if ok else ["O3"]
+
+        # O4: the numpy checksums of the host engine
+        for name, fn, want in (("crc32_host", crc32_host, zlib.crc32(raw)),
+                               ("adler32_host", adler32_host, zlib.adler32(raw))):
+            t0 = time.perf_counter()
+            got = fn(data)
+            dt = time.perf_counter() - t0
+            emit({"phase": "O4", "card": smi, "ncores": ncores, "run": name,
+                  "bytes_in": len(raw), "s": dt, "MBps": len(raw) / dt / 1e6,
+                  "equal_to_zlib": got == want})
+            bad += [] if got == want else ["O4 " + name]
+    if not bindings.native_available():
+        bad.append("the native library stays off after the phase")
+    if bad:
+        raise SystemExit("phase O: %s" % ", ".join(bad))
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2059,8 +2200,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_n(corpus, z6, smi)
     emit({"phase": "N", "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    launches_o = phase_o(corpus, smi)
+    emit({"phase": "O", "s": time.perf_counter() - t0})
 
-    kernels = [{**rows[k], "launches": launches[k]} for k in rows]
+    kernels = [{**rows[k], "launches": launches[k], "launches_o": launches_o.get(k, 0)}
+               for k in rows]
     emit({"kernels": kernels})
     missing = [k for k in rows if launches[k] == 0 and k not in OFF_PATH]
     if missing:

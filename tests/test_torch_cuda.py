@@ -586,21 +586,22 @@ def _device_route(fn, n_bytes):
 
 
 def test_inflate_on_card_matches_cpu(dev):
-    """inflate() of zlib, gzip and raw streams, and inflate_device_v2's
-    pass-3 variants and forced repair, on the card and on the CPU, each
-    inflate() through the device route with no fallback; a bad trailer
-    falls back to the host engine's verdict."""
+    """inflate()'s device route on zlib, gzip and raw streams
+    (testing.inflate_device_route: inflate() itself keeps a raw stream on
+    the host), and inflate_device_v2's pass-3 variants and forced repair,
+    on the card and on the CPU, each with no fallback; a bad trailer falls
+    back to the host engine's verdict."""
     data = testing.mixed(3 << 18, 8)
     streams = [zlib.compress(data.tobytes(), 6),
                testing.device_route(data, device=dev, format="gzip").tobytes(),
                _zlib_raw(data, 1).tobytes()]
     for wire in streams:
         _build.reset_launches()
-        got = _device_route(lambda: tpuzlib_torch.inflate(wire, device=dev), len(data))
+        got = _device_route(lambda: testing.inflate_device_route(wire, device=dev), len(data))
         assert _build.LAUNCHES["inflate_decode"] == _build.LAUNCHES["inflate_lut"] == 1
         assert got.tobytes() == data.tobytes()
         assert np.array_equal(
-            got, _device_route(lambda: tpuzlib_torch.inflate(wire, device="cpu"), len(data)))
+            got, _device_route(lambda: testing.inflate_device_route(wire), len(data)))
     raw = _zlib_raw(data, 6)
     for kw in ({"device_expand": True}, {"device_expand": False}, {"force_repair": True}):
         out = d2.inflate_device_v2(raw, device=dev, **kw)
@@ -616,8 +617,10 @@ def test_inflate_on_card_matches_cpu(dev):
 
 
 def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):
-    """Bytes after the trailer are ignored and a trailer cut short raises
-    ValueError, on the card as on the CPU."""
+    """Bytes after the trailer are ignored by the device route
+    (testing.inflate_device_route: these streams are under inflate()'s
+    256 KiB floor) on the card as on the CPU; a trailer cut short falls
+    back (counted) and inflate() raises ValueError."""
     data = testing.mixed(3 << 16, 10)
     z = zlib.compress(data.tobytes(), 6)
     gz = testing.device_route(data, device=dev, format="gzip").tobytes()
@@ -625,10 +628,13 @@ def test_inflate_on_card_reads_the_trailer_after_the_stream(dev):
                        (gz + testing.device_route(data[::-1], device=dev, format="gzip").tobytes(),
                         data.tobytes()),
                        (_zlib_raw(data).tobytes() + b"\x01\x02trailing", data.tobytes())):
-        got = _device_route(lambda: tpuzlib_torch.inflate(wire, device=dev), len(want))
+        got = _device_route(lambda: testing.inflate_device_route(wire, device=dev), len(want))
         assert got.tobytes() == want == _device_route(
-            lambda: tpuzlib_torch.inflate(wire, device="cpu"), len(want)).tobytes()
+            lambda: testing.inflate_device_route(wire), len(want)).tobytes()
     for wire in (z[:-2], gz[:-3]):
+        before = trace.get_counters()
+        assert testing.inflate_device_route(wire, device=dev) is None
+        assert testing.counters_since(before) == {"inflate.device_fallback": 1}
         with pytest.raises(ValueError, match="Unexpected EOF"):
             tpuzlib_torch.inflate(wire, device=dev)
 

@@ -159,7 +159,9 @@ def test_inflate_fallback_and_inflater_on_card(dev):
     fallback and give the host engine's verdict; a zlib stream with a
     preset dictionary decodes through inflate(dictionary=) and the
     Inflater."""
-    data = testing.mixed(3 << 18, 8)
+    # 1.5 MiB: the stream cut in half is still past inflate()'s 256 KiB
+    # floor, so it takes the device route
+    data = testing.mixed(3 << 19, 8)
     z = zlib.compress(data.tobytes(), 6)
     gz = testing.device_route(data, device=dev, format="gzip").tobytes()
     flip = lambda w, i: w[:i] + bytes([w[i] ^ 1]) + w[i + 1:]  # noqa: E731

@@ -52,13 +52,17 @@ def _deflater(data, steps, **options) -> bytes:
     return b"".join(b.tobytes() for b in parts + d.finish())
 
 
-def _on_card(wire, want, dev, dictionary=None, device_bytes=None):
-    """inflate() on the card gives `want`, with no fallback counted, the
-    device route's bytes counted as `device_bytes` (all of `want` unless
-    given), and decode launches where the device route ran."""
+def _on_card(wire, want, dev, dictionary=None, device_bytes=None, route=None):
+    """inflate() on the card (or `route`, such as the device route alone)
+    gives `want`, with no fallback counted, the device route's bytes
+    counted as `device_bytes` (all of `want` unless given), and decode
+    launches where the device route ran."""
     before = trace.get_counters()
     launches = _build.LAUNCHES["inflate_decode"]
-    out = tpuzlib_torch.inflate(wire, dictionary, device=dev)
+    if route is None:
+        out = tpuzlib_torch.inflate(wire, dictionary, device=dev)
+    else:
+        out = route(wire, device=dev)
     torch.cuda.synchronize()
     assert out.tobytes() == want
     moved = testing.counters_since(before)
@@ -71,10 +75,18 @@ def _on_card(wire, want, dev, dictionary=None, device_bytes=None):
 @pytest.mark.parametrize("fmt", ["raw", "deflate", "gzip"])
 @pytest.mark.parametrize("level", [1, 6, 9])
 def test_deflater_streams_take_the_device_route(dev, level, fmt):
+    """The Deflater's zlib and gzip streams through inflate()'s device
+    route; a raw stream, which inflate() keeps on the host engine, through
+    the device route alone (testing.inflate_device_route) and through
+    inflate()."""
     data = testing.mixed(3 << 20, 40 + level)
     for steps in ([len(data)], [1, 7, 4 * KB, 1 << 20]):
         wire = _deflater(data, steps, level=level, format=fmt)
-        _on_card(wire, data.tobytes(), dev)
+        if fmt == "raw":
+            _on_card(wire, data.tobytes(), dev, route=testing.inflate_device_route)
+            _on_card(wire, data.tobytes(), dev, device_bytes=0)
+        else:
+            _on_card(wire, data.tobytes(), dev)
 
 
 @pytest.mark.parametrize("size", [3, 409, 40 * KB])

@@ -1,10 +1,16 @@
-"""tpuzlib_torch.inflate on the CPU against tpuzlib.inflate and zlib:
-zlib, gzip and raw streams, gzip headers with every optional field, bytes
-after the stream (garbage, a second gzip member) that both ignore, and
-the verdicts: a bad trailer and a truncated stream fall back to the host
-engine (counted), which raises tpuzlib's ValueError; a trailer cut short
-raises it too; preset dictionaries decode on the host engine; ValueError
-on bad input.
+"""tpuzlib_torch.inflate's device route on the CPU against tpuzlib.inflate
+and zlib: zlib, gzip and raw streams, gzip headers with every optional
+field, bytes after the stream (garbage, a second gzip member) that both
+ignore, and the verdicts: a bad trailer and a truncated stream fall back
+to the host engine (counted), which raises tpuzlib's ValueError; a
+trailer cut short raises it too; preset dictionaries decode on the host
+engine; ValueError on bad input.
+
+inflate(device="cpu") never takes the device route (its route rule), so
+the device route runs here as inflate() runs it on a card for a stream
+the rule sends there (_card_route): testing.inflate_device_route (the
+route at any size, raw streams too), and inflate(device="cpu"), the host
+route, where it leaves the stream to the host.
 """
 
 import gzip
@@ -62,6 +68,17 @@ def _routed(fn):
                  for k in ("device_fallback", "device_mismatch_fallback", "device")}
 
 
+def _card_route(wire):
+    """inflate()'s result on a card for a stream its rule sends to the
+    device route: that route's bytes, or where it leaves the stream to the
+    host route, the host route's.  A zlib stream with FDICT the rule keeps
+    on the host route (inflate_api.device_route_applies)."""
+    b0, b1 = bytes(wire[:2])
+    fdict = b0 == 0x78 and (b0 << 8 | b1) % 31 == 0 and b1 & 0x20
+    out = None if fdict else testing.inflate_device_route(wire)
+    return out if out is not None else tpuzlib_torch.inflate(wire, device="cpu")
+
+
 def _on_device(n_bytes: int) -> dict:
     """The counter moves of calls whose `n_bytes` all came from the device
     route, with no fallback."""
@@ -71,15 +88,18 @@ def _on_device(n_bytes: int) -> dict:
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_inflate_matches_tpuzlib(name):
     """Every stream is decoded by the device route (its plain version on
-    the CPU), not by the host engine behind it."""
+    the CPU), not by the host engine behind it; inflate(device="cpu")
+    decodes it on the host route, with the same bytes."""
     wire = STREAMS[name]
-    got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    got, counted = _routed(lambda: _card_route(wire))
     assert counted == _on_device(len(DATA))
     assert isinstance(got, np.ndarray) and got.dtype == np.uint8
     assert got.tobytes() == DATA.tobytes() == np.asarray(tpuzlib.inflate(wire)).tobytes()
     for kind in (bytes, bytearray, memoryview):
-        again, counted = _routed(lambda: tpuzlib_torch.inflate(kind(wire), device="cpu"))
+        again, counted = _routed(lambda: _card_route(kind(wire)))
         assert again.tobytes() == got.tobytes() and counted == _on_device(len(DATA))
+    host, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    assert host.tobytes() == got.tobytes() and counted == _on_device(0)
 
 
 def test_headers_match_tpuzlib():
@@ -124,7 +144,7 @@ def test_device_route_reads_the_container_parser(monkeypatch):
 
     monkeypatch.setattr(PortContainer, "_parse_header", spy)
     for name in ("zlib", "gzip (all header fields)"):
-        got, counted = _routed(lambda: tpuzlib_torch.inflate(STREAMS[name], device="cpu"))
+        got, counted = _routed(lambda: _card_route(STREAMS[name]))
         assert got.tobytes() == DATA.tobytes() and counted == _on_device(len(DATA))
         buf = np.frombuffer(STREAMS[name], np.uint8)
         assert seen == [ContainerInflater(raw=False)._try_parse_header(buf)]
@@ -134,7 +154,7 @@ def test_device_route_reads_the_container_parser(monkeypatch):
     c = zlib.compressobj(6, zlib.DEFLATED, 15, zdict=DATA[:512].tobytes())
     fdict = c.compress(DATA.tobytes()) + c.flush()
     for wire in (bytes(bad_hcrc), fdict):
-        got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+        got, counted = _routed(lambda: _card_route(wire))
         want, _ = _routed(lambda: tpuzlib.inflate(wire))
         assert isinstance(got, ValueError) and str(got) == str(want)
         assert not any(counted.values())
@@ -148,7 +168,7 @@ def test_bad_trailers_decline():
     for wire, verdict in ((flip(z, len(z) - 1), "Data integrity check failed"),
                           (flip(gz, len(gz) - 5), "Data integrity check failed"),
                           (flip(gz, len(gz) - 1), "Data size check failed")):
-        err, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+        err, counted = _routed(lambda: _card_route(wire))
         assert isinstance(err, ValueError) and str(err) == verdict
         assert counted == {"device_fallback": 0, "device_mismatch_fallback": 1, "device": 0}
         with pytest.raises(ValueError, match=verdict):
@@ -161,7 +181,7 @@ def test_truncated_stream_declines():
     does a trailer cut to two bytes, after the whole stream."""
     z = STREAMS["zlib"]
     for wire in (z[: len(z) // 2], z[:-4] + b"\x00\x00", z[:-2], STREAMS["gzip (port)"][:-3]):
-        err, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+        err, counted = _routed(lambda: _card_route(wire))
         assert isinstance(err, ValueError) and str(err) == "Unexpected EOF during decompression"
         assert counted == {"device_fallback": 1, "device_mismatch_fallback": 0, "device": 0}
         with pytest.raises(ValueError, match="Unexpected EOF"):
@@ -196,7 +216,7 @@ def test_bytes_after_the_stream_are_ignored(name):
     and whatever follows it is ignored: by the device route, with no
     fallback to the host engine."""
     wire, want = AFTER[name]
-    got, counted = _routed(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    got, counted = _routed(lambda: _card_route(wire))
     assert counted == _on_device(len(want))
     assert got.tobytes() == want == np.asarray(tpuzlib.inflate(wire)).tobytes()
 

@@ -1,8 +1,11 @@
 """inflate()'s fallback to the host engine, on the CPU.
 
-tpuzlib_torch.inflate(x, device="cpu") runs the device route with the
-kernels' plain versions, then the host engine where that route does not
-give verified bytes.  Held to tpuzlib.inflate (its host route: the
+On a card, inflate() runs the device route first for a stream its route
+rule sends there, then the host engine where that route does not give
+verified bytes; here the device route runs with the kernels' plain
+versions through testing.inflate_device_route (at any size, raw streams
+too), then inflate(device="cpu"), the host route, where it leaves the
+stream to the host (_card_route).  Held to tpuzlib.inflate (its host route: the
 speculative dispatch is switched off with TPUZLIB_SPECULATIVE=0 for the
 whole file) on 20 seeded bit flips, byte changes and truncations of raw,
 zlib and gzip streams: each pair gives the same bytes or the same
@@ -50,6 +53,14 @@ def _outcome(fn):
         return "ValueError", str(e)
 
 
+def _card_route(wire):
+    """inflate()'s result on a card for a stream its rule sends to the
+    device route: that route's bytes, or where it leaves the stream to the
+    host route, the host route's."""
+    out = testing.inflate_device_route(wire)
+    return out if out is not None else tpuzlib_torch.inflate(wire, device="cpu")
+
+
 def _corrupt(case: int) -> bytes:
     """Case `case`'s stream: a bit flipped, a byte replaced or a cut, at a
     seeded place of a raw, zlib or gzip stream."""
@@ -70,7 +81,7 @@ def _corrupt(case: int) -> bytes:
 def test_corrupt_streams_match_tpuzlib(case):
     wire = _corrupt(case)
     before = trace.get_counters()
-    got = _outcome(lambda: tpuzlib_torch.inflate(wire, device="cpu"))
+    got = _outcome(lambda: _card_route(wire))
     moved = testing.counters_since(before)
     counted = sum(moved.get(k, 0) for k in FALLBACKS)
     assert got == _outcome(lambda: tpuzlib.inflate(wire))
@@ -95,7 +106,7 @@ def test_stream_past_the_device_limit_decodes_on_the_host(monkeypatch):
     monkeypatch.setattr(inflate_cuda, "cursor_decode", refuse)
     monkeypatch.setattr(inflate_api, "_ncores", lambda: 1)
     before = trace.get_counters()
-    got = tpuzlib_torch.inflate(wire, device="cpu")
+    got = _card_route(wire)
     assert got.tobytes() == data.tobytes()
     assert testing.counters_since(before) == {"inflate.device_fallback": 1}
 
@@ -112,12 +123,12 @@ def test_runtime_errors_propagate(monkeypatch):
         m.setattr(inflate_api, "decode_stream", boom)
         for wire in WIRES:
             with pytest.raises(RuntimeError, match="a fault of the device path"):
-                tpuzlib_torch.inflate(wire, device="cpu")
+                _card_route(wire)
     for name in ("adler32", "crc32"):
         with monkeypatch.context() as m:
             m.setattr(inflate_api, name, boom)
             with pytest.raises(RuntimeError, match="a fault of the device path"):
-                tpuzlib_torch.inflate(WIRES[1 if name == "adler32" else 2], device="cpu")
+                _card_route(WIRES[1 if name == "adler32" else 2])
     assert trace.get_counters() == before
 
 
@@ -127,12 +138,12 @@ def test_counts_keys():
     assert not hasattr(d2, "COUNTS")
     # a stream the device route decodes counts its bytes, and no fallback
     before = trace.get_counters()
-    assert tpuzlib_torch.inflate(WIRES[1], device="cpu").tobytes() == DATA.tobytes()
+    assert _card_route(WIRES[1]).tobytes() == DATA.tobytes()
     assert testing.counters_since(before) == {"inflate.device": len(DATA)}
     # a trailer cut short, and a flipped Adler-32: one fallback each
     for wire, name in ((WIRES[1][:-2], "inflate.device_fallback"),
                        (WIRES[1][:-1] + bytes([WIRES[1][-1] ^ 1]),
                         "inflate.device_mismatch_fallback")):
         before = trace.get_counters()
-        assert _outcome(lambda: tpuzlib_torch.inflate(wire, device="cpu"))[0] == "ValueError"
+        assert _outcome(lambda: _card_route(wire))[0] == "ValueError"
         assert testing.counters_since(before) == {name: 1}

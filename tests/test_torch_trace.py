@@ -211,7 +211,8 @@ def test_ext_cap_overflow_matches(monkeypatch, kind, overflow):
 def test_api_counters(fmt):
     """deflate()'s device route counts its input as deflate.device (never
     a fallback: it has none), its host route (device="cpu") counts
-    nothing, and inflate() counts its output as inflate.device."""
+    nothing; inflate()'s device route counts its output as
+    inflate.device, its host route (device="cpu") nothing."""
     before = trace.get_counters()
     host = tpuzlib_torch.deflate(DATA, format=fmt, device="cpu")
     assert testing.counters_since(before) == {}
@@ -220,14 +221,17 @@ def test_api_counters(fmt):
     assert testing.counters_since(before) == {"deflate.device": len(DATA)}
     assert zlib.decompress(host.tobytes(), WBITS[fmt]) == DATA.tobytes()
     before = trace.get_counters()
-    assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
+    assert testing.inflate_device_route(wire).tobytes() == DATA.tobytes()
     assert testing.counters_since(before) == {"inflate.device": len(DATA)}
+    before = trace.get_counters()
+    assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
+    assert testing.counters_since(before) == {}
     assert "deflate.device_fallback" not in trace.get_counters()
 
 
 def test_main_path_stages():
-    """deflate()'s device route and inflate() run their pieces under the
-    stages that chip_smoke.py's phase N reads, with the bytes each
+    """deflate()'s and inflate()'s device routes run their pieces under
+    the stages that chip_smoke.py's phase N reads, with the bytes each
     handles."""
     trace.enable()
     wire = testing.device_route(DATA, level=6)
@@ -239,7 +243,7 @@ def test_main_path_stages():
     assert t["deflate.layout"]["bytes"] == t["deflate.encode_batch"]["bytes"] == len(DATA)
     assert t["deflate.checksum"]["bytes"] == len(DATA)
     trace.reset()
-    assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
+    assert testing.inflate_device_route(wire).tobytes() == DATA.tobytes()
     t = trace.get_telemetry()
     assert set(t) == {"inflate.plan", "inflate.tokenize_dispatch", "inflate.pre_splice",
                       "inflate.splice_pull", "inflate.token_splice", "inflate.comp_pull",
@@ -286,6 +290,7 @@ def test_profile_never_drops_the_card(monkeypatch, tmp_path):
 def test_telemetry_off_records_nothing():
     before = trace.get_counters()
     wire = testing.device_route(DATA)
+    testing.inflate_device_route(wire)
     tpuzlib_torch.inflate(wire, device="cpu")
     assert trace.get_telemetry() == {}
     # the encoder's device counter is taken only while telemetry is on

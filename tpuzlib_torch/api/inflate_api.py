@@ -8,29 +8,37 @@ reference src/sd-inflate.ts: option validation (:60-80), append drive
 loop (:87-153), NEED_DICT (:116-126), finish() verdict (:159-179),
 one-shot inflate() with container auto-detect (:189-228).
 
-inflate() decodes on `device` first (tpuzlib's `_inflate_device_oneshot`)
-and falls back to the host route (tpuzlib's): on a host with at least
+inflate() takes tpuzlib's route rule, with its `device` in place of
+tpuzlib's TPUZLIB_DEVICE switch, as deflate() does: on a CUDA device, a
+gzip stream or a zlib stream without FDICT of at least DEVICE_MIN_BYTES
+(tpuzlib's floor under its switch), given no dictionary, decodes by the
+device route first (tpuzlib's `_inflate_device_oneshot`, the rule in
+`device_route_applies`); every other stream (device="cpu", a raw stream,
+a small one, one with FDICT or given a dictionary) goes straight to the
+host route.  The rule is a route and not a fallback: an error of the
+device route that is not a verdict on the data propagates.
+
+The host route (tpuzlib's): on a host with at least
 SPECULATIVE_MIN_CORES cores, a stream of at least SPECULATIVE_MIN_BYTES
 decodes by the speculative segment-parallel decode
 (parallel/speculative.py: the steps of inflate_parallel_container, its
 DICTID and trailer checked on `device`, its bytes counted as
 `inflate.speculative`); any other stream, and one whose speculative host
 decode fails with an error that is not a ValueError (logged), decodes on
-the host engine's Inflater:
+the host engine's Inflater.
 
-- gzip, zlib without FDICT and raw streams go to the device route, whose
-  output is a host array (pass 3 on the host) and whose trailer checksum
-  runs on `device`;
-- a zlib stream with FDICT, any stream given a dictionary, a malformed
-  header and one cut short go to the host route directly;
-- a stream the device route declines (DeviceDeclined, among them every
-  stream of 2^29 bits or more), a DataError from its decode and a
-  trailer cut short are counted as `inflate.device_fallback`; an output
-  that fails its CRC-32, Adler-32 or ISIZE as
-  `inflate.device_mismatch_fallback`, and logged.  Each is decoded again
-  from the start on the host route, which renders tpuzlib's verdict (its
-  ValueError messages).  `inflate.device` counts the bytes the device
-  route returned.
+The device route (_inflate_device, which testing.inflate_device_route
+calls at any size and for raw streams too) decodes the stream on
+`device`; its output is a host array (pass 3 on the host) and its
+trailer checksum runs on `device`.  A malformed header and one cut short
+leave the stream to the host route uncounted; a stream the device route
+declines (DeviceDeclined, among them every stream of 2^29 bits or more),
+a DataError from its decode and a trailer cut short are counted as
+`inflate.device_fallback`; an output that fails its CRC-32, Adler-32 or
+ISIZE as `inflate.device_mismatch_fallback`, and logged.  Each is decoded
+again from the start on the host route, which renders tpuzlib's verdict
+(its ValueError messages).  `inflate.device` counts the bytes the device
+route returned.
 
 The counters are utils/trace.py's, under tpuzlib's names (the port's own
 `inflate.speculative` aside); the Inflater's appends run under the
@@ -41,11 +49,8 @@ Deliberate differences from tpuzlib: its catch-all fallbacks are kept
 away from the card: that of the device route is not ported, and that of
 the speculative route covers its host decode, not its checksums on
 `device`; so a CUDA error, a kernel build error or an out-of-memory error
-propagates; there is no size floor
-(tpuzlib sends streams under 256 KiB to the host) and no environment
-switch; raw streams take the device route too (tpuzlib keeps them on the
-host); the speculative dispatch's thresholds are module constants, with
-no environment switch.
+propagates.  The speculative dispatch's thresholds are module constants,
+with no environment switch.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..codec.deflate_engine import _ncores
 from ..codec.tokenize import DataError
@@ -79,6 +85,9 @@ from .checksums import adler32, crc32
 # (probes/speculative_breakdown.py), so tpuzlib's thresholds hold there.
 SPECULATIVE_MIN_CORES = 8
 SPECULATIVE_MIN_BYTES = 16 << 20
+# the least input inflate() gives the device route on a CUDA device:
+# tpuzlib's floor under TPUZLIB_DEVICE=1 (tpuzlib/api/inflate_api.py:177-178)
+DEVICE_MIN_BYTES = 1 << 18
 
 
 @dataclass
@@ -214,10 +223,23 @@ def _is_zlib(b0: int, b1: int) -> bool:
     return b0 == 0x78 and ((b0 << 8) + b1) % 31 == 0
 
 
+def device_route_applies(input_: np.ndarray, dictionary, device) -> bool:
+    """Whether inflate() takes the device route for `input_` (tpuzlib's
+    rule under its switch): a CUDA `device`, no dictionary, at least
+    DEVICE_MIN_BYTES, and a gzip stream or a zlib stream without FDICT."""
+    if dictionary is not None or len(input_) < DEVICE_MIN_BYTES:
+        return False
+    if torch.device(device).type == "cpu":
+        return False
+    b0, b1 = int(input_[0]), int(input_[1])
+    return (b0 == 0x1F and b1 == 0x8B) or (_is_zlib(b0, b1) and not b1 & 0x20)
+
+
 def _inflate_device(input_: np.ndarray, device) -> np.ndarray | None:
     """The device route: the decoded bytes, or None where the host engine
     must decode the stream (see the module docstring for which streams,
-    and which of them are counted)."""
+    and which of them are counted).  A zlib stream with FDICT never comes
+    here: device_route_applies keeps it on the host route."""
     b0, b1 = int(input_[0]), int(input_[1])
     gzip = b0 == 0x1F and b1 == 0x8B
     header = ContainerInflater(raw=not (gzip or _is_zlib(b0, b1)))
@@ -225,8 +247,6 @@ def _inflate_device(input_: np.ndarray, device) -> np.ndarray | None:
         start = 0 if header.raw else header._parse_header(input_)
     except DataError:
         return None
-    if header.dict_id is not None:
-        return None  # FDICT: the dictionary is the host engine's
     n_trailer = header.trailer_len
     if start is None or len(input_) < start + n_trailer:
         return None
@@ -330,14 +350,15 @@ def _inflate_host(input_: np.ndarray, dictionary, device) -> np.ndarray:
 def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
     """One-shot decompress `data`, detecting its container: gzip (1F 8B),
     zlib (first byte exactly 0x78 with a valid header check), else raw
-    DEFLATE.  Decodes on `device` first, and on the host where the device
-    route does not give the verified bytes.  Returns the bytes as a uint8
-    array; raises tpuzlib's ValueError for bad data."""
+    DEFLATE.  Decodes on a CUDA `device` first where the route rule
+    applies (device_route_applies), else, and where the device route does
+    not give the verified bytes, on the host.  Returns the bytes as a
+    uint8 array; raises tpuzlib's ValueError for bad data."""
     tune_malloc()  # large codec buffers must not be munmap'd per call
     input_ = u8_view(data)
     if len(input_) < 2:
         raise ValueError("data buffer is too small")
-    if dictionary is None:
+    if device_route_applies(input_, dictionary, device):
         out = _inflate_device(input_, device)
         if out is not None:
             return out

@@ -1,11 +1,13 @@
 """DEFLATE block emission: choose stored/static/dynamic per block and
 write it through a BitSink.
 
-A copy of tpuzlib/codec/deflate_blocks.py but its numpy splitter
-(emit_block_adaptive and its cost estimate), which only tpuzlib's numpy
-engine runs.  The host engine emits in C (tz_emit_chunk); these serve
-codec/emit_native.py's plain emit: build_dynamic_trees and _body_cost
-for its leaves, emit_stored, and emit_block for an empty final block.
+A copy of tpuzlib/codec/deflate_blocks.py.  The native host engine
+emits in C (tz_emit_chunk); these serve codec/emit_native.py's plain
+emit (build_dynamic_trees and _body_cost for its leaves, emit_stored, and
+emit_block for an empty final block) and, with the native library
+switched off, the numpy engine (codec/deflate_engine.py), which emits
+each block through emit_block_adaptive: one block, or two where the
+estimated cost (_segment_cost) of two trees is lower.
 """
 
 from __future__ import annotations
@@ -127,6 +129,66 @@ def emit_stored(sink: BitSink, raw: np.ndarray, last: bool) -> None:
         off += take
         if final_piece:
             break
+
+
+def _segment_cost(lit_freq: np.ndarray, dist_freq: np.ndarray, nraw: int) -> int:
+    """Estimated best-format bit cost of a token segment (header incl.)."""
+    ll = _force_two_codes(he.package_merge(lit_freq, 15))
+    dl = _force_two_codes(he.package_merge(dist_freq, 15))
+    hlit = max(int(np.flatnonzero(ll > 0).max()) + 1, 257)
+    hdist = max(int(np.flatnonzero(dl > 0).max()) + 1, 1)
+    cl_syms, _, cl_eb = he.codelen_rle(np.concatenate([ll[:hlit], dl[:hdist]]))
+    cl_freq = np.bincount(cl_syms, minlength=19)
+    cl_len = _force_two_codes(he.package_merge(cl_freq, 7))
+    dyn = (3 + 14 + 3 * 19 + int(cl_len[cl_syms].sum()) + int(cl_eb.sum())
+           + _body_cost(lit_freq, dist_freq, ll, dl))
+    static = 3 + _body_cost(lit_freq, dist_freq, FIXED_LITLEN_LENGTHS, FIXED_DIST_LENGTHS[:30])
+    stored = 40 + 8 * nraw + 35 * max(0, (nraw - 1) // MAX_STORED)
+    return min(dyn, static, stored)
+
+
+def emit_block_adaptive(sink: BitSink, litlen: np.ndarray, dist: np.ndarray, raw: np.ndarray,
+                        last: bool, min_symbols: int = 8192,
+                        _known_cost: int | None = None) -> None:
+    """Emit tokens as one block, or split them in two halves (each again
+    split the same way) where the two trees' estimated cost, plus a
+    margin of 1,024 bits, is below one tree's: a text|random transition
+    compresses better in two blocks.  Each level reuses its parent's cost
+    of the segment."""
+    n = len(litlen)
+    if n <= 2 * min_symbols:
+        emit_block(sink, litlen, dist, raw, last)
+        return
+    is_match = dist > 0
+    lsym = np.where(is_match, he.length_to_code(np.maximum(litlen, 3)), litlen)
+    dsym = np.where(is_match, he.dist_to_code(np.maximum(dist, 1)), 0)
+
+    def freqs(lo, hi):
+        lf = np.bincount(lsym[lo:hi], minlength=286)[:286].astype(np.int64)
+        lf[256] += 1
+        seg_m = is_match[lo:hi]
+        df = (np.bincount(dsym[lo:hi][seg_m], minlength=30)[:30].astype(np.int64)
+              if seg_m.any() else np.zeros(30, np.int64))
+        return lf, df
+
+    out_lens = np.where(is_match, litlen, 1).astype(np.int64)
+    ends = np.cumsum(out_lens)
+    mid = n // 2
+    if _known_cost is None:
+        lf_w, df_w = freqs(0, n)
+        _known_cost = _segment_cost(lf_w, df_w, len(raw))
+    lf_a, df_a = freqs(0, mid)
+    lf_b, df_b = freqs(mid, n)
+    raw_mid = int(ends[mid - 1])
+    cost_a = _segment_cost(lf_a, df_a, raw_mid)
+    cost_b = _segment_cost(lf_b, df_b, len(raw) - raw_mid)
+    if cost_a + cost_b + 1024 < _known_cost:
+        emit_block_adaptive(sink, litlen[:mid], dist[:mid], raw[:raw_mid], False, min_symbols,
+                            cost_a)
+        emit_block_adaptive(sink, litlen[mid:], dist[mid:], raw[raw_mid:], last, min_symbols,
+                            cost_b)
+    else:
+        emit_block(sink, litlen, dist, raw, last)
 
 
 def emit_block(

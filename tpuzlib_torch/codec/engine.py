@@ -8,10 +8,12 @@ re-drives the vectorized tokenizer, which makes the engine resumable at
 arbitrary byte granularity (the behavioral contract of reference
 test/index.html:29-53 split-stream decoding).  The native serial decoder
 (native/api.py) takes whole blocks first; it hands malformed data back
-to the vectorized path, which gives the precise error message.
+to the vectorized path, which gives the precise error message.  With the
+native library switched off (native/bindings.set_native) the vectorized
+path decodes every block, as tpuzlib's does without its library.
 
-One deliberate difference from tpuzlib: the native library is required,
-so a failed build raises instead of leaving the vectorized path alone.
+One deliberate difference from tpuzlib: while the library is switched
+on, a failed build raises instead of leaving the vectorized path alone.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..native import api as native_api
+from ..native import bindings
 from . import tokenize
 from .expand import expand_host
 from .huffman import fixed_dist_lut, fixed_litlen_lut
@@ -75,6 +78,8 @@ class RawInflateEngine:
             return None
         avail_bits = len(self.buf) * 8 - self.bit_pos
         if avail_bits < (1 << 12) and not self._native_midblock:
+            return None
+        if not bindings.native_available():
             return None
         if self._nstream is None:
             self._nstream = native_api.InflateStream()

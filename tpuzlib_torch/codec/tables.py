@@ -1,11 +1,12 @@
 """RFC 1951 constants, the length and distance code maps, and the
-per-level parse knobs the device encoder reads.
+per-level parse knobs.
 
 Counterpart of tpuzlib/codec/tables.py (the length and distance bases,
 the fixed trees, length_to_code / dist_to_code) and of TOO_FAR / LEVELS
-in tpuzlib/codec/lz77.py.  The host engine's levels are
-native/api.NATIVE_LEVELS; a level here carries only the device
-encoder's lazy rule.
+in tpuzlib/codec/lz77.py.  The native host engine's levels are
+native/api.NATIVE_LEVELS; a level here carries the numpy match search's
+probes (codec/lz77.py) and the lazy rule, which the device encoder reads
+too.
 """
 
 from __future__ import annotations
@@ -67,20 +68,21 @@ TOO_FAR = 128
 
 
 class LevelParams(NamedTuple):
+    probes: tuple  # ((hash_bytes, K), ...): K candidates per hash length
     lazy: bool  # defer a match when the next position's match is longer
     max_lazy: int  # never defer matches at least this long
 
 
 LEVELS = {
-    1: LevelParams(lazy=False, max_lazy=4),
-    2: LevelParams(lazy=False, max_lazy=5),
-    3: LevelParams(lazy=False, max_lazy=6),
-    4: LevelParams(lazy=True, max_lazy=6),
-    5: LevelParams(lazy=True, max_lazy=16),
-    6: LevelParams(lazy=True, max_lazy=32),
-    7: LevelParams(lazy=True, max_lazy=64),
-    8: LevelParams(lazy=True, max_lazy=258),
-    9: LevelParams(lazy=True, max_lazy=258),
+    1: LevelParams(probes=((3, 2), (4, 4)), lazy=False, max_lazy=4),
+    2: LevelParams(probes=((3, 2), (4, 8)), lazy=False, max_lazy=5),
+    3: LevelParams(probes=((3, 3), (4, 16)), lazy=False, max_lazy=6),
+    4: LevelParams(probes=((3, 3), (4, 8), (6, 4)), lazy=True, max_lazy=6),
+    5: LevelParams(probes=((3, 3), (4, 12), (6, 6)), lazy=True, max_lazy=16),
+    6: LevelParams(probes=((3, 4), (4, 20), (6, 8)), lazy=True, max_lazy=32),
+    7: LevelParams(probes=((3, 4), (4, 28), (6, 12)), lazy=True, max_lazy=64),
+    8: LevelParams(probes=((3, 6), (4, 48), (6, 24), (8, 12)), lazy=True, max_lazy=258),
+    9: LevelParams(probes=((3, 8), (4, 96), (6, 48), (8, 24)), lazy=True, max_lazy=258),
 }
 
 

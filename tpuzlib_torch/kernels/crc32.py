@@ -1,8 +1,10 @@
 """CRC-32 (poly 0xEDB88320) as data-parallel GF(2) linear algebra.
 
 Counterpart of tpuzlib/kernels/crc32.py: its numpy constants, the host
-combine tree and finish, `crc32_combine`, `crc32_host` (the native
-slice-by-8 fold, for the host engine), and `crc32_device`, which runs
+combine tree and finish, `crc32_combine`, `crc32_host` (the host
+engine's: the native slice-by-8 fold, or with the native library
+switched off tpuzlib's numpy GF(2) fold of HOST_BLOCK-byte lanes and the
+combine tree), and `crc32_device`, which runs
 crc32_cuda.crc32_device_scalar on the input tensor's device.
 
 The form L(data) of a run of bytes is the raw CRC register after folding
@@ -26,6 +28,7 @@ from . import gf2
 POLY = np.uint32(0xEDB88320)
 _MASK32 = 0xFFFFFFFF
 
+HOST_BLOCK = 256  # bytes per lane of the numpy fold
 DEVICE_BLOCK = 1024  # bytes per per-block form
 TILE = 256  # blocks per span form
 SPAN = DEVICE_BLOCK * TILE
@@ -123,6 +126,18 @@ def plane_matrix_bits(block: int) -> np.ndarray:
     return np.concatenate([m[i::8] for i in range(8)])
 
 
+def _fold_lanes(blocks: np.ndarray) -> np.ndarray:
+    """Per-lane raw fold with zero seeds: G[b] = L(blocks[b]).
+
+    Serial over block bytes, vectorized across lanes (the host analog of
+    the device's forms)."""
+    t = _table8()
+    crc = np.zeros(blocks.shape[0], dtype=np.uint32)
+    for j in range(blocks.shape[1]):
+        crc = t[((crc ^ blocks[:, j]) & 0xFF).astype(np.int64)] ^ (crc >> np.uint32(8))
+    return crc
+
+
 def _combine_blocks(g: np.ndarray, block: int) -> int:
     """Fold per-block linear forms into L(data) via a log-depth tree.
 
@@ -149,15 +164,24 @@ def _finish(l_data: int, n: int, seed: int) -> int:
 
 
 def crc32_host(data: np.ndarray, seed: int = 0) -> int:
-    """CRC-32 of a uint8 array by the native slice-by-8 fold (tpuzlib's
-    native branch; the port's native library is required)."""
+    """CRC-32 of a uint8 array: the native slice-by-8 fold, or with the
+    library switched off the vectorized numpy GF(2) fold."""
     from ..native import bindings
 
     n = len(data)
     if n == 0:
         return int(seed) & _MASK32
-    data = np.ascontiguousarray(data)
-    return int(bindings.lib().tz_crc32(bindings.ptr(data), n, int(seed) & _MASK32))
+    lib = bindings.get_lib()
+    if lib is not None:
+        data = np.ascontiguousarray(data)
+        return int(lib.tz_crc32(bindings.ptr(data), n, int(seed) & _MASK32))
+    block = min(HOST_BLOCK, max(8, n))
+    pad = (-n) % block
+    padded = np.concatenate([np.zeros(pad, dtype=np.uint8), data])
+    blocks = padded.reshape(-1, block)
+    g = _fold_lanes(blocks)
+    l_data = _combine_blocks(g, block)
+    return _finish(l_data, n, seed)
 
 
 def crc32_device(data, seed: int = 0) -> int:

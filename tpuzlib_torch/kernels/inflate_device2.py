@@ -5,8 +5,9 @@ path, and its mesh= branch (mesh_decode: the cursors shared among the
 ranks of a parallel/mesh.Mesh).  `inflate_device_v2(data, ...)` decodes
 a raw DEFLATE stream:
 
-  pass 1 (host)   discover the block headers (a native scan, then a
-                  python walk over the blocks) and lay K cursors over
+  pass 1 (host)   discover the block headers (a native scan, or its
+                  numpy twin with the native library switched off, then
+                  a python walk over the blocks) and lay K cursors over
                   each block's data, one per stride (plan_cursors);
   pass 2 (device) every cursor decodes its own bit range into a token
                   tape (kernels/inflate_cuda.py, one CUDA kernel); a
@@ -18,9 +19,13 @@ a raw DEFLATE stream:
                   the kept tokens;
   repair (host)   where the splice cannot prove the chain (ok == 0), the
                   host walks the cursors and decodes only the broken
-                  spans with the native bridge decoder (_repair_splice);
+                  spans with the native bridge decoder (_repair_splice),
+                  or with the native library switched off with the
+                  vectorized decoder (codec/tokenize.decode_segment), as
+                  tpuzlib does;
   pass 3          the compacted tape is expanded to bytes on the host
-                  (native, the default) or on the device by pointer
+                  (codec/expand.expand_host: native, or numpy with the
+                  library off; the default) or on the device by pointer
                   doubling (expand_v2, device_expand=True).
 
 Between blocks the host walks the gaps (walk_blocks): sync-flush
@@ -66,6 +71,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..codec import huffman
 from ..codec import tokenize as tk
 from ..codec.expand import expand_host
 from ..codec.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
@@ -501,20 +507,16 @@ def splice_compact(toks, stops, block_starts, is_block_first, is_block_last, exp
 # ---------------------------------------------------------------------------
 
 
-def _native_midblock(p: Block):
-    """The native bridge decoder for a Huffman block: fn(buf, bit, cap) ->
-    (litlen, dist, hit_eob, end_bit), or None on a decode error.  None for
-    a stored block."""
-    kind = p.lens_info[0]
-    if kind == "fixed":
+def _native_midblock(p: Block, lib):
+    """The native bridge decoder for Huffman block p: fn(buf, bit, cap) ->
+    (litlen, dist, hit_eob, end_bit) of up to cap tokens from bit, or None
+    on a decode error."""
+    if p.lens_info[0] == "fixed":
         ll_arr = np.ascontiguousarray(FIXED_LITLEN_LENGTHS, dtype=np.int32)
         dd_arr = np.ascontiguousarray(FIXED_DIST_LENGTHS, dtype=np.int32)
-    elif kind == "dyn":
+    else:
         ll_arr = np.ascontiguousarray(p.lens_info[1], dtype=np.int32)
         dd_arr = np.ascontiguousarray(p.lens_info[2], dtype=np.int32)
-    else:
-        return None
-    lib = bindings.lib()
 
     def run(buf, bit, cap):
         lit_buf = np.empty(cap, np.int32)
@@ -527,6 +529,36 @@ def _native_midblock(p: Block):
         if status[0] != 0:
             return None
         return lit_buf[:ntok].copy(), dist_buf[:ntok].copy(), hit_eob[0] != 0, int(end_bit[0])
+
+    return run
+
+
+def _numpy_midblock(p: Block, buf: np.ndarray, bit: int, guard_end: int):
+    """The bridge decoder for Huffman block p with the native library off
+    (tpuzlib's vectorized fallback): _native_midblock's contract, 4,096
+    bits a call whatever cap, over bit windows of buf local to a bridge
+    from `bit` (to guard_end and 64 bytes past it).  None at a decode
+    error and where the windows or the input run out."""
+    if p.lens_info[0] == "fixed":
+        lut_lit, lut_dist = huffman.fixed_litlen_lut(), huffman.fixed_dist_lut()
+    else:
+        lut_lit = huffman.build_lut(p.lens_info[1], "litlen")
+        lut_dist = huffman.build_lut(p.lens_info[2], "dist")
+    byte0 = bit >> 3
+    span = min(len(buf) - byte0, (guard_end - bit) // 8 + 64)
+    w64 = tk.byte_windows64(buf[byte0 : byte0 + span])
+    base = byte0 * 8
+    avail = min(len(buf) * 8 - base, span * 8)
+
+    def run(buf, bit, cap):
+        try:
+            litl, dist, kind, end = tk.decode_segment(w64, bit - base, avail, lut_lit, lut_dist,
+                                                      4096)
+        except tk.DataError:
+            return None
+        if kind == tk.EXIT_MORE:
+            return None
+        return litl, dist, kind == tk.EXIT_EOB, end + base
 
     return run
 
@@ -552,8 +584,9 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
     the overlap window.  Both leave every other cursor's work intact, so
     this walks the cursors of each block left to right, trusts exactly the
     validated chain (the splice's induction), and decodes only the broken
-    spans with the native bridge decoder, re-entering the next cursor whose
-    tape holds a decoded chain position.
+    spans with the bridge decoder (native, or numpy with the library
+    off), re-entering the next cursor whose tape holds a decoded chain
+    position.
 
     Returns (keep_lo, keep_hi, bridge_ins, block_end_bits); raises
     DeviceDeclined on real data errors, truncation, unparseable structure,
@@ -667,9 +700,11 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
             nbridge += 1
             targets = [int(k2) for k2 in idxs if k2 > current]
             guard_end = int(lay.stops[int(idxs[-1])]) + 4096
-            nat = _native_midblock(p)
-            if nat is None:
+            if p.is_stored:
                 raise DeviceDeclined("a splice repair would bridge inside stored block %d" % b)
+            lib = bindings.get_lib()
+            nat = (_native_midblock(p, lib) if lib is not None
+                   else _numpy_midblock(p, buf, pos, guard_end))
             lit_parts, dist_parts = [], []
             sync = None
             while True:

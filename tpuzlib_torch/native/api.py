@@ -3,8 +3,9 @@
 Counterpart of tpuzlib/native/api.py: the serial decoder (STATUS_*,
 inflate_raw, InflateStream), the host engine's per-level tokenizer
 settings (NATIVE_LEVELS) and the tokenizer's tape (tokenize).  The
-library is built on first use (bindings.lib()) and is required: a failed
-build raises.
+library is built on first use (bindings.lib()): a failed build raises,
+and so does a call while the library is switched off
+(bindings.set_native), where the callers take their numpy branches.
 """
 
 from __future__ import annotations

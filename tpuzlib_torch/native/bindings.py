@@ -2,10 +2,18 @@
 
 `lib()` compiles tpuzlib_torch_native.cc with g++ on first use into
 `_build/` next to this file, names the library by a hash of its source
-and flags, and loads it (`_clib.Library`).  There is no numpy path to fall back on: a
-failed build raises with the compiler's output.  Counterpart of
-tpuzlib/native/bindings.py, without `-march=native`, so the library loads
-on whichever host runs it.
+and flags, and loads it (`_clib.Library`).  A failed build raises with
+the compiler's output.  Counterpart of tpuzlib/native/bindings.py,
+without `-march=native`, so the library loads on whichever host runs it.
+
+One switch in code takes the place of tpuzlib's TPUZLIB_NO_NATIVE:
+`set_native(False)` (or `testing.no_native()`) turns the library off, and
+then `get_lib()` gives None and `native_available()` False, as tpuzlib's
+do when its library is missing, and every call site takes tpuzlib's numpy
+branch at tpuzlib's decision point.  While it is off, `lib()` raises, so
+a site that ignores the switch fails instead of using the library.  While
+it is on, `get_lib()` builds the library, and a failed build raises: the
+port never switches itself off.  No environment variable is read.
 """
 
 from __future__ import annotations
@@ -69,10 +77,37 @@ _SIGNATURES = {
     "tz_emit_tokens": (_I64, [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64]),
 }
 
-# lib(): the loaded host library, built on first use; lib.build(): its path
-lib = Library("tpuzlib_torch_native", lambda: "g++", FLAGS, lambda: [_SRC], _BUILD_DIR,
-              _SIGNATURES)
-build = lib.build
+_LIBRARY = Library("tpuzlib_torch_native", lambda: "g++", FLAGS, lambda: [_SRC], _BUILD_DIR,
+                   _SIGNATURES)
+build = _LIBRARY.build  # the library's path, built first where needed
+_enabled = True
+
+
+def set_native(enabled: bool) -> bool:
+    """Switch the native library on or off for the whole process; returns
+    the state before the call."""
+    global _enabled
+    before, _enabled = _enabled, bool(enabled)
+    return before
+
+
+def get_lib():
+    """The loaded library, built on first use, or None while it is
+    switched off."""
+    return _LIBRARY() if _enabled else None
+
+
+def native_available() -> bool:
+    """Whether the call sites take the native route (tpuzlib's test)."""
+    return get_lib() is not None
+
+
+def lib():
+    """The loaded library, built on first use; raises while it is switched
+    off."""
+    if not _enabled:
+        raise RuntimeError("the native library is switched off (bindings.set_native)")
+    return _LIBRARY()
 
 
 def ptr(a: np.ndarray) -> int:

@@ -19,13 +19,17 @@ produced for any block without the 32 KiB of output before it, so:
      in parallel (codec/expand.expand_segments).  tpuzlib joins the tapes
      and expands them in one serial pass: the bytes are the same.
 
-The port's native library is required (native/bindings.py), as for the
-host engine: `_tokenize_range` has no numpy branch and no "library
-missing" result, `find_all_block_starts` is the native scan alone, and
-find_block_start's candidate filter runs natively (tpuzlib's
-`_kraft_prefilter` has no copy here).  tpuzlib's `SpeculationMiss`,
-raised nowhere, and `_native_probe`, which only its numpy scan calls,
-have no counterpart.
+The native library (native/bindings.py) runs the scans, the tokenizer
+and the expansion.  With it switched off, each site takes tpuzlib's
+numpy branch where tpuzlib takes it: `_tokenize_range` the vectorized
+tokenizer over the stream's bit windows (w64), `find_all_block_starts`
+the vectorized Kraft prefilter (`_kraft_prefilter`) with the python probe
+and confirm of each survivor, find_block_start's candidates the same
+prefilter, and the expansion expand_host a tape after another.
+tpuzlib's `_native_probe`, which returns None without its library, has
+no counterpart: the numpy scan is the only caller, and runs only with the
+library off.  tpuzlib's `SpeculationMiss` is raised by neither package
+and has no counterpart.
 """
 
 from __future__ import annotations
@@ -75,12 +79,65 @@ def _confirm(w64, data_start, avail_bits, luts, probe_syms=48):
     return len(litlen) >= min(probe_syms, 8)
 
 
+def _kraft_prefilter(w64, start_bit: int, nbits: int, allow_final: bool = False) -> np.ndarray:
+    """Vectorized candidate filter for dynamic-block headers.
+
+    For every bit offset in [start_bit, start_bit+nbits): BFINAL must be
+    0 (unless allow_final), BTYPE 10, HLIT/HDIST in range, and the
+    code-length code's Kraft sum exactly 2^7 (a complete tree) with at
+    least two codes.  Returns the survivors' offsets from start_bit.  The
+    cheap field checks run first, the 19-term Kraft sum on their
+    survivors; the bit windows come from a byte-view broadcast."""
+    first_byte = start_bit >> 3
+    last_byte = (start_bit + nbits - 1) >> 3
+    span = last_byte - first_byte + 1
+    wbytes = w64[first_byte : first_byte + span]
+    if len(wbytes) < span:  # buffer tail: zero-pad the window views
+        wbytes = np.concatenate([wbytes, np.zeros(span - len(wbytes), np.uint64)])
+    shifts = np.arange(8, dtype=np.uint64)
+    # wA_all[b, s] = 64-bit window at bit (first_byte + b) * 8 + s
+    wA_all = (wbytes[:, None] >> shifts[None, :]).reshape(-1)
+    lo = start_bit - first_byte * 8
+    wA = wA_all[lo : lo + nbits]
+
+    btype = ((wA >> np.uint64(1)) & np.uint64(3)).astype(np.int32)
+    hlit = ((wA >> np.uint64(3)) & np.uint64(31)).astype(np.int32)
+    hdist = ((wA >> np.uint64(8)) & np.uint64(31)).astype(np.int32)
+    ok = (btype == 2) & (hlit <= 29) & (hdist <= 29)
+    if not allow_final:
+        ok &= (wA & np.uint64(1)) == 0
+    cand = np.flatnonzero(ok)
+    if len(cand) == 0:
+        return cand
+
+    wAc = wA[cand]
+    posB = cand + np.int64(start_bit) + 40
+    wBc = w64[np.minimum(posB >> 3, len(w64) - 1)] >> (posB & 7).astype(np.uint64)
+    hclen = ((wAc >> np.uint64(13)) & np.uint64(15)).astype(np.int64) + 4
+    kraft = np.zeros(len(cand), dtype=np.int64)
+    nzero = np.zeros(len(cand), dtype=np.int64)
+    for j in range(19):
+        o = 17 + 3 * j
+        if o + 3 <= 57:
+            lj = ((wAc >> np.uint64(o)) & np.uint64(7)).astype(np.int64)
+        else:
+            lj = ((wBc >> np.uint64(o - 40)) & np.uint64(7)).astype(np.int64)
+        used = (j < hclen) & (lj > 0)
+        kraft += np.where(used, 1 << (7 - np.minimum(lj, 7)), 0)
+        nzero += used
+    return cand[(kraft == 128) & (nzero >= 2)]
+
+
 def find_all_block_starts(buf: np.ndarray, from_bit: int = 0, allow_final: bool = True) -> list:
     """Bit positions of every confirmed dynamic-block header from
     `from_bit` on: a bit scan with a Kraft prefilter, each candidate
-    confirmed by a bounded decode (tz_find_headers)."""
-    lib = bindings.lib()
+    confirmed by a bounded decode (tz_find_headers); with the native
+    library off, the vectorized prefilter a 2^23-bit chunk at a time and
+    the python probe and confirm of each survivor."""
+    lib = bindings.get_lib()
     buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if lib is None:
+        return _scan_block_starts(buf, from_bit, allow_final)
     cap = 4096
     while True:
         pos = np.empty(cap, np.int64)
@@ -91,12 +148,34 @@ def find_all_block_starts(buf: np.ndarray, from_bit: int = 0, allow_final: bool 
         cap *= 8
 
 
+def _scan_block_starts(buf: np.ndarray, from_bit: int, allow_final: bool) -> list:
+    """find_all_block_starts' numpy scan (tpuzlib's)."""
+    avail_bits = len(buf) * 8
+    w64 = tk.byte_windows64(buf)
+    out = []
+    chunk = 1 << 23  # bits
+    bit = from_bit
+    while bit < avail_bits:
+        nbits = min(chunk, avail_bits - bit)
+        for rel in _kraft_prefilter(w64, bit, nbits, allow_final=allow_final):
+            p = bit + int(rel)
+            pr = _probe_header(buf, p, avail_bits, allow_final=allow_final)
+            if pr is not None and _confirm(w64, pr[1], avail_bits, pr[0]):
+                out.append(p)
+        bit += nbits
+    return out
+
+
 def _header_candidates(region: np.ndarray, limit_bits: int, allow_final: bool) -> np.ndarray:
     """Bit offsets in [0, limit_bits) of `region` whose dynamic-block
     header passes tpuzlib's Kraft prefilter and parses (native/
     tz_header_candidates): a position dropped here is one _probe_header
-    drops too."""
-    lib = bindings.lib()
+    drops too.  With the native library off, the prefilter's survivors
+    (tpuzlib's candidates), which _probe_header then parses."""
+    lib = bindings.get_lib()
+    if lib is None:
+        return _kraft_prefilter(tk.byte_windows64(region), 0, limit_bits,
+                                allow_final=allow_final)
     cap = 256
     while True:
         pos = np.empty(cap, np.int64)
@@ -136,13 +215,18 @@ def find_block_start(buf: np.ndarray, from_byte: int, window_bytes: int = 1 << 1
     return None
 
 
-def _tokenize_range(buf: np.ndarray, start_bit: int, stop_bit: int):
+def _tokenize_range(buf: np.ndarray, start_bit: int, stop_bit: int, w64=None):
     """Tokenize blocks from start_bit until a block ends at/after stop_bit
-    (or the stream's final block), with the GIL-free native tokenizer.
-    Returns (litlen, dist, end_bit, finished); raises DataError on
-    malformed or truncated data."""
-    lib = bindings.lib()
+    (or the stream's final block), with the GIL-free native tokenizer, or
+    with the native library off the vectorized one over `w64`, the
+    stream's bit windows (made here where None).  Returns (litlen, dist,
+    end_bit, finished); raises DataError on malformed or truncated
+    data."""
+    lib = bindings.get_lib()
     buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    if lib is None:
+        return _tokenize_range_numpy(buf, tk.byte_windows64(buf) if w64 is None else w64,
+                                     start_bit, stop_bit)
     # tokens rarely exceed ~0.6 per compressed byte; grow on overflow
     cap = max(1 << 16, max(1, (stop_bit - start_bit) // 8))
     while True:
@@ -161,6 +245,60 @@ def _tokenize_range(buf: np.ndarray, start_bit: int, stop_bit: int):
         return litlen[:ntok], dist[:ntok], int(end_bit[0]), bool(finished[0])
 
 
+def _tokenize_range_numpy(buf: np.ndarray, w64: np.ndarray, start_bit: int, stop_bit: int):
+    """_tokenize_range's numpy branch (tpuzlib's)."""
+    avail_bits = len(buf) * 8
+    bit_pos = start_bit
+    chunks = []
+    finished = False
+    while True:
+        reader = tk.BitReader(buf, bit_pos, avail_bits)
+        try:
+            last = reader.bits(1)
+            btype = reader.bits(2)
+            if btype == 0:
+                reader.align_byte()
+                length = reader.bits(16)
+                nlen = reader.bits(16)
+                if length != (~nlen & 0xFFFF):
+                    raise DataError("invalid stored block lengths")
+                byte_pos = reader.pos >> 3
+                chunk = buf[byte_pos : byte_pos + length]
+                chunks.append((chunk.astype(np.int32), np.zeros(len(chunk), np.int32)))
+                bit_pos = (byte_pos + length) * 8
+            else:
+                if btype == 1:
+                    luts = (fixed_litlen_lut(), fixed_dist_lut())
+                elif btype == 2:
+                    luts = tk.parse_dynamic_header(reader)
+                else:
+                    raise DataError("invalid block type")
+                bit_pos = reader.pos
+                while True:
+                    litlen, dist, exit_kind, bit_pos = tk.decode_segment(
+                        w64, bit_pos, avail_bits, luts[0], luts[1], 1 << 19)
+                    if len(litlen):
+                        chunks.append((litlen, dist))
+                    if exit_kind == tk.EXIT_EOB:
+                        break
+                    if exit_kind == tk.EXIT_MORE:
+                        raise DataError("unexpected end of stream")
+            if last:
+                finished = True
+                break
+        except tk.NeedMoreInput:
+            raise DataError("unexpected end of stream")
+        if bit_pos >= stop_bit:
+            break
+    if chunks:
+        litlen = np.concatenate([c[0] for c in chunks])
+        dist = np.concatenate([c[1] for c in chunks])
+    else:
+        litlen = np.empty(0, np.int32)
+        dist = np.empty(0, np.int32)
+    return litlen, dist, bit_pos, finished
+
+
 def inflate_parallel(data, n_segments: int | None = None, max_workers: int | None = None,
                      dictionary: np.ndarray | None = None) -> np.ndarray:
     """Decode a raw DEFLATE stream with speculative segment parallelism.
@@ -172,6 +310,7 @@ def inflate_parallel(data, n_segments: int | None = None, max_workers: int | Non
     the usable cores for the expansion.  The bytes never depend on
     either."""
     buf = np.ascontiguousarray(u8_view(data))
+    w64 = None if bindings.native_available() else tk.byte_windows64(buf)
     avail_bits = len(buf) * 8
     if n_segments is None:
         n_segments = max(1, min(_ncores(), len(buf) // (1 << 16)))
@@ -186,7 +325,7 @@ def inflate_parallel(data, n_segments: int | None = None, max_workers: int | Non
 
     # 2. tokenize segments in parallel, each tape with its output length
     def work(args):
-        litlen, dist, end_bit, fin = _tokenize_range(buf, *args)
+        litlen, dist, end_bit, fin = _tokenize_range(buf, *args, w64=w64)
         return litlen, dist, end_bit, fin, tape_out_len(litlen, dist)
 
     if max_workers is None:

@@ -18,10 +18,14 @@ the bit pack's inputs for the cases of PACK_CASES.
 `device_deflater_from_numpy` builds a DeviceDeflater from streaming state
 held in numpy, so a stream begun elsewhere can be finished by the port.
 `counters_since` gives the event counters a call moved.
+`device_route` and `inflate_device_route` call deflate()'s and
+inflate()'s device routes at any size; `no_native` switches the native
+library off for a block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import zlib
 
 import numpy as np
@@ -150,6 +154,32 @@ def device_route(data, device="cpu", **options) -> np.ndarray:
     from .common import u8_view
 
     return _deflate_device(u8_view(data), Deflater(**options), device)
+
+
+def inflate_device_route(data, device="cpu"):
+    """inflate()'s device route (api/inflate_api._inflate_device) on `data`
+    at any size, raw streams too (not a zlib stream with FDICT, which the
+    route rule never sends there): the bytes inflate() gives on a card for
+    a stream its route rule sends there, or None where that route leaves
+    the stream to the host route (counted as inflate() counts it)."""
+    from .api.inflate_api import _inflate_device
+    from .common import u8_view
+
+    return _inflate_device(u8_view(data), device)
+
+
+@contextlib.contextmanager
+def no_native():
+    """The native library switched off inside the block (every call site
+    takes tpuzlib's numpy branch; native/bindings.set_native), and back
+    to its state before on the way out."""
+    from .native import bindings
+
+    before = bindings.set_native(False)
+    try:
+        yield
+    finally:
+        bindings.set_native(before)
 
 
 def inflate_streams(n: int = 1 << 16, seed: int = 0) -> dict:
