@@ -1,0 +1,9 @@
+"""crc32_roofline: the least time the card needs for the traced crc32() calls'
+bytes in and out at its peak memory rate, over the time an operation
+(any kernel, copy or memset, aten's included) ran on the card."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "crc32")

@@ -1,0 +1,9 @@
+"""deflate_roofline: the least time the card needs for the traced deflate() calls'
+bytes in and out at its peak memory rate, over the time an operation
+(any kernel, copy or memset, aten's included) ran on the card."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "deflate")

@@ -1,0 +1,8 @@
+"""idle_pct.deflate: the share of the traced slice of deflate() calls in which no
+operation ran on the card."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.idle_pct(run, "deflate")
