@@ -1,6 +1,6 @@
-"""utils/trace.py on the card: profile() records the port's kernels, and
-the encoder's device-resident overflow counter adds no host sync and
-equals the CPU's.
+"""utils/trace.py on the card: profile() records the port's kernels, the
+encoder's device-resident overflow counter adds no host sync and equals
+the CPU's, and the copy counters give the bytes the code moves.
 
 Every test here is marked `cuda` and skips without a CUDA card.  The CPU
 tests (test_torch_trace.py) hold the telemetry and the counters to
@@ -21,6 +21,7 @@ import torch
 import tpuzlib_torch
 from tpuzlib_torch import testing
 from tpuzlib_torch.kernels import deflate_device3 as d3
+from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +123,54 @@ def test_overflow_counter_equals_cpu(dev, kind, count):
         got[where] = (trace.get_counters()["deflate.ext_cap_overflow"],
                       np.asarray(bits.cpu()).tolist(), np.asarray(ok.cpu()).tolist())
     assert got["cuda"] == got["cpu"] and got["cpu"][0] == count
+
+
+def test_copy_counters_of_deflate_and_inflate(dev):
+    """copy.h2d_bytes and copy.d2h_bytes of a warm 2 MiB level-6 zlib
+    deflate() and of inflate() of its stream equal the bytes the code
+    moves: deflate() uploads one batch of 8 chunks with their 32 KiB
+    contexts and its four int32 columns, then the input again for the
+    Adler-32, and reads back the words (int64), the bits and ok (int32)
+    and the 8-byte Adler-32; inflate() uploads the decode's inputs, the
+    splice's cursor arrays and the output for the Adler-32, and reads back the highest slice start
+    (int32), the splice's meta, the kept tokens and the Adler-32."""
+    n = 2 << 20
+    data = testing.mixed(n, 7)
+    wire = tpuzlib_torch.deflate(data, device=dev)
+    assert tpuzlib_torch.inflate(wire, device=dev).tobytes() == data.tobytes()
+    trace.enable()
+    before = trace.get_counters()
+    assert tpuzlib_torch.deflate(data, device=dev).tobytes() == wire.tobytes()
+    moved = testing.counters_since(before)
+    rows, words = n // CHUNK, d3.out_words_for(CHUNK)
+    assert moved["copy.h2d_bytes"] == rows * (d3.CTX + CHUNK) + 3 * 4 * rows + n
+    assert moved["copy.d2h_bytes"] == rows * words * 8 + 2 * 4 * rows + 8
+    trace.reset()
+    before = trace.get_counters()
+    assert tpuzlib_torch.inflate(wire, device=dev).tobytes() == data.tobytes()
+    moved = testing.counters_since(before)
+    t = trace.get_telemetry()
+    assert "inflate.compact" not in t and "inflate.declined" not in t  # no repair, no decline
+    buf = np.asarray(wire)[2:]
+    lay = d2.plan_cursors(buf)
+    a = lay.decode_args(buf, "cpu")
+    splice = (lay.stops, lay.bstart, lay.first, lay.last, lay.expect_eob, lay.active)
+    assert moved["copy.h2d_bytes"] == (trace.size_of((a.words, a.cur, a.tabs, a.lents, a.dents))
+                                       + trace.size_of(splice) + n)
+    assert moved["copy.d2h_bytes"] == (4 + t["inflate.splice_pull"]["bytes"]
+                                       + t["inflate.comp_pull"]["bytes"] + 8)
+
+
+def test_copy_counters_of_crc32(dev):
+    """crc32() of a card tensor reads back 8 bytes and uploads nothing; of
+    a host buffer it uploads the buffer too."""
+    data = testing.mixed(1 << 18, 9)
+    on_card = torch.from_numpy(data).to(dev)
+    trace.enable()
+    for source, h2d in ((on_card, 0), (data, len(data)), (data.tobytes(), len(data))):
+        before = trace.get_counters()
+        tpuzlib_torch.crc32(source)
+        moved = testing.counters_since(before)
+        assert moved.get("copy.h2d_bytes", 0) == h2d and moved["copy.d2h_bytes"] == 8
+    t = trace.get_telemetry()
+    assert t["crc32.call"]["calls"] == t["crc32.launch"]["calls"] == 3

@@ -16,6 +16,10 @@ import functools
 import glob
 import json
 import os
+import shutil
+import sys
+import threading
+import time
 import zlib
 
 import jax
@@ -30,6 +34,7 @@ from tpuzlib.kernels import deflate_device3 as jd3
 from tpuzlib.kernels import inflate_device2 as jd2
 from tpuzlib.utils import trace as jtrace
 from tpuzlib_torch import testing
+from tpuzlib_torch.api import inflate_api
 from tpuzlib_torch.kernels import deflate_device3 as td3
 from tpuzlib_torch.kernels import inflate_device2 as td2
 from tpuzlib_torch.utils import trace
@@ -111,7 +116,8 @@ def test_same_calls_same_telemetry(drive):
     for w, g in zip(want, got):
         if isinstance(w, dict) and w and isinstance(next(iter(w.values())), dict):
             assert _shape(g) == _shape(w)
-            assert all(set(v) == {"calls", "bytes", "seconds", "MBps"} for v in g.values())
+            assert all(set(v) == {"calls", "bytes", "seconds", "self_seconds", "MBps"}
+                       for v in g.values())
         else:
             assert g == w
 
@@ -229,19 +235,32 @@ def test_api_counters(fmt):
     assert "deflate.device_fallback" not in trace.get_counters()
 
 
+PHASES = ("deflate.encode.match", "deflate.encode.parse", "deflate.encode.trees",
+          "deflate.encode.pack")
+
+
 def test_main_path_stages():
     """deflate()'s and inflate()'s device routes run their pieces under
     the stages that chip_smoke.py's phase N reads, with the bytes each
-    handles."""
+    handles; the encoder's four phases nest in each deflate.encode_batch,
+    the final flush in the last deflate.join, the header scan in
+    inflate.plan, and each public call runs inside its root stage."""
     trace.enable()
     wire = testing.device_route(DATA, level=6)
     nbatch = -(-len(DATA) // (8 << 18))  # batches of 8 chunks of 256 KiB
     t = trace.get_telemetry()
     assert {k: t[k]["calls"] for k in t} == {
         "deflate.layout": nbatch, "deflate.encode_batch": nbatch, "deflate.pull": nbatch,
-        "deflate.join": nbatch + 1, "deflate.checksum": 1}
+        "deflate.join": nbatch + 1, "deflate.checksum": 1, "deflate.flush": 1,
+        **{k: nbatch for k in PHASES}}
     assert t["deflate.layout"]["bytes"] == t["deflate.encode_batch"]["bytes"] == len(DATA)
-    assert t["deflate.checksum"]["bytes"] == len(DATA)
+    assert t["deflate.checksum"]["bytes"] == len(DATA) == t["deflate.flush"]["bytes"]
+    assert all(t[k]["bytes"] == len(DATA) for k in PHASES)
+    # the phases partition the batch, the flush lies inside the last join
+    assert sum(t[k]["seconds"] for k in PHASES) <= t["deflate.encode_batch"]["seconds"]
+    assert t["deflate.encode_batch"]["self_seconds"] == pytest.approx(
+        t["deflate.encode_batch"]["seconds"] - sum(t[k]["seconds"] for k in PHASES), abs=5e-6)
+    assert t["deflate.flush"]["seconds"] <= t["deflate.join"]["seconds"]
     trace.reset()
     assert testing.inflate_device_route(wire).tobytes() == DATA.tobytes()
     t = trace.get_telemetry()
@@ -256,12 +275,42 @@ def test_main_path_stages():
     assert {"inflate.repair_walk", "inflate.compact", "inflate.device_expand"} <= set(
         trace.get_telemetry())
     assert "inflate.host_expand" not in trace.get_telemetry()
+    # a stream of several Huffman blocks: the plan scans its headers once
+    text = testing.corpus("text", 600 << 10, 3)
+    zraw = tpuzlib_torch.deflate(text, format="raw", device="cpu")
+    trace.reset()
+    before = trace.get_counters()
+    assert testing.inflate_device_route(zraw).tobytes() == text.tobytes()
+    t = trace.get_telemetry()
+    nblocks = len(td2._plan_blocks(np.asarray(zraw)))
+    assert nblocks > 1 and testing.counters_since(before)["inflate.plan_blocks"] == nblocks
+    assert _shape({k: t[k] for k in ("inflate.plan", "inflate.plan.scan")}) == {
+        "inflate.plan": (1, len(zraw)), "inflate.plan.scan": (1, len(zraw))}
+    assert t["inflate.plan.scan"]["seconds"] <= t["inflate.plan"]["seconds"]
+    # the public calls' root stages, around their routes' stages
+    trace.reset()
+    wire = tpuzlib_torch.deflate(DATA, format="gzip", device="cpu")
+    assert tpuzlib_torch.inflate(wire, device="cpu").tobytes() == DATA.tobytes()
+    assert tpuzlib_torch.crc32(DATA, device="cpu") == zlib.crc32(DATA.tobytes())
+    t = trace.get_telemetry()
+    assert _shape(t) == {"deflate.call": (1, len(DATA)), "deflate.append": (1, len(DATA)),
+                         "deflate.finish": (1, 0), "inflate.call": (1, len(wire)),
+                         "inflate.append": (1, len(wire)), "crc32.call": (1, 0),
+                         "crc32.launch": (1, len(DATA))}
+    for root, inner in (("deflate.call", ("deflate.append", "deflate.finish")),
+                        ("inflate.call", ("inflate.append",)), ("crc32.call", ("crc32.launch",))):
+        assert t[root]["self_seconds"] == pytest.approx(
+            t[root]["seconds"] - sum(t[k]["seconds"] for k in inner), abs=5e-6)
 
 
-def test_profile_writes_a_trace(tmp_path):
-    logdir = str(tmp_path / "profile")
+@pytest.mark.parametrize("given", [True, False], ids=["logdir", "no_logdir"])
+def test_profile_writes_a_trace(tmp_path, given):
+    """profile() writes a Chrome trace of the stages' spans into the
+    logdir given, or, given none, into a new directory of its own."""
+    logdir = str(tmp_path / "profile") if given else None
     with trace.profile(logdir, device="cpu") as d:
-        assert d == logdir and trace.telemetry_enabled()
+        assert (d == logdir if given else os.path.basename(d).startswith("tpuzlib_torch_profile_"))
+        assert trace.telemetry_enabled()
         deflater = tpuzlib_torch.Deflater(level=6)
         deflater.append(DATA[:100_000])
         deflater.append(DATA[100_000:])
@@ -269,10 +318,12 @@ def test_profile_writes_a_trace(tmp_path):
     assert not trace.telemetry_enabled()
     assert _shape(trace.get_telemetry()) == {"deflate.append": (2, len(DATA)),
                                              "deflate.finish": (1, 0)}
-    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    files = glob.glob(os.path.join(d, "*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
+    if not given:
+        shutil.rmtree(d)
     spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     assert sorted(spans) == ["deflate.append", "deflate.append", "deflate.finish"]
 
@@ -295,3 +346,156 @@ def test_telemetry_off_records_nothing():
     assert trace.get_telemetry() == {}
     # the encoder's device counter is taken only while telemetry is on
     assert "deflate.ext_cap_overflow" not in testing.counters_since(before)
+
+
+def test_crc32_launch_opens_no_span(tmp_path):
+    """Under a profiler, crc32() opens its crc32.call span alone: its
+    crc32.launch stage is timed but opens no record_function."""
+    with trace.profile(str(tmp_path), device="cpu"):
+        assert tpuzlib_torch.crc32(DATA, device="cpu") == zlib.crc32(DATA.tobytes())
+    assert _shape(trace.get_telemetry()) == {"crc32.call": (1, 0), "crc32.launch": (1, len(DATA))}
+    (path,) = glob.glob(os.path.join(str(tmp_path), "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert [e["name"] for e in events if e.get("cat") == "user_annotation"] == ["crc32.call"]
+
+
+def test_self_seconds_of_nested_stages():
+    """A stage's self seconds are its seconds less those of the stages
+    opened directly inside it on its thread; a second thread's stages
+    keep their own stack and take nothing from the first's."""
+    trace.enable()
+    opened = threading.Event()
+    finish = threading.Event()
+
+    def other():
+        with trace.timed_stage("thread.outer"):
+            with trace.timed_stage("thread.inner"):
+                opened.set()
+                finish.wait(10)
+
+    worker = threading.Thread(target=other)
+    with trace.timed_stage("outer"):
+        worker.start()
+        opened.wait(10)
+        time.sleep(0.01)
+        with trace.timed_stage("mid"):
+            with trace.timed_stage("inner"):
+                time.sleep(0.01)
+            time.sleep(0.01)
+        with trace.timed_stage("mid"):
+            pass
+        finish.set()
+        worker.join(10)
+    assert not worker.is_alive()
+    t = trace.get_telemetry()
+    secs = {k: v["seconds"] for k, v in t.items()}
+    own = {k: v["self_seconds"] for k, v in t.items()}
+    assert own["inner"] == secs["inner"] and own["thread.inner"] == secs["thread.inner"]
+    assert own["mid"] == pytest.approx(secs["mid"] - secs["inner"], abs=5e-6)
+    assert own["outer"] == pytest.approx(secs["outer"] - secs["mid"], abs=5e-6)
+    assert own["outer"] >= 0.009  # the sleep before mid, and not the thread's stages
+    assert own["thread.outer"] == pytest.approx(secs["thread.outer"] - secs["thread.inner"],
+                                                abs=5e-6)
+    assert t["mid"]["calls"] == 2
+
+
+def test_stages_from_many_threads():
+    """More threads than cores open nested stages at once, with a short
+    switch interval: no call is lost, and each thread's stack keeps the
+    outer stages' self seconds to their own."""
+    trace.enable()
+    nthreads, reps = (os.cpu_count() or 1) + 2, 200
+    was = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def work():
+            for _ in range(reps):
+                with trace.timed_stage("outer", 1):
+                    with trace.timed_stage("inner", 2):
+                        pass
+
+        workers = [threading.Thread(target=work) for _ in range(nthreads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(was)
+    t = trace.get_telemetry()
+    n = nthreads * reps
+    assert _shape(t) == {"outer": (n, n), "inner": (n, 2 * n)}
+    assert t["outer"]["self_seconds"] == pytest.approx(
+        t["outer"]["seconds"] - t["inner"]["seconds"], abs=1e-4)
+    assert t["inner"]["self_seconds"] == t["inner"]["seconds"]
+
+
+def test_count_copy_rules():
+    """The copy counters count only with the telemetry on, never a copy
+    whose card side is the CPU, and size tensors, arrays and tuples."""
+    before = trace.get_counters()
+    trace.count_copy("h2d", "cuda", np.zeros(10, np.uint8))
+    assert testing.counters_since(before) == {}
+    trace.enable()
+    trace.count_copy("h2d", "cuda", np.zeros(10, np.uint8), torch.zeros(3, dtype=torch.int64))
+    trace.count_copy("d2h", torch.device("cuda", 1), (torch.zeros(2, 5, dtype=torch.int32),))
+    trace.count_copy("h2d", "cpu", np.zeros(10, np.uint8))
+    trace.count_copy("d2h", torch.device("cpu"), torch.zeros(4))
+    assert testing.counters_since(before) == {"copy.h2d_bytes": 34, "copy.d2h_bytes": 40}
+
+
+def _zlib_wire():
+    return tpuzlib_torch.deflate(DATA, device="cpu")
+
+
+def _declines(monkeypatch):
+    def decline(*args, **kwargs):
+        raise td2.DeviceDeclined("declined for the test")
+
+    monkeypatch.setattr(inflate_api, "decode_stream", decline)
+
+
+def _mismatches(monkeypatch):
+    monkeypatch.setattr(inflate_api, "adler32", lambda *args, **kwargs: 0)
+
+
+@pytest.mark.parametrize("force,counter", [(_declines, "inflate.device_fallback"),
+                                           (_mismatches, "inflate.device_mismatch_fallback")],
+                         ids=["declined", "mismatch"])
+def test_declined_attempt_is_recorded(monkeypatch, force, counter):
+    """A device-route attempt that ends on the host engine adds one
+    inflate.declined call with the stream's bytes; one that succeeds adds
+    none."""
+    wire = _zlib_wire()
+    trace.enable()
+    assert testing.inflate_device_route(wire).tobytes() == DATA.tobytes()
+    assert "inflate.declined" not in trace.get_telemetry()
+    force(monkeypatch)
+    before = trace.get_counters()
+    assert testing.inflate_device_route(wire) is None
+    moved = testing.counters_since(before)
+    assert moved[counter] == 1 and "inflate.device" not in moved
+    t = trace.get_telemetry()
+    assert _shape({"inflate.declined": t["inflate.declined"]}) == {
+        "inflate.declined": (1, len(wire))}
+    assert t["inflate.declined"]["seconds"] > 0
+
+
+def test_new_stages_record_nothing_while_off(monkeypatch):
+    """With the telemetry off, a declined attempt, the public calls, the
+    encoder's phases and the plan's scan record no stage, and no copy or
+    plan counter moves."""
+    text = testing.corpus("text", 600 << 10, 3)
+    zraw = tpuzlib_torch.deflate(text, format="raw", device="cpu")
+    wire = _zlib_wire()
+    before = trace.get_counters()
+    testing.device_route(DATA)
+    testing.inflate_device_route(zraw)
+    tpuzlib_torch.inflate(wire, device="cpu")
+    tpuzlib_torch.crc32(DATA, device="cpu")
+    _declines(monkeypatch)
+    assert testing.inflate_device_route(wire) is None
+    assert trace.get_telemetry() == {}
+    assert set(testing.counters_since(before)) == {"deflate.device", "inflate.device",
+                                                   "inflate.device_fallback"}

@@ -22,7 +22,8 @@ Telemetry (utils/trace.py) under tpuzlib's names: the Deflater's
 `deflate.device` counter (the bytes the device encoder took) and its
 `deflate.checksum` stage (the trailer's checksum).  tpuzlib's
 `deflate.device_fallback` never counts here: deflate() has no fallback
-from the device encoder.
+from the device encoder.  The port's own: deflate() runs inside the
+stage `deflate.call`, with its input bytes.
 """
 
 from __future__ import annotations
@@ -184,7 +185,8 @@ def deflate(data, options: DeflaterOptions | None = None, *, device="cuda", **kw
     except TypeError:
         raise TypeError("data must be an ArrayBuffer or buffer view") from None
     deflater = Deflater(options, **kwargs)  # validates the options
-    if (deflater.dictionary is None and len(view) >= DEVICE_MIN_BYTES
-            and torch.device(device).type != "cpu"):
-        return _deflate_device(view, deflater, device)
-    return mergeBuffers(deflater.append(view) + deflater.finish())
+    with trace.timed_stage("deflate.call", view):
+        if (deflater.dictionary is None and len(view) >= DEVICE_MIN_BYTES
+                and torch.device(device).type != "cpu"):
+            return _deflate_device(view, deflater, device)
+        return mergeBuffers(deflater.append(view) + deflater.finish())

@@ -43,7 +43,11 @@ route returned.
 The counters are utils/trace.py's, under tpuzlib's names (the port's own
 `inflate.speculative` aside); the Inflater's appends run under the
 `inflate.append` stage, as tpuzlib's do, and the device route's trailer
-checksum under `inflate.checksum`.
+checksum under `inflate.checksum`.  The port's own stages: inflate()
+runs inside `inflate.call`, with its input bytes; a device-route attempt
+that ends in the host route (any of the four ways above) is recorded as
+`inflate.declined`, its host seconds and input bytes (no span of its
+own: the attempt's stages show in a trace).
 
 Deliberate differences from tpuzlib: its catch-all fallbacks are kept
 away from the card: that of the device route is not ported, and that of
@@ -239,7 +243,17 @@ def _inflate_device(input_: np.ndarray, device) -> np.ndarray | None:
     """The device route: the decoded bytes, or None where the host engine
     must decode the stream (see the module docstring for which streams,
     and which of them are counted).  A zlib stream with FDICT never comes
-    here: device_route_applies keeps it on the host route."""
+    here: device_route_applies keeps it on the host route.  An attempt
+    that gives None is recorded as the stage inflate.declined."""
+    with trace.pending_stage("inflate.declined", input_) as attempt:
+        out = _device_attempt(input_, device)
+        if out is None and attempt is not None:
+            attempt.keep = True
+    return out
+
+
+def _device_attempt(input_: np.ndarray, device) -> np.ndarray | None:
+    """_inflate_device's decode: the bytes, or None."""
     b0, b1 = int(input_[0]), int(input_[1])
     gzip = b0 == 0x1F and b1 == 0x8B
     header = ContainerInflater(raw=not (gzip or _is_zlib(b0, b1)))
@@ -358,8 +372,9 @@ def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
     input_ = u8_view(data)
     if len(input_) < 2:
         raise ValueError("data buffer is too small")
-    if device_route_applies(input_, dictionary, device):
-        out = _inflate_device(input_, device)
-        if out is not None:
-            return out
-    return _inflate_host(input_, dictionary, device)
+    with trace.timed_stage("inflate.call", input_):
+        if device_route_applies(input_, dictionary, device):
+            out = _inflate_device(input_, device)
+            if out is not None:
+                return out
+        return _inflate_host(input_, dictionary, device)

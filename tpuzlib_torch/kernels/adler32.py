@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import trace
+
 MOD = 65521
 _MASK32 = 0xFFFFFFFF
 
@@ -74,10 +76,12 @@ def adler32_host(data: np.ndarray, seed: int = 1) -> int:
 
 def adler32_device(data, seed: int = 1) -> int:
     """Adler-32 of a 1-D uint8 tensor, computed on the tensor's device; the
-    host reads one integer."""
+    host reads one integer (counted as copy.d2h_bytes)."""
     from .adler32_cuda import adler32_device_scalar
 
-    return int(adler32_device_scalar(data, seed))
+    adler = adler32_device_scalar(data, seed)
+    trace.count_copy("d2h", adler.device, adler)
+    return int(adler)
 
 
 def adler32_combine(adler1: int, adler2: int, len2: int) -> int:

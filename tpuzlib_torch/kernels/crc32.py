@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 
+from ..utils import trace
 from . import gf2
 
 POLY = np.uint32(0xEDB88320)
@@ -189,10 +190,16 @@ def crc32_device(data, seed: int = 0) -> int:
 
     The forms, their tree and the seed finish all run there
     (crc32_cuda.crc32_device_scalar: one kernel launch on a card, its
-    plain version on the CPU); the host reads one integer."""
+    plain version on the CPU); the host reads one integer.  The checks and
+    the launch run as the telemetry stage crc32.launch, with no span of its
+    own (a second span would cost a share of the call under a profiler);
+    the read counts as copy.d2h_bytes."""
     from .crc32_cuda import crc32_device_scalar
 
-    return int(crc32_device_scalar(data, seed))
+    with trace.timed_stage("crc32.launch", data, span=False):
+        crc = crc32_device_scalar(data, seed)
+    trace.count_copy("d2h", crc.device, crc)
+    return int(crc)
 
 
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:

@@ -30,8 +30,11 @@ jax.debug.callback under TPUZLIB_TRACE_EXT=1), which only
 trace.get_counters() reads back; while it is off, the encoder's ops are
 unchanged.  deflate_device_v3 runs its phases as the stages
 deflate.layout (batch layout and upload), deflate.encode_batch (one a
-batch: the encoder's enqueue), deflate.pull (the results' read back) and
-deflate.join (the host bit join).
+batch: the encoder's enqueue, split into the stages deflate.encode.match,
+.parse, .trees and .pack), deflate.pull (the results' read back) and
+deflate.join (the host bit join; the last one holds deflate.flush, the
+final flush of the bit sink), and counts the bytes it uploads and reads
+back as copy.h2d_bytes and copy.d2h_bytes.
 """
 
 from __future__ import annotations
@@ -208,14 +211,21 @@ def batch_layout(B, ctx, N, ctx_valids, n_valids):
     return lim16, limit, mincand, chid
 
 
-def parse_tape(B, ctx, N, data, ctx_valids, n_valids, level):
+def match_tape(B, ctx, N, data, ctx_valids, n_valids, level):
+    """The match search over the flat batch: (length, dist) int32 over all
+    B*(ctx+N) positions."""
+    return match_lengths_v3(
+        data.reshape(B * (ctx + N)), *batch_layout(B, ctx, N, ctx_valids, n_valids), level)
+
+
+def parse_tape(B, ctx, N, data, ctx_valids, n_valids, level, match=None):
     """Match search, the lazy rule and the forced token breaks over the flat
     batch: (eff, step, dist) as (B, N) int32, where eff is each position's
-    match length (0: a literal) and step the segment parse's step tape."""
+    match length (0: a literal) and step the segment parse's step tape.
+    match: match_tape's result, where the caller has run it."""
     stride = ctx + N
     i32 = dict(dtype=torch.int32, device=data.device)
-    length, dist = match_lengths_v3(
-        data.reshape(B * stride), *batch_layout(B, ctx, N, ctx_valids, n_valids), level)
+    length, dist = match or match_tape(B, ctx, N, data, ctx_valids, n_valids, level)
 
     # new-position domain (B, N)
     length = length.reshape(B, stride)[:, ctx:]
@@ -234,12 +244,13 @@ def parse_tape(B, ctx, N, data, ctx_valids, n_valids, level):
     return eff, step, dist
 
 
-def _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level):
-    """Match + lazy + segment parse over the flat batch.
+def _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level, match=None):
+    """Match + lazy + segment parse over the flat batch (match: as
+    parse_tape's).
 
     data: (B, ctx+N) uint8.  Returns (starts bool, litlen, dist) as (B, N)."""
     i32 = dict(dtype=torch.int32, device=data.device)
-    eff, step, dist = parse_tape(B, ctx, N, data, ctx_valids, n_valids, level)
+    eff, step, dist = parse_tape(B, ctx, N, data, ctx_valids, n_valids, level, match)
     # the parse treats the flat array as one stream; SEG divides N, so
     # segment starts align with chunk starts, and per-chunk n_valid masking
     # happens here
@@ -380,10 +391,15 @@ def _const_rows(vals, rows: int, **kw) -> torch.Tensor:
 def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
                          ctx: int = CTX, stage: str = "full"):
     """encode(data u8[B, ctx+chunk], ctx_valid i32[B], n_valid i32[B],
-    last i32[B]) -> (words int64[B, out_words], total_bits i32[B], ok i32[B])
+    last i32[B], nbytes=0) -> (words int64[B, out_words], total_bits
+    i32[B], ok i32[B])
 
     `words` holds u32 values.  ok[b] == 0 when chunk b overflowed the token
     or output cap (the caller then writes that chunk as stored blocks).
+    The phases run as the telemetry stages deflate.encode.match (the
+    layout and the match search), .parse (the lazy rule, the segment parse
+    and the compaction), .trees (histograms, trees, codes and the header)
+    and .pack (pack_words), each with `nbytes`, the batch's input bytes.
 
     stage: truncate the program after 'tokens' | 'compact' | 'trees' |
     'header' | 'fields' to compare it stage by stage; 'full' (default) is
@@ -391,120 +407,126 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
     B, N = batch, chunk
     T_CAP = token_cap(N)
 
-    def encode(data, ctx_valids, n_valids, lasts):
+    def encode(data, ctx_valids, n_valids, lasts, nbytes=0):
         dev = data.device
         i64 = dict(dtype=torch.int64, device=dev)
-        starts, litlen, dist = _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level)
-        if stage == "tokens":
-            return starts.to(torch.int32), litlen, dist
+        with trace.timed_stage("deflate.encode.match", nbytes):
+            match = match_tape(B, ctx, N, data, ctx_valids, n_valids, level)
+        with trace.timed_stage("deflate.encode.parse", nbytes):
+            starts, litlen, dist = _tokens_v3(B, ctx, N, data, ctx_valids, n_valids, level, match)
+            if stage == "tokens":
+                return starts.to(torch.int32), litlen, dist
 
-        # ---- compact tokens to (B, T_CAP) --------------------------------
-        # the first T_CAP tokens of each chunk in order, then the EOB
-        # (literal-field 256) at min(M, T_CAP-1), then pads of 511
-        rank = torch.cumsum(starts, 1) - 1
-        M = starts.sum(1)
-        pay = (
-            litlen
-            | ((dist > 0).to(torch.int32) << 9)
-            | (torch.clamp(dist - 1, 0, WINDOW_SIZE - 1) << 10)
-        )
-        rows = torch.arange(B, **i64)[:, None] * T_CAP
-        slot = torch.where(starts & (rank < T_CAP), rows + rank, B * T_CAP)
-        tok = torch.full((B * T_CAP + 1,), 511, dtype=torch.int32, device=dev)
-        tok.scatter_(0, slot.reshape(-1), pay.reshape(-1))  # the last slot collects the rest
-        tok = tok[:-1].reshape(B, T_CAP)
-        eob_at = torch.clamp(M, max=T_CAP - 1)
-        tok.scatter_(1, eob_at[:, None], 256)
-        ok = (M + 1 < T_CAP).to(torch.int32)
-        if stage == "compact":
-            return tok, M.to(torch.int32), ok
+            # ---- compact tokens to (B, T_CAP) --------------------------------
+            # the first T_CAP tokens of each chunk in order, then the EOB
+            # (literal-field 256) at min(M, T_CAP-1), then pads of 511
+            rank = torch.cumsum(starts, 1) - 1
+            M = starts.sum(1)
+            pay = (
+                litlen
+                | ((dist > 0).to(torch.int32) << 9)
+                | (torch.clamp(dist - 1, 0, WINDOW_SIZE - 1) << 10)
+            )
+            rows = torch.arange(B, **i64)[:, None] * T_CAP
+            slot = torch.where(starts & (rank < T_CAP), rows + rank, B * T_CAP)
+            tok = torch.full((B * T_CAP + 1,), 511, dtype=torch.int32, device=dev)
+            tok.scatter_(0, slot.reshape(-1), pay.reshape(-1))  # the last slot collects the rest
+            tok = tok[:-1].reshape(B, T_CAP)
+            eob_at = torch.clamp(M, max=T_CAP - 1)
+            tok.scatter_(1, eob_at[:, None], 256)
+            ok = (M + 1 < T_CAP).to(torch.int32)
+            if stage == "compact":
+                return tok, M.to(torch.int32), ok
 
-        # ---- histograms --------------------------------------------------
-        tlit = tok & 0x1FF
-        tmatch = (tok >> 9) & 1
-        tdist = ((tok >> 10) + 1) * tmatch
-        lsym, _, _, dsym, _, _ = sym_fields_v2(tlit, tdist, tmatch == 1)
-        lcount = (tlit != 511) & (lsym < NUM_LIT)
-        lit_freq = torch.zeros(B, NUM_LIT, **i64).scatter_add_(
-            1, torch.where(lcount, lsym, 0).to(torch.int64), lcount.to(torch.int64))
-        dcount = (tmatch == 1) & (dsym < NUM_DIST)
-        dist_freq = torch.zeros(B, NUM_DIST, **i64).scatter_add_(
-            1, torch.where(dcount, dsym, 0).to(torch.int64), dcount.to(torch.int64))
+        with trace.timed_stage("deflate.encode.trees", nbytes):
+            # ---- histograms --------------------------------------------------
+            tlit = tok & 0x1FF
+            tmatch = (tok >> 9) & 1
+            tdist = ((tok >> 10) + 1) * tmatch
+            lsym, _, _, dsym, _, _ = sym_fields_v2(tlit, tdist, tmatch == 1)
+            lcount = (tlit != 511) & (lsym < NUM_LIT)
+            lit_freq = torch.zeros(B, NUM_LIT, **i64).scatter_add_(
+                1, torch.where(lcount, lsym, 0).to(torch.int64), lcount.to(torch.int64))
+            dcount = (tmatch == 1) & (dsym < NUM_DIST)
+            dist_freq = torch.zeros(B, NUM_DIST, **i64).scatter_add_(
+                1, torch.where(dcount, dsym, 0).to(torch.int64), dcount.to(torch.int64))
 
-        # ---- trees: one combined (2B, 286) package-merge, the distance
-        # rows zero-padded so the force-two rule sees the same width ------
-        both = torch.cat([lit_freq, torch.nn.functional.pad(dist_freq, (0, NUM_LIT - NUM_DIST))], 0)
-        lens = package_merge_device(both, 15)
-        codes = canonical_codes_device(lens)
-        ll, dl = lens[:B], lens[B:, :NUM_DIST]
-        lcodes, dcodes = codes[:B], codes[B:, :NUM_DIST]
-        if stage == "trees":
-            return ll, dl, lcodes, dcodes
+            # ---- trees: one combined (2B, 286) package-merge, the distance
+            # rows zero-padded so the force-two rule sees the same width ------
+            both = torch.cat([lit_freq, torch.nn.functional.pad(dist_freq, (0, NUM_LIT - NUM_DIST))], 0)
+            lens = package_merge_device(both, 15)
+            codes = canonical_codes_device(lens)
+            ll, dl = lens[:B], lens[B:, :NUM_DIST]
+            lcodes, dcodes = codes[:B], codes[B:, :NUM_DIST]
+            if stage == "trees":
+                return ll, dl, lcodes, dcodes
 
-        # ---- dynamic header fields with RLE (per chunk) ------------------
-        # the code-length sequence is RLE'd with symbols 16/17/18; runs
-        # never cross the lit/dist tree boundary
-        v = torch.cat([ll, dl], 1).to(torch.int64)  # (B, 316)
-        P = NUM_LIT + NUM_DIST
-        pidx = torch.arange(P, **i64)[None, :]
-        prev = torch.cat([torch.full((B, 1), -1, **i64), v[:, :-1]], 1)
-        change = (v != prev) | (pidx == 0) | (pidx == NUM_LIT)
-        run_start = torch.cummax(torch.where(change, pidx, -1), 1).values
-        nxt = torch.cummin(torch.where(change, pidx, P).flip(1), 1).values.flip(1)
-        next_change = torch.cat([nxt[:, 1:], torch.full((B, 1), P, **i64)], 1)
-        L = next_change - run_start
-        j = pidx - run_start
-        # zero runs: k full 18x138 pieces, then 18/17/plain by remainder
-        kz = L // 138
-        rz = L % 138
-        n18 = kz + (rz >= 11).to(torch.int64)
-        is18 = (v == 0) & (j % 138 == 0) & (j // 138 < n18)
-        size18 = torch.clamp(L - j, max=138)
-        is17 = (v == 0) & (rz >= 3) & (rz <= 10) & (j == kz * 138)
-        isp0 = (v == 0) & (rz >= 1) & (rz <= 2) & (j >= kz * 138)
-        # nonzero runs: the first emits the value, the rest are covered by 16s
-        m = L - 1
-        k6 = m // 6
-        r6 = m % 6
-        n16 = k6 + (r6 >= 3).to(torch.int64)
-        j1 = j - 1
-        is16 = (v != 0) & (j >= 1) & (j1 % 6 == 0) & (j1 // 6 < n16)
-        size16 = torch.clamp(m - j1, max=6)
-        ispv = (v != 0) & ((j == 0) | ((j >= 1) & (r6 >= 1) & (r6 <= 2) & (j1 >= k6 * 6)))
-        emit = is18 | is17 | is16 | isp0 | ispv
-        sym = torch.where(is18, 18, torch.where(is17, 17, torch.where(is16, 16, torch.where(isp0, 0, v))))
-        extra_bits = torch.where(is18, 7, torch.where(is17, 3, torch.where(is16, 2, 0)))
-        extra_val = torch.where(
-            is18, size18 - 11, torch.where(is17, rz - 3, torch.where(is16, size16 - 3, 0)))
+            # ---- dynamic header fields with RLE (per chunk) ------------------
+            # the code-length sequence is RLE'd with symbols 16/17/18; runs
+            # never cross the lit/dist tree boundary
+            v = torch.cat([ll, dl], 1).to(torch.int64)  # (B, 316)
+            P = NUM_LIT + NUM_DIST
+            pidx = torch.arange(P, **i64)[None, :]
+            prev = torch.cat([torch.full((B, 1), -1, **i64), v[:, :-1]], 1)
+            change = (v != prev) | (pidx == 0) | (pidx == NUM_LIT)
+            run_start = torch.cummax(torch.where(change, pidx, -1), 1).values
+            nxt = torch.cummin(torch.where(change, pidx, P).flip(1), 1).values.flip(1)
+            next_change = torch.cat([nxt[:, 1:], torch.full((B, 1), P, **i64)], 1)
+            L = next_change - run_start
+            j = pidx - run_start
+            # zero runs: k full 18x138 pieces, then 18/17/plain by remainder
+            kz = L // 138
+            rz = L % 138
+            n18 = kz + (rz >= 11).to(torch.int64)
+            is18 = (v == 0) & (j % 138 == 0) & (j // 138 < n18)
+            size18 = torch.clamp(L - j, max=138)
+            is17 = (v == 0) & (rz >= 3) & (rz <= 10) & (j == kz * 138)
+            isp0 = (v == 0) & (rz >= 1) & (rz <= 2) & (j >= kz * 138)
+            # nonzero runs: the first emits the value, the rest are covered by 16s
+            m = L - 1
+            k6 = m // 6
+            r6 = m % 6
+            n16 = k6 + (r6 >= 3).to(torch.int64)
+            j1 = j - 1
+            is16 = (v != 0) & (j >= 1) & (j1 % 6 == 0) & (j1 // 6 < n16)
+            size16 = torch.clamp(m - j1, max=6)
+            ispv = (v != 0) & ((j == 0) | ((j >= 1) & (r6 >= 1) & (r6 <= 2) & (j1 >= k6 * 6)))
+            emit = is18 | is17 | is16 | isp0 | ispv
+            sym = torch.where(is18, 18, torch.where(is17, 17,
+                              torch.where(is16, 16, torch.where(isp0, 0, v))))
+            extra_bits = torch.where(is18, 7, torch.where(is17, 3, torch.where(is16, 2, 0)))
+            extra_val = torch.where(
+                is18, size18 - 11, torch.where(is17, rz - 3, torch.where(is16, size16 - 3, 0)))
 
-        sym_c = torch.where(emit, sym, 0)
-        cl_freq = torch.zeros(B, 19, **i64).scatter_add_(1, sym_c, emit.to(torch.int64))
-        cl_len = package_merge_device(cl_freq, 7).to(torch.int64)
-        cl_codes = canonical_codes_device(cl_len)
-        fbits = cl_len.gather(1, sym_c)
-        fval = cl_codes.gather(1, sym_c) | (extra_val << fbits)
-        hdr_vals = torch.cat([
-            _const_rows((29, 29, 15), B, **i64),  # HLIT, HDIST, HCLEN
-            torch.stack([cl_len[:, i] for i in CLC_ORDER], 1),
-            torch.where(emit, fval, 0),
-        ], 1)  # (B, 338)
-        hdr_bits = torch.cat([
-            _const_rows((5, 5, 4), B, **i64),
-            torch.full((B, 19), 3, **i64),
-            torch.where(emit, fbits + extra_bits, 0),
-        ], 1)
-        if stage == "header":
-            return hdr_vals, hdr_bits, ok
+            sym_c = torch.where(emit, sym, 0)
+            cl_freq = torch.zeros(B, 19, **i64).scatter_add_(1, sym_c, emit.to(torch.int64))
+            cl_len = package_merge_device(cl_freq, 7).to(torch.int64)
+            cl_codes = canonical_codes_device(cl_len)
+            fbits = cl_len.gather(1, sym_c)
+            fval = cl_codes.gather(1, sym_c) | (extra_val << fbits)
+            hdr_vals = torch.cat([
+                _const_rows((29, 29, 15), B, **i64),  # HLIT, HDIST, HCLEN
+                torch.stack([cl_len[:, i] for i in CLC_ORDER], 1),
+                torch.where(emit, fval, 0),
+            ], 1)  # (B, 338)
+            hdr_bits = torch.cat([
+                _const_rows((5, 5, 4), B, **i64),
+                torch.full((B, 19), 3, **i64),
+                torch.where(emit, fbits + extra_bits, 0),
+            ], 1)
+            if stage == "header":
+                return hdr_vals, hdr_bits, ok
 
-        # ---- per-token fields and the bit pack (kernel) -----------------
-        tables = (tok, lcodes.to(torch.int32), ll, dcodes.to(torch.int32).contiguous(),
-                  dl.contiguous())
-        if stage == "fields":
-            lo_t, hi_t, nb_t = pack_fields_plain(*tables)
-            return lo_t.to(torch.int64) & _M32, hi_t.to(torch.int64) & _M32, nb_t
-        words, total_bits = pack_words(*tables, eob_at, hdr_vals, hdr_bits, lasts, out_words)
-        ok = ok & (total_bits <= out_words * 32 - 64).to(torch.int32)
-        return words, total_bits.to(torch.int32), ok
+        with trace.timed_stage("deflate.encode.pack", nbytes):
+            # ---- per-token fields and the bit pack (kernel) -----------------
+            tables = (tok, lcodes.to(torch.int32), ll, dcodes.to(torch.int32).contiguous(),
+                      dl.contiguous())
+            if stage == "fields":
+                lo_t, hi_t, nb_t = pack_fields_plain(*tables)
+                return lo_t.to(torch.int64) & _M32, hi_t.to(torch.int64) & _M32, nb_t
+            words, total_bits = pack_words(*tables, eob_at, hdr_vals, hdr_bits, lasts, out_words)
+            ok = ok & (total_bits <= out_words * 32 - 64).to(torch.int32)
+            return words, total_bits.to(torch.int32), ok
 
     return encode
 
@@ -565,20 +587,23 @@ def deflate_device_v3(data: np.ndarray, level: int = 6, chunk: int = 1 << 18,
         group = range(g, min(g + batch, nchunks))
         nin = min(g * chunk + len(group) * chunk, n) - g * chunk
         with trace.timed_stage("deflate.layout", nin):
-            args = [torch.from_numpy(a).to(device) for a in batch_arrays(data, group, chunk, batch)]
+            host = batch_arrays(data, group, chunk, batch)
+            args = [torch.from_numpy(a).to(device) for a in host]
+            trace.count_copy("h2d", device, host)
         with trace.timed_stage("deflate.encode_batch", nin):
-            results.append((group, nin, enc(*args)))
+            results.append((group, nin, enc(*args, nbytes=nin)))
 
     sink = BitSink()
     for group, nin, res in results:
-        with trace.timed_stage("deflate.pull", sum(t.numel() * t.element_size() for t in res)):
+        with trace.timed_stage("deflate.pull", res):
             words, total_bits, ok = (t.cpu().numpy() for t in res)
+            trace.count_copy("d2h", device, res)
         with trace.timed_stage("deflate.join", nin):
             for bi, ci in enumerate(group):
                 lo, hi = ci * chunk, min(ci * chunk + chunk, n)
                 _push_chunk(sink, words[bi], total_bits[bi], ok[bi], data[lo:hi],
                             ci == nchunks - 1, 3 + 32)
-    with trace.timed_stage("deflate.join"):
+    with trace.timed_stage("deflate.join"), trace.timed_stage("deflate.flush", n):
         out, _, _ = sink.flush(final=True)
     return out
 

@@ -16,7 +16,9 @@ eob_idx is the row of the cursor's first flagged EOB, or -1.
 
 It runs in two steps: `prepare` builds the per-block count tables on the
 host and moves them and the stream words to `device`; `cursor_decode`
-runs the decode.  On CUDA tensors that launches the two kernels of
+runs the decode.  The uploads, and the read of the highest slice start
+in the decode's check, count as copy.h2d_bytes and copy.d2h_bytes while
+the telemetry is on.  On CUDA tensors that launches the two kernels of
 csrc/inflate_decode.cu: `inflate_lut` (decode_luts) builds each block's
 primary lookup tables on the card, then `inflate_decode` decodes; on CPU
 tensors it runs the plain torch version, cursor_tokenize_plain.  The
@@ -33,6 +35,7 @@ import torch
 
 from ..codec import huffman
 from ..codec.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
+from ..utils import trace
 from . import _build
 from .deflate_device3 import _as_i32
 
@@ -209,7 +212,9 @@ def prepare(buf: np.ndarray, starts, stops_dec, block_of, plan, stride_bits: int
     tabs, lents, dents = block_tables(plan)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+        a = np.ascontiguousarray(a).view(np.int32)
+        trace.count_copy("h2d", device, a)
+        return torch.from_numpy(a).to(device)
 
     return DecodeArgs(put(wbuf.view("<u4")), put(cur.astype(np.int32)), put(tabs), put(lents),
                       put(dents), nwp, int(cap))
@@ -245,7 +250,11 @@ def _check_tables(a: DecodeArgs) -> int:
 def _check_slices(a: DecodeArgs) -> None:
     """Raise unless every cursor's slice lies inside the stream words (a
     reduction read back to the host: it waits for the card)."""
-    if a.cur.shape[1] and int(a.cur[C_SWSTART].max()) + a.nwp > a.words.numel():
+    if not a.cur.shape[1]:
+        return
+    top = a.cur[C_SWSTART].max()
+    trace.count_copy("d2h", top.device, top)
+    if int(top) + a.nwp > a.words.numel():
         raise ValueError("inflate_decode: a cursor's slice runs past the stream words")
 
 

@@ -50,7 +50,10 @@ the gap walk added host-decoded tokens (they are packed and spliced into
 the tape there), where tpuzlib expands on the host.
 
 Telemetry (utils/trace.py): decode_stream runs its pieces as stages named
-after tpuzlib's `_tick` keys: inflate.plan, inflate.tokenize_dispatch
+after tpuzlib's `_tick` keys: inflate.plan (the full-stream header scan
+inside it as the port's stage inflate.plan.scan, and the blocks planned
+counted as inflate.plan_blocks while the telemetry is on),
+inflate.tokenize_dispatch
 (tables, upload and the decode launches), inflate.pre_splice,
 inflate.splice_pull (the meta read), inflate.repair_walk and
 inflate.compact (where the repair runs), inflate.token_splice (the gap
@@ -60,7 +63,8 @@ tpuzlib's `last_stage_ms` and its TPUZLIB_TIME_INFLATE print have no
 counterpart: these stages in the telemetry take their place.  The
 counters inflate.splice_repair, inflate.repair_bridge (bridges decoded)
 and inflate.repair_cap_exceeded (a repair cap declined the stream) are
-tpuzlib's.
+tpuzlib's; the host<->card copies of the decode, its splice and its
+repair count as copy.h2d_bytes and copy.d2h_bytes.
 """
 
 from __future__ import annotations
@@ -254,7 +258,9 @@ def _plan_blocks(buf: np.ndarray):
             blocks.append(Block(header_bit, data_start, avail_bits, True, False, False, lens_info))
             break
         if headers is None:
-            headers = find_all_block_starts(buf, from_bit=(data_start >> 3) * 8, allow_final=True)
+            with trace.timed_stage("inflate.plan.scan", buf):
+                headers = find_all_block_starts(buf, from_bit=(data_start >> 3) * 8,
+                                                allow_final=True)
         hi = bisect.bisect_right(headers, data_start)
         nxt = headers[hi] if hi < len(headers) else None
         if nxt is None or nxt <= data_start:
@@ -272,6 +278,8 @@ def _cursor_plan(buf: np.ndarray, stride_bits: int, max_cursors: int):
     plan = _plan_blocks(buf)
     if plan is None:
         return None
+    if trace.telemetry_enabled():
+        trace.count("inflate.plan_blocks", len(plan))
     starts, stops, block_of = [], [], []
     first, last, bstart, stored = [], [], [], []
     for b, p in enumerate(plan):
@@ -436,9 +444,11 @@ def splice_compact(toks, stops, block_starts, is_block_first, is_block_last, exp
     K = cnt.numel()
     CAP = tok_pack.numel() // K
     dev = tok_pack.device
+    host = [np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v
+            for v in (stops, block_starts, is_block_first, is_block_last, expect_eob, active)]
+    trace.count_copy("h2d", dev, [v for v in host if isinstance(v, np.ndarray)])
     stops, block_starts, is_block_first, is_block_last, expect_eob, active = (
-        torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v, device=dev)
-        for v in (stops, block_starts, is_block_first, is_block_last, expect_eob, active))
+        torch.as_tensor(v, device=dev) for v in host)
     i32 = torch.int32
     bp2 = tok_bp.view(K, CAP)
     # candidate cuts: cursor k's recorded starts >= stop_k
@@ -567,6 +577,7 @@ def flagged_rows(tok_pack: torch.Tensor, Kpad: int) -> dict:
     """cursor -> sorted rows of its flagged EOB tokens (bit 26), for the
     cursors that have any."""
     nz = ((tok_pack.view(Kpad, -1) >> 26) & 1).nonzero().cpu().numpy()
+    trace.count_copy("d2h", tok_pack.device, nz)
     out: dict[int, np.ndarray] = {}
     if len(nz):
         ks, at = np.unique(nz[:, 0], return_index=True)
@@ -610,7 +621,10 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
     RG = 16  # rows per lazy pull
 
     def pull(idxs):
-        rows = rows2[torch.as_tensor(idxs, device=rows2.device)].cpu().numpy()
+        at = torch.as_tensor(idxs, device=rows2.device)
+        rows = rows2[at].cpu().numpy()
+        trace.count_copy("h2d", at.device, at)
+        trace.count_copy("d2h", at.device, rows)
         for i, kk in enumerate(idxs):
             row_cache[int(kk)] = rows[i]
 
@@ -1003,11 +1017,12 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
             toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))
         else:
             toks = mesh_decode(lay.decode_args(buf, mesh.device), mesh)
-    with trace.timed_stage("inflate.pre_splice", _nbytes(toks)):
+    with trace.timed_stage("inflate.pre_splice", toks):
         meta, comp, _ = splice_compact(toks, lay.stops, lay.bstart, lay.first, lay.last,
                                        lay.expect_eob, lay.active)
-    with trace.timed_stage("inflate.splice_pull", _nbytes(meta)):
+    with trace.timed_stage("inflate.splice_pull", meta):
         meta_np = meta.cpu().numpy()
+        trace.count_copy("d2h", meta.device, meta)
     M = int(meta_np[1])
     kcnt_np = _meta_vec(meta_np, lay.Kpad, META_KCNT)[: lay.K]
     repair = None
@@ -1019,12 +1034,14 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
                 bridge_chunk=bridge_chunk, max_bridges=max_bridges,
                 max_row_batches=max_row_batches)
         trace.count("inflate.splice_repair")
-        with trace.timed_stage("inflate.compact", _nbytes(tok_pack)):
-            M_r, comp, kcnt = compact_bounds(tok_pack,
-                                             torch.from_numpy(keep_lo).to(tok_pack.device),
-                                             torch.from_numpy(keep_hi).to(tok_pack.device))
+        with trace.timed_stage("inflate.compact", tok_pack):
+            dev = tok_pack.device
+            M_r, comp, kcnt = compact_bounds(tok_pack, torch.from_numpy(keep_lo).to(dev),
+                                             torch.from_numpy(keep_hi).to(dev))
+            trace.count_copy("h2d", dev, keep_lo, keep_hi)
             M = int(M_r)
             kcnt_np = kcnt.cpu().numpy()[: lay.K]
+            trace.count_copy("d2h", dev, M_r, kcnt)
     else:
         block_end_bits = fast_block_ends(lay, meta_np)
     with trace.timed_stage("inflate.token_splice", n_in):
@@ -1036,6 +1053,7 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
     if not device_expand:
         with trace.timed_stage("inflate.comp_pull", 4 * M):
             comph = comp[:M].cpu().numpy().view(np.uint32)
+            trace.count_copy("d2h", comp.device, comph)
         with trace.timed_stage("inflate.host_expand", 4 * M):
             return expand_host(*host_tokens(comph, pieces), window), end
     with trace.timed_stage("inflate.device_expand", 4 * M):
@@ -1044,13 +1062,6 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
         win[WINDOW - len(window):] = window
         return device_expand_all(tape, n, torch.from_numpy(win).to(comp.device),
                                  size_hint or 8 * len(buf) + (1 << 16)), end
-
-
-def _nbytes(x) -> int:
-    """Bytes of a tensor, or of a tuple of them."""
-    if torch.is_tensor(x):
-        return x.numel() * x.element_size()
-    return sum(_nbytes(t) for t in x)
 
 
 def mesh_decode(a: inflate_cuda.DecodeArgs, mesh):

@@ -1,0 +1,9 @@
+"""match_ms_per_MiB.deflate: host ms of the port's deflate.encode.match
+stage (the encoder's batch layout and match search, enqueued) per MiB of
+input."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.stage_ms_per_MiB(run, "deflate", "deflate.encode.match", "in")

@@ -1,0 +1,8 @@
+"""pack_ms_per_MiB.deflate: host ms of the port's deflate.encode.pack
+stage (pack_words and the final ok, enqueued) per MiB of input."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.stage_ms_per_MiB(run, "deflate", "deflate.encode.pack", "in")

@@ -1,0 +1,9 @@
+"""parse_ms_per_MiB.deflate: host ms of the port's deflate.encode.parse
+stage (the lazy rule, the segment parse and the token compaction,
+enqueued) per MiB of input."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.stage_ms_per_MiB(run, "deflate", "deflate.encode.parse", "in")
