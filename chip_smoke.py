@@ -47,7 +47,14 @@ tpuzlib_torch/kernels/csrc, then:
      plain versions (exact: the lookup tables, and all six outputs of the
      decode) at the shapes of the 32 MiB corpus compressed by python zlib
      at level 6, times the decode at 32, 64 and 128 threads a block, and
-     counts the tape's symbols whose codes the lookup tables miss; G2 runs
+     counts the tape's symbols whose codes the lookup tables miss; G1 scan
+     holds the plan's header scan (header_filter and header_parse, one
+     tz_header_scan call) on that stream's words as its plan uploads them:
+     the filter's survivors and the parse's positions exactly the plain
+     version's, each kernel's time (the call's, split by the kernels'
+     device times in torch.profiler) and its own bound
+     (header_scan.bounds_ms: operations at INT32_RATE, and for the parse
+     also the longest header's chain of dependent operations); G2 runs
      tpuzlib_torch.inflate on zlib levels 6 (32 MiB), 1 and 9 (8 MiB),
      C's 32 MiB gzip, fixed blocks, sync-flush markers and 8 MiB of text,
      whose splice must validate with no repair, then inflate_device_v2
@@ -57,12 +64,14 @@ tpuzlib_torch/kernels/csrc, then:
      the host engine, but for a raw stream and a zlib stream under 256
      KiB (512 KiB of the text), which inflate()'s route rule keeps on the
      host route: their device counters must not move (the raw stream's
-     device decode is held by the v2 rows) (the decode's two launch
-     counts are taken over G2); the census
+     device decode is held by the v2 rows) (the launch counts of the
+     decode's two kernels and of the header scan's two are taken over
+     G2); the census
      lines say, per stream, whether its splice validates under the port's
      rule (any kept flagged EOB declines), under tpuzlib's (only each
      cursor's first flag) and with no flag at all; G3 times the level-6
-     decode's pieces apart, both expansions included;
+     decode's pieces apart, both expansions included, its plan with the
+     card's header scan;
   H  holds the CRC probe kernels (the read floor crc_rowsum, the bit
      unpack crc_unpack in u8, i32 and bf16, the GF(2) product gf2_bits_mm
      on 8 MiB of bits unpacked beforehand (a wgmma kernel fed by TMA, K
@@ -206,7 +215,8 @@ tpuzlib_torch/kernels/csrc, then:
      level and the host's core count; O2 deflate() of the 8 MiB on the
      card, decoded by zlib, the encoder's four kernels launched and one
      checksum scalar; O3 inflate() on the card of zlib's level-6 stream
-     of it, equal bytes, inflate_decode launched, every byte from the
+     of it, equal bytes, inflate_decode and the header scan's filter
+     launched (the card scans without the native library), every byte from the
      device route with no fallback (a splice repair bridges with the
      vectorized decoder), the counters and each stage's host seconds
      (the telemetry on for this call) printed; O4 crc32_host and
@@ -264,6 +274,7 @@ BF16_RATE, INT8_RATE = 989.4e12, 1978.9e12
 # cycles a second that size torch.cuda._sleep: the H100's top SM clock
 SLEEP_HZ = 1.98e9
 SMS = 132  # the H100 SXM's streaming multiprocessors
+INT32_RATE = SMS * 64 * SLEEP_HZ  # integer operations/s: 64 INT32 lanes an SM
 # the (B, tile) pairs the CRC probes run (tools/probe_crc.py, probe_crc3.py)
 FORM_PAIRS = ((1024, 256), (4096, 256), (4096, 512), (1024, 1024))
 # kernels held to their plain versions that no main path launches, and why
@@ -751,7 +762,7 @@ def phase_g1(raw6: np.ndarray) -> dict:
     of its cursors' chains, and how often the tables miss."""
     from tpuzlib_torch.kernels import inflate_cuda as ic, inflate_device2 as d2
 
-    lay = d2.plan_cursors(raw6)
+    lay = d2.plan_cursors(raw6, device=DEVICE)
     args = lay.decode_args(raw6, DEVICE)
     emit({"phase": "G1", "compressed_bytes": len(raw6), "K": lay.K, "Kpad": lay.Kpad,
           "cap": lay.cap, "nwp": args.nwp, "stride_bits": lay.stride_bits,
@@ -782,6 +793,77 @@ def phase_g1(raw6: np.ndarray) -> dict:
           "mean": float(cnt.float().mean()),
           "ns_per_symbol_of_longest": rows["inflate_decode"]["ms"] * 1e6 / longest,
           **lut_misses(args, luts, ref)})
+    return rows
+
+
+def phase_g1_scan(raw6: np.ndarray) -> dict:
+    """The header scan's two kernels (one tz_header_scan call) on the
+    stream words of G2's main-path stream (the level-6 32 MiB stream's
+    payload) as its plan uploads them: the filter's survivors (all pass
+    the plain filter, and as many) and the parse's positions equal the
+    plain version's on the same tensors; the call's time by CUDA events
+    and queued behind a sleep, split between the kernels by their device
+    times in torch.profiler; each kernel's bound (header_scan.bounds_ms of
+    the plain version's counts, at MEM_RATE and INT32_RATE)."""
+    from tpuzlib_torch.kernels import _build, header_scan as hs, inflate_device2 as d2
+
+    lay = d2.plan_cursors(raw6, device=DEVICE)
+    words, nbits = lay.words, 8 * len(raw6)
+    from_bit = (lay.plan[0].data_start >> 3) * 8
+    work = hs.work_plain(words, nbits, from_bit)
+    cap = work["survivors"]
+    cand = torch.empty(cap, dtype=torch.int32, device=DEVICE)
+    res = torch.empty(2 + cap, dtype=torch.int32, device=DEVICE)
+
+    def call():
+        _build.launch(("header_filter", "header_parse"), "tz_header_scan", words.device,
+                      words.data_ptr(), words.numel(), nbits, from_bit, 1, cand.data_ptr(), cap,
+                      res.data_ptr())
+
+    call()
+    torch.cuda.synchronize()
+    n_filter, n_parse = int(res[0]), int(res[1])
+    filtered = cand[: min(n_filter, cap)].long().sort().values
+    passed = np.sort(res[2: 2 + n_parse].cpu().numpy().astype(np.int64))
+    plain_t0 = time.perf_counter()
+    want = hs.candidates_plain(words, nbits, from_bit)
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    errs = {"header_filter": abs(n_filter - cap) + len(filtered) - len(
+                hs._filter_plain(hs._windows(words), filtered, True)),
+            "header_parse": int(len(passed) != len(want) or not np.array_equal(passed, want))}
+    errs["header_parse"] |= int(not np.array_equal(hs.candidates(words, nbits, from_bit), want))
+    call_ms, call_device_ms = cuda_ms(call), device_ms(call)
+    kernel_ms = {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        for name in errs:
+            if name + "_kernel" in ev.key:
+                t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+                kernel_ms[name] = t / 1e3 / max(1, ev.count)
+    if set(kernel_ms) != set(errs) or not all(kernel_ms.values()):
+        raise SystemExit("phase G1 scan: torch.profiler timed no %s kernel"
+                         % ", ".join(sorted(set(errs) - set(kernel_ms))))
+    bounds = hs.bounds_ms(work, MEM_RATE, INT32_RATE, SLEEP_HZ)
+    src = "tpuzlib_torch/kernels/csrc/header_scan.cu"
+    rows = {}
+    for name, err in errs.items():
+        share = kernel_ms[name] / sum(kernel_ms.values())
+        bound_ms, bound_by = bounds[name]
+        ms, dev_ms = share * call_ms, share * call_device_ms
+        rows[name] = dict(name=name, route="cuda", source=src, replaces=None, launches=None,
+                          max_abs_err=err, ms=ms, device_ms=dev_ms, profiler_ms=kernel_ms[name],
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None, pct_of_bound=100 * bound_ms / ms,
+                          device_pct_of_bound=100 * bound_ms / dev_ms)
+        emit({"phase": "G1 scan", **rows[name]})
+    emit({"phase": "G1 scan", "stream_bytes": len(raw6), "from_bit": from_bit, "work": work,
+          "call_ms": call_ms, "call_device_ms": call_device_ms, "headers": len(want)})
+    if any(errs.values()):
+        raise SystemExit("phase G1 scan: %s differs from its plain version"
+                         % ", ".join(k for k, v in errs.items() if v))
     return rows
 
 
@@ -830,7 +912,7 @@ def flag_census(raw: np.ndarray, device=DEVICE) -> dict:
     keep their first flag, or any flag."""
     from tpuzlib_torch.kernels import inflate_cuda, inflate_device2 as d2
 
-    lay = d2.plan_cursors(raw)
+    lay = d2.plan_cursors(raw, device=device)
     toks = inflate_cuda.cursor_decode(lay.decode_args(raw, device))
     vecs = (lay.stops, lay.bstart, lay.first, lay.last, lay.expect_eob, lay.active)
     tok2 = toks[0].view(lay.Kpad, lay.cap)
@@ -982,7 +1064,8 @@ def phase_g3(corpus, raw6: np.ndarray, reps: int = 3) -> None:
         return out
 
     for _ in range(reps):
-        lay = piece("plan (header scan + block loop)", lambda: d2.plan_cursors(raw6))
+        lay = piece("plan (words H2D, card header scan + block loop)",
+                    lambda: d2.plan_cursors(raw6, device=DEVICE))
         args = piece("tables + H2D", lambda: lay.decode_args(raw6, DEVICE))
         toks = piece("decode kernel", lambda: inflate_cuda.cursor_decode(args))
         meta, comp, _ = piece("splice", lambda: d2.splice_compact(
@@ -2098,7 +2181,8 @@ def phase_o(corpus, smi: str) -> dict:
         # the device route gave every byte (a splice repair bridges with
         # the vectorized decoder): no fallback to the host route
         routed = moved.get("inflate.device", 0) == len(raw) and not any(fallbacks.values())
-        ok = out.tobytes() == raw and o3.get("inflate_decode", 0) > 0 and routed
+        ok = (out.tobytes() == raw and o3.get("inflate_decode", 0) > 0
+              and o3.get("header_filter", 0) > 0 and routed)
         emit({"phase": "O3", "card": smi, "ncores": ncores, "bytes_in": len(z),
               "bytes_out": len(raw), "s": dt, "MBps": len(raw) / dt / 1e6, "counts": moved,
               "fallbacks": fallbacks, "launches": o3, "stage_s": stages, "ok": ok})
@@ -2167,10 +2251,11 @@ def main() -> int:
     z6 = testing.zlib_stream(corpus, 6)
     raw6 = np.frombuffer(z6, np.uint8)[2:-4]
     rows.update(phase_g1(raw6))
+    rows.update(phase_g1_scan(raw6))
     _build.reset_launches()
     payload = phase_g2(corpus, z6, gzip32)
     torch.cuda.synchronize()
-    for k in ("inflate_lut", "inflate_decode"):
+    for k in ("inflate_lut", "inflate_decode", "header_filter", "header_parse"):
         launches[k] = _build.LAUNCHES[k]
     for name, raw in payload.items():
         emit({"phase": "G2 census", "stream": name, **flag_census(raw)})

@@ -21,6 +21,7 @@ import torch
 import tpuzlib_torch
 from tpuzlib_torch import testing
 from tpuzlib_torch.kernels import deflate_device3 as d3
+from tpuzlib_torch.kernels import header_scan as HS
 from tpuzlib_torch.kernels import inflate_device2 as d2
 from tpuzlib_torch.utils import trace
 
@@ -133,7 +134,9 @@ def test_copy_counters_of_deflate_and_inflate(dev):
     Adler-32, and reads back the words (int64), the bits and ok (int32)
     and the 8-byte Adler-32; inflate() uploads the decode's inputs, the
     splice's cursor arrays and the output for the Adler-32, and reads back the highest slice start
-    (int32), the splice's meta, the kept tokens and the Adler-32."""
+    (int32), the splice's meta, the kept tokens and the Adler-32; its plan's
+    header scan runs on the card over the decode's stream words (uploaded
+    once) and reads back its two counts and first positions (int32)."""
     n = 2 << 20
     data = testing.mixed(n, 7)
     wire = tpuzlib_torch.deflate(data, device=dev)
@@ -157,8 +160,10 @@ def test_copy_counters_of_deflate_and_inflate(dev):
     splice = (lay.stops, lay.bstart, lay.first, lay.last, lay.expect_eob, lay.active)
     assert moved["copy.h2d_bytes"] == (trace.size_of((a.words, a.cur, a.tabs, a.lents, a.dents))
                                        + trace.size_of(splice) + n)
+    assert moved["inflate.scan_card"] > 0
+    scan = 4 * (2 + min(HS._first_cap(len(buf) * 8), HS.HEAD))
     assert moved["copy.d2h_bytes"] == (4 + t["inflate.splice_pull"]["bytes"]
-                                       + t["inflate.comp_pull"]["bytes"] + 8)
+                                       + t["inflate.comp_pull"]["bytes"] + 8 + scan)
 
 
 def test_copy_counters_of_crc32(dev):

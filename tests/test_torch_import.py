@@ -247,7 +247,7 @@ def test_wrappers_refuse_other_devices():
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
                                     "crc32_forms", "crc32_spans", "crc32_scalar", "adler32",
                                     "adler32_scalar", "inflate_lut", "inflate_decode",
-                                    "crc_rowsum", "crc_unpack_u8", "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
+                                    "header_filter", "header_parse", "crc_rowsum", "crc_unpack_u8", "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
                                     "crc_forms_mm_bf16", "crc_forms_mm_i8", "take_along",
                                     "take_along_loop", "flat_gather", "scatter_max",
                                     "shift_screen", "vec_cond_while", "vec_cond_while_regs",
@@ -300,8 +300,8 @@ def test_huffman_and_tokenize_match():
 
 def test_native_library_builds_and_loads():
     lib = bindings.lib()
-    for name in ("tz_find_headers", "tz_tokenize_midblock", "tz_inflate_tokenize",
-                 "tz_expand_tokens", "tz_state_new", "tz_state_free", "tz_inflate_stream",
+    for name in ("tz_find_headers", "tz_confirm_headers", "tz_tokenize_midblock",
+                 "tz_inflate_tokenize", "tz_expand_tokens", "tz_state_new", "tz_state_free", "tz_inflate_stream",
                  "tz_inflate_raw", "tz_adler32", "tz_crc32"):
         assert callable(getattr(lib, name))
     so = bindings.build()

@@ -21,9 +21,11 @@ from tpuzlib.parallel import speculative as jspec
 from tpuzlib_torch import testing
 from tpuzlib_torch.codec import tokenize as tk
 from tpuzlib_torch.codec.expand import expand_host
+from tpuzlib_torch.kernels import header_scan as HS
 from tpuzlib_torch.kernels import inflate_cuda as PC
 from tpuzlib_torch.kernels import inflate_device2 as P
 from tpuzlib_torch.parallel import speculative as pspec
+from tpuzlib_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and their OpenMP threads, one per core each, spin against one another.
@@ -142,6 +144,146 @@ def test_header_scan_matches(name):
         for allow_final in (True, False):
             assert pspec.find_all_block_starts(buf, from_bit, allow_final) == (
                 jspec.find_all_block_starts(buf, from_bit, allow_final))
+
+
+def _scan_streams() -> dict:
+    """Streams for the card's header scan: the plan's zlib streams (levels
+    1, 6, 9, sync flushes, stored blocks), random bytes (~0.09% of their
+    start bits pass the field and Kraft tests, none parses), level-9 text
+    of 27 blocks, that stream cut so its first later header lies 81 bits
+    from the end and one byte closer, and cut 4 bits into that block's
+    data (its header parses, its decode does not confirm it)."""
+    out = {k: STREAMS[k][0] for k in ("L1", "L6", "L9", "sync flush", "stored", "hidden stored")}
+    out["random"] = np.random.default_rng(11).integers(0, 256, 1 << 16, dtype=np.uint8)
+    text = testing.corpus("text", 3 << 19, 12)
+    l9 = np.frombuffer(testing.zlib_stream(text, 9, -15), np.uint8)
+    out["text L9"] = l9
+    h = pspec.find_all_block_starts(l9, 0, True)[0]
+    out["header 81 bits from the end"] = l9[: (h + 81 + 7) // 8]
+    out["header 81 bits from the end, less a byte"] = l9[: (h + 81 + 7) // 8 - 1]
+    data_start = pspec._probe_header(l9, h, len(l9) * 8)[1]
+    out["cut after a header"] = l9[: (data_start + 4 + 7) // 8]
+    return out
+
+
+SCAN_STREAMS = _scan_streams()
+SCAN_CASES = [(name, from_bit, allow_final) for name in sorted(SCAN_STREAMS)
+              for from_bit in (0, 8 * 1000 + 3) for allow_final in (True, False)]
+
+
+def _parsed_headers(buf, from_bit, allow_final):
+    """The native scan's parse of every start bit it tests, [from_bit,
+    nbits - 81]: the field checks, the code-length code's Kraft test and
+    read_dynamic_tables (tz_header_candidates)."""
+    pos = pspec._header_candidates(buf, len(buf) * 8 - 80, allow_final)
+    return pos[pos >= from_bit]
+
+
+@pytest.mark.parametrize("name,from_bit,allow_final", SCAN_CASES)
+def test_card_scan_plain_matches(name, from_bit, allow_final):
+    """The card scan's plain twin (its wrapper on CPU tensors) passes
+    exactly the start bits whose header the native scan's parse accepts,
+    and with the host's confirmation gives find_all_block_starts'
+    positions."""
+    buf = SCAN_STREAMS[name]
+    words = PC.stream_words(buf, STRIDE, 2 * P.OVERLAP, "cpu")
+    cands = HS.candidates(words, len(buf) * 8, from_bit, allow_final)
+    assert cands.dtype == np.int64 and np.array_equal(cands, _parsed_headers(buf, from_bit,
+                                                                             allow_final))
+    want = pspec.find_all_block_starts(buf, from_bit, allow_final)
+    assert HS.block_starts(buf, words, from_bit, allow_final) == want
+    assert set(want) <= set(cands.tolist())
+
+
+@pytest.mark.parametrize("allow_final", [True, False])
+@pytest.mark.parametrize("name", sorted(SCAN_STREAMS))
+def test_card_scan_plain_matches_without_native(name, allow_final):
+    """With the native library switched off, the card scan's plain twin
+    and the host's python confirmation give the numpy scan's positions
+    (find_all_block_starts' branch without the native library)."""
+    buf = SCAN_STREAMS[name]
+    words = PC.stream_words(buf, STRIDE, 2 * P.OVERLAP, "cpu")
+    from_bit = 8 * 1000 + 3 if name == "random" else 0
+    with testing.no_native():
+        want = pspec.find_all_block_starts(buf, from_bit, allow_final)
+        assert HS.block_starts(buf, words, from_bit, allow_final) == want
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_STREAMS))
+def test_card_scan_work_counts(name):
+    """work_plain counts what the kernels do: every start bit up to 81
+    from the end tested, the filter's survivors and the parse's passes as
+    the plain version finds them, one code-length symbol a survivor at
+    least and HLIT + HDIST (316) a header at most; bounds_ms floors each
+    kernel by what bounds it."""
+    buf = SCAN_STREAMS[name]
+    nbits = len(buf) * 8
+    words = PC.stream_words(buf, STRIDE, 2 * P.OVERLAP, "cpu")
+    work = HS.work_plain(words, nbits)
+    survivors = HS._filter_plain(HS._windows(words), torch.arange(nbits - 80), True)
+    assert work["start_bits"] == nbits - 80
+    assert work["survivors"] == len(survivors) <= work["fields"] <= work["start_bits"]
+    assert work["passes"] == len(HS.candidates(words, nbits))
+    assert work["survivors"] <= work["symbols"] <= 316 * work["survivors"]
+    assert work["longest"] <= 316 and (work["longest"] > 0) == (work["survivors"] > 0)
+    bounds = HS.bounds_ms(work, 3.35e12, 132 * 64 * 1.98e9, 1.98e9)
+    assert bounds["header_filter"][1] in ("bytes", "operations")
+    assert (bounds["header_filter"][0] > 0) == (work["start_bits"] > 0)
+    if work["survivors"]:
+        assert bounds["header_parse"][1] in ("operations", "chain")
+        assert bounds["header_parse"][0] > 0
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_STREAMS))
+def test_card_filter_never_refuses_a_confirmed_header(name):
+    """Every start bit that passes the host scan's field and Kraft tests
+    (the filter's survivors) and that the host's confirmation accepts is
+    among the card scan's candidates: the parse is a necessary condition
+    of the confirmation.  Where the stream is cut after a header, the
+    parse passes a start bit that the confirmation refuses."""
+    buf = SCAN_STREAMS[name]
+    words = PC.stream_words(buf, STRIDE, 2 * P.OVERLAP, "cpu")
+    survivors = HS._filter_plain(HS._windows(words), torch.arange(len(buf) * 8 - 80), True)
+    confirmed = pspec.confirm_block_starts(buf, survivors.numpy())
+    cands = HS.candidates(words, len(buf) * 8, 0, True).tolist()
+    assert set(confirmed) <= set(cands)
+    assert confirmed == pspec.find_all_block_starts(buf, 0, True)
+    if name == "cut after a header":
+        assert len(cands) == len(confirmed) + 1
+
+
+def test_plan_with_the_card_scan(monkeypatch):
+    """plan_cursors with the card's header scan (run here by its plain
+    twin on CPU tensors): the layout of the host scan, the stream words
+    kept for the decode (decode_args hands on the same tensor), the scan
+    counters, and the decode's bytes."""
+    buf, src = STREAMS["L1"]
+    was = trace.telemetry_enabled()
+    trace.enable(True)
+    try:
+        before = trace.get_counters()
+        host = P.plan_cursors(buf, STRIDE, MAXC)
+        moved_host = testing.counters_since(before)
+        monkeypatch.setattr(P, "_scans_on_card", lambda device: True)
+        before = trace.get_counters()
+        card = P.plan_cursors(buf, STRIDE, MAXC, device="cpu")
+        moved_card = testing.counters_since(before)
+    finally:
+        trace.enable(was)
+    assert host.words is None and card.words is not None
+    for key in ("starts", "stops", "stops_dec", "block", "expect_eob"):
+        assert np.array_equal(getattr(card, key), getattr(host, key)), key
+    assert [b.header_bit for b in card.plan] == [b.header_bit for b in host.plan]
+    assert card.decode_args(buf, "cpu").words is card.words
+    assert torch.equal(card.words, PC.stream_words(buf, card.stride_bits, 2 * P.OVERLAP, "cpu"))
+    scanned = len(buf) - (card.plan[0].data_start >> 3)
+    assert moved_host["inflate.scan_host"] == moved_card["inflate.scan_card"] == scanned
+    assert moved_card["inflate.scan_candidates"] == len(card.plan) - 1
+    assert "inflate.scan_card" not in moved_host and "inflate.scan_host" not in moved_card
+    out, end = P.decode_stream(buf, None, STRIDE, MAXC, device="cpu")
+    monkeypatch.undo()
+    assert out.tobytes() == src.tobytes()
+    assert end == P.decode_stream(buf, None, STRIDE, MAXC, device="cpu")[1]
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

@@ -53,6 +53,7 @@ _ARGTYPES = {
     "tz_adler32_scalar": [_P, _L, _L, _L, _L, _P, _P, _U, _P, _P],
     "tz_inflate_lut": [_P, _P, _P, _I, _I, _I, _P, _P],
     "tz_inflate_decode": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tz_header_scan": [_P, _L, _L, _L, _I, _P, _I, _P, _P],
     "tz_crc_rowsum": [_P, _L, _I, _I, _P, _P],
     "tz_crc_forms_mm": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
     "tz_gf2_bits_mm": [_P, _L, _I, _I, _P, _P, _P],
@@ -81,10 +82,12 @@ _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
 # kernel of its own and counts only as adler32_scalar;
 # pack_words' one launch is its two kernels (tile sums, then the words);
 # the probes' unpack counts each mode apart, their forms each dtype;
-# vec_cond_while counts each launch under its route's name as well
+# vec_cond_while counts each launch under its route's name as well;
+# the header scan's one call launches and counts its two kernels
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
             "crc32_forms": 0, "crc32_spans": 0, "crc32_scalar": 0, "adler32": 0,
-            "adler32_scalar": 0, "inflate_lut": 0, "inflate_decode": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
+            "adler32_scalar": 0, "inflate_lut": 0, "inflate_decode": 0, "header_filter": 0,
+            "header_parse": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
             "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,
             "crc_forms_mm_i8": 0, "take_along": 0, "take_along_loop": 0, "flat_gather": 0,
             "scatter_max": 0, "shift_screen": 0, "vec_cond_while": 0, "vec_cond_while_regs": 0,

@@ -15,10 +15,11 @@ unused rows (so a stream must stay below 2^29 bits, as in tpuzlib).
 eob_idx is the row of the cursor's first flagged EOB, or -1.
 
 It runs in two steps: `prepare` builds the per-block count tables on the
-host and moves them and the stream words to `device`; `cursor_decode`
-runs the decode.  The uploads, and the read of the highest slice start
-in the decode's check, count as copy.h2d_bytes and copy.d2h_bytes while
-the telemetry is on.  On CUDA tensors that launches the two kernels of
+host and moves them and the stream words (`stream_words`, unless the
+block planner uploaded them for its header scan) to `device`;
+`cursor_decode` runs the decode.  The uploads, and the read of the
+highest slice start in the decode's check, count as copy.h2d_bytes and
+copy.d2h_bytes while the telemetry is on.  On CUDA tensors that launches the two kernels of
 csrc/inflate_decode.cu: `inflate_lut` (decode_luts) builds each block's
 primary lookup tables on the card, then `inflate_decode` decodes; on CPU
 tensors it runs the plain torch version, cursor_tokenize_plain.  The
@@ -184,20 +185,43 @@ def block_tables(plan):
     return tabs, lents, dents
 
 
+def _put(a: np.ndarray, device) -> torch.Tensor:
+    """`a`'s bits as int32 on `device`, counted as copy.h2d_bytes."""
+    a = np.ascontiguousarray(a).view(np.int32)
+    trace.count_copy("h2d", device, a)
+    return torch.from_numpy(a).to(device)
+
+
+def stream_words(buf: np.ndarray, stride_bits: int, overlap_bits: int, device) -> torch.Tensor:
+    """The decode's `words` of `buf` on `device`: its bytes as little-endian
+    u32 words (int32), zero-padded to words_shape's length.  The block
+    planner uploads them for the header scan on a card, and the decode
+    reads the same tensor (prepare's `words`)."""
+    _, nwpad = words_shape(len(buf), stride_bits, overlap_bits)
+    wbuf = np.zeros(nwpad * 4, np.uint8)
+    wbuf[: len(buf)] = buf
+    return _put(wbuf.view("<u4"), device)
+
+
 def prepare(buf: np.ndarray, starts, stops_dec, block_of, plan, stride_bits: int,
-            overlap_bits: int, cap: int, expect_eob=None, device="cuda") -> DecodeArgs:
+            overlap_bits: int, cap: int, expect_eob=None, device="cuda",
+            words: torch.Tensor | None = None) -> DecodeArgs:
     """The decode's inputs for cursors with absolute bit ranges
     [starts, stops_dec) (starts < 0: an inactive cursor), each decoding
     the tables of block `block_of` of `plan`.  expect_eob: bool[K], the
-    cursors that stop at an EOB (default all).  Raises ValueError for a
-    stream of 2^29 bits or more (its positions would pass SENT_BP)."""
+    cursors that stop at an EOB (default all).  words: stream_words of
+    these arguments, already on `device` (default: uploaded here).  Raises
+    ValueError for a stream of 2^29 bits or more (its positions would pass
+    SENT_BP)."""
     if len(buf) * 8 >= SENT_BP >> 1:
         raise ValueError("inflate_decode: the stream must have fewer than 2^29 bits")
     starts = np.asarray(starts, np.int64)
     K = len(starts)
     nwp, nwpad = words_shape(len(buf), stride_bits, overlap_bits)
-    wbuf = np.zeros(nwpad * 4, np.uint8)
-    wbuf[: len(buf)] = buf
+    if words is None:
+        words = stream_words(buf, stride_bits, overlap_bits, device)
+    elif tuple(words.shape) != (nwpad,):
+        raise ValueError("inflate_decode: the stream words must have words_shape's length")
 
     active = starts >= 0
     swstart = np.minimum(np.where(active, starts, 0) >> 5, nwpad - nwp)
@@ -210,14 +234,8 @@ def prepare(buf: np.ndarray, starts, stops_dec, block_of, plan, stride_bits: int
     cur[C_EXPECT] = True if expect_eob is None else np.asarray(expect_eob, bool)[:K]
     cur[C_BLOCK] = np.clip(block_of, 0, len(plan) - 1)
     tabs, lents, dents = block_tables(plan)
-
-    def put(a):
-        a = np.ascontiguousarray(a).view(np.int32)
-        trace.count_copy("h2d", device, a)
-        return torch.from_numpy(a).to(device)
-
-    return DecodeArgs(put(wbuf.view("<u4")), put(cur.astype(np.int32)), put(tabs), put(lents),
-                      put(dents), nwp, int(cap))
+    return DecodeArgs(words, _put(cur.astype(np.int32), device), _put(tabs, device),
+                      _put(lents, device), _put(dents, device), nwp, int(cap))
 
 
 def cursor_tokenize(buf, starts, stops_dec, block_of, plan, stride_bits, overlap_bits, cap,

@@ -5,10 +5,12 @@ path, and its mesh= branch (mesh_decode: the cursors shared among the
 ranks of a parallel/mesh.Mesh).  `inflate_device_v2(data, ...)` decodes
 a raw DEFLATE stream:
 
-  pass 1 (host)   discover the block headers (a native scan, or its
-                  numpy twin with the native library switched off, then
-                  a python walk over the blocks) and lay K cursors over
-                  each block's data, one per stride (plan_cursors);
+  pass 1          discover the block headers (on a card its header scan,
+                  kernels/header_scan.py, whose few candidates the host
+                  confirms; on the CPU the host's native scan, or its
+                  numpy twin with the native library switched off; then
+                  a python walk over the blocks) and lay K cursors
+                  over each block's data, one per stride (plan_cursors);
   pass 2 (device) every cursor decodes its own bit range into a token
                   tape (kernels/inflate_cuda.py, one CUDA kernel); a
                   speculative cursor starts one OVERLAP early and self-
@@ -51,13 +53,17 @@ the tape there), where tpuzlib expands on the host.
 
 Telemetry (utils/trace.py): decode_stream runs its pieces as stages named
 after tpuzlib's `_tick` keys: inflate.plan (the full-stream header scan
-inside it as the port's stage inflate.plan.scan, and the blocks planned
-counted as inflate.plan_blocks while the telemetry is on),
-inflate.tokenize_dispatch
-(tables, upload and the decode launches), inflate.pre_splice,
-inflate.splice_pull (the meta read), inflate.repair_walk and
-inflate.compact (where the repair runs), inflate.token_splice (the gap
-walk and the token pieces), inflate.comp_pull and inflate.host_expand
+inside it as the port's stage inflate.plan.scan, on a card after the
+stream words' upload, and the blocks planned counted as
+inflate.plan_blocks while the telemetry is on; the stream bytes a scan
+covers count as inflate.scan_card or inflate.scan_host, and the card's
+candidates as inflate.scan_candidates), inflate.tokenize_dispatch
+(tables, the stream words' upload where the plan made none, and the
+decode launches),
+inflate.pre_splice, inflate.splice_pull (the meta read),
+inflate.repair_walk and inflate.compact (where the repair runs),
+inflate.token_splice (the gap walk and the token pieces),
+inflate.comp_pull and inflate.host_expand
 (the token assembly and the native expansion), or inflate.device_expand.
 tpuzlib's `last_stage_ms` and its TPUZLIB_TIME_INFLATE print have no
 counterpart: these stages in the telemetry take their place.  The
@@ -82,7 +88,7 @@ from ..codec.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
 from ..native import bindings
 from ..parallel.speculative import _tokenize_range, find_all_block_starts
 from ..utils import trace
-from . import inflate_cuda
+from . import header_scan, inflate_cuda
 from .inflate_cuda import SENT_BP, ST_EOB, ST_ERR, ST_OOB, ST_STRIDE_END
 
 STRIDE_BITS = 1 << 13  # default cursor stride, before it adapts to the stream
@@ -206,10 +212,23 @@ def _walk_gap(buf: np.ndarray, bit: int, avail_bits: int, stop_at: int | None = 
             return None
 
 
-def _plan_blocks(buf: np.ndarray):
+def _scan(buf: np.ndarray, words: torch.Tensor | None, from_bit: int) -> list:
+    """The full-stream header scan from from_bit: on the card where
+    `words`, buf's stream words there, is given (header_scan.block_starts),
+    else on the host (find_all_block_starts)."""
+    if trace.telemetry_enabled():
+        trace.count("inflate.scan_host" if words is None else "inflate.scan_card",
+                    len(buf) - (from_bit >> 3))
+    if words is None:
+        return find_all_block_starts(buf, from_bit=from_bit, allow_final=True)
+    return header_scan.block_starts(buf, words, from_bit, allow_final=True)
+
+
+def _plan_blocks(buf: np.ndarray, words: torch.Tensor | None = None):
     """Discover the block headers: a list of Block, or None when the first
     block does not parse.  The headers after the first come from one
-    full-stream scan (find_all_block_starts), consumed by bisection."""
+    full-stream scan (_scan; on the card where buf's stream words there
+    are given), consumed by bisection."""
     headers = None  # computed lazily: single-block streams never need it
     avail_bits = len(buf) * 8
     blocks = []
@@ -259,8 +278,7 @@ def _plan_blocks(buf: np.ndarray):
             break
         if headers is None:
             with trace.timed_stage("inflate.plan.scan", buf):
-                headers = find_all_block_starts(buf, from_bit=(data_start >> 3) * 8,
-                                                allow_final=True)
+                headers = _scan(buf, words, (data_start >> 3) * 8)
         hi = bisect.bisect_right(headers, data_start)
         nxt = headers[hi] if hi < len(headers) else None
         if nxt is None or nxt <= data_start:
@@ -271,11 +289,12 @@ def _plan_blocks(buf: np.ndarray):
     return blocks or None
 
 
-def _cursor_plan(buf: np.ndarray, stride_bits: int, max_cursors: int):
+def _cursor_plan(buf: np.ndarray, stride_bits: int, max_cursors: int,
+                 words: torch.Tensor | None = None):
     """One cursor per stride of every block's data (stored blocks on byte
     boundaries), or None when the blocks do not plan or need more than
-    max_cursors cursors."""
-    plan = _plan_blocks(buf)
+    max_cursors cursors.  words: _plan_blocks'."""
+    plan = _plan_blocks(buf, words)
     if plan is None:
         return None
     if trace.telemetry_enabled():
@@ -325,19 +344,31 @@ class Layout(NamedTuple):
     active: np.ndarray
     stored: np.ndarray
     expect_eob: np.ndarray  # the cursors that stop at an EOB: block-last, not stored
+    words: torch.Tensor | None = None  # the stream words uploaded for the card's header scan
 
     def decode_args(self, buf: np.ndarray, device) -> inflate_cuda.DecodeArgs:
-        """The decode's inputs on `device` (inflate_cuda.prepare)."""
+        """The decode's inputs on `device` (inflate_cuda.prepare), with the
+        stream words the plan uploaded to the device it was given, if it
+        uploaded them."""
         return inflate_cuda.prepare(buf, self.starts, self.stops_dec, self.block, self.plan,
                                     self.stride_bits, 2 * OVERLAP, self.cap, self.expect_eob,
-                                    device)
+                                    device, self.words)
+
+
+def _scans_on_card(device) -> bool:
+    """The header scan runs on `device` where it is a CUDA device."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def plan_cursors(buf: np.ndarray, stride_bits: int | None = None,
-                 max_cursors: int | None = None, kpad_multiple: int = 1) -> Layout:
+                 max_cursors: int | None = None, kpad_multiple: int = 1,
+                 device=None) -> Layout:
     """Pass 1: the block plan and the cursor layout of `buf`, its Kpad
-    cursors a multiple of `kpad_multiple` (a mesh's ranks).  Raises
-    DeviceDeclined when the stream reaches MAX_STREAM_BITS (2^29 bits,
+    cursors a multiple of `kpad_multiple` (a mesh's ranks).  device: the
+    decode's device; on a CUDA device the stream words are uploaded
+    first, the header scan runs there, and the words come back in the
+    layout for the decode; otherwise (default) it runs on the host.
+    Raises DeviceDeclined when the stream reaches MAX_STREAM_BITS (2^29 bits,
     64 MiB: the tapes' bit positions would pass their sentinel), or when
     the blocks do not plan or need too many cursors."""
     stride_bits = STRIDE_BITS if stride_bits is None else stride_bits
@@ -350,7 +381,9 @@ def plan_cursors(buf: np.ndarray, stride_bits: int | None = None,
     # round it up to a power of two
     stride_bits = max(stride_bits, -(-avail_bits // max(1, max_cursors - 64)))
     stride_bits = 1 << max(12, (stride_bits - 1).bit_length())
-    cp = _cursor_plan(buf, stride_bits, max_cursors)
+    words = (inflate_cuda.stream_words(buf, stride_bits, 2 * OVERLAP, device)
+             if _scans_on_card(device) else None)
+    cp = _cursor_plan(buf, stride_bits, max_cursors, words)
     if cp is None:
         raise DeviceDeclined("the block headers do not plan, or need more than %d cursors"
                              % max_cursors)
@@ -387,7 +420,7 @@ def plan_cursors(buf: np.ndarray, stride_bits: int | None = None,
     starts = np.where(early, np.maximum(bstart, starts - OVERLAP), starts).astype(np.int32)
     return Layout(cp.plan, K, Kpad, cap, stride_bits, starts, stops, stops_dec,
                   padded(cp.block_of, 0, np.int32), first, last, bstart, active, stored,
-                  expect_eob)
+                  expect_eob, words)
 
 
 # ---------------------------------------------------------------------------
@@ -1011,7 +1044,8 @@ def decode_stream(data, dictionary=None, stride_bits: int | None = None,
     buf = np.ascontiguousarray(np.asarray(data), dtype=np.uint8)
     n_in = len(buf)
     with trace.timed_stage("inflate.plan", n_in):
-        lay = plan_cursors(buf, stride_bits, max_cursors, 1 if mesh is None else mesh.size)
+        lay = plan_cursors(buf, stride_bits, max_cursors, 1 if mesh is None else mesh.size,
+                           device if mesh is None else mesh.device)
     with trace.timed_stage("inflate.tokenize_dispatch", n_in):
         if mesh is None:
             toks = inflate_cuda.cursor_decode(lay.decode_args(buf, device))

@@ -56,6 +56,8 @@ _SIGNATURES = {
                                     _P]),
     # src, src_len, from_bit, allow_final, out_pos, cap
     "tz_find_headers": (_I64, [_P, _I64, _I64, _I32, _P, _I64]),
+    # src, src_len, pos, n, out_pos
+    "tz_confirm_headers": (_I64, [_P, _I64, _P, _I64, _P]),
     # litlen, dist, ntok, dst, dst_cap, dict_len
     "tz_expand_tokens": (_I64, [_P, _P, _I64, _P, _I64, _I64]),
     # src, src_len, limit_bits, allow_final, out_pos, cap

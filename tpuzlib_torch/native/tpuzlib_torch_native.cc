@@ -6,7 +6,8 @@
 //     tz_inflate_raw: the serial raw-DEFLATE decoder of the host engine
 //     (codec/engine.py, native/api.py), resumable mid-block from its state;
 //   * tz_find_headers (with tz_scan_headers_range): full-stream dynamic-block
-//     header discovery, the block planner's pass 1;
+//     header discovery, the block planner's pass 1; tz_confirm_headers:
+//     the same confirmation of the card scan's candidates;
 //   * tz_tokenize_midblock: the splice repair's bridge decoder;
 //   * tz_inflate_tokenize: window-free tokenization of whole blocks (the
 //     open-end tail, and the confirmation probe of the header scan);
@@ -680,14 +681,29 @@ static inline bool clc_complete(uint64_t w, uint64_t k) {
   return kraft == 128 && nz >= 2;
 }
 
+// The header scan's confirmation of a candidate header at `bit`: a
+// bounded decode through tz_inflate_tokenize from it.  A real header
+// parses and then overflows a 64-token tape (plenty of symbols parse),
+// or parses cleanly through >=8 symbols, or straight through the final
+// EOB -- the last case covers genuine tiny final blocks (<8 symbols),
+// which a count-only rule would silently never discover.
+static bool confirm_header(const uint8_t* src, int64_t src_len, int64_t bit) {
+  int32_t ll[64], dd[64];
+  int64_t eb;
+  int32_t fin, st;
+  int64_t n = tz_inflate_tokenize(src, src_len, bit, bit + 1, ll, dd, 64,
+                                  &eb, &fin, &st);
+  return st == 3 || (st == 0 && (n >= 8 || fin));
+}
+
 // Full-stream dynamic-block header scan (the block planner's pass 1;
 // python counterpart: parallel/speculative.find_all_block_starts).
 // For every bit position: cheap field checks (BTYPE==10, HLIT/HDIST in
 // range, optional BFINAL==0), the code-length-code Kraft-completeness
-// test (rapidgzip-style reject), then CONFIRMATION by a bounded decode
-// through tz_inflate_tokenize (a real header parses and yields >=8
-// symbols or overflows a 64-token cap).  Returns the number of
-// confirmed header bit positions written to out_pos.
+// test (rapidgzip-style reject), then confirm_header.  Returns the
+// number of confirmed header bit positions written to out_pos.  The
+// card's scan (kernels/csrc/header_scan.cu) keeps these limits and
+// leaves the confirmation to tz_confirm_headers.
 static int64_t tz_scan_headers_range(const uint8_t* src, int64_t src_len,
                                      int64_t from_bit, int64_t to_bit,
                                      int32_t allow_final,
@@ -707,16 +723,7 @@ static int64_t tz_scan_headers_range(const uint8_t* src, int64_t src_len,
     uint64_t k0;
     memcpy(&k0, src + (cb >> 3), 8);
     if (!clc_complete(w0 >> s, k0 >> (cb & 7))) continue;
-    int32_t ll[64], dd[64];
-    int64_t eb;
-    int32_t fin, st;
-    int64_t n = tz_inflate_tokenize(src, src_len, bit, bit + 1, ll, dd, 64,
-                                    &eb, &fin, &st);
-    // confirm: tape overflow (plenty of symbols parse) OR a clean parse
-    // of >=8 symbols OR a clean bounded parse straight through the final
-    // EOB — the last case covers genuine tiny final blocks (<8 symbols),
-    // which a count-only rule would silently never discover 
-    if (st == 3 || (st == 0 && (n >= 8 || fin))) {
+    if (confirm_header(src, src_len, bit)) {
       out_pos[found++] = bit;
       if (found >= cap) return found;
     }
@@ -760,6 +767,35 @@ int64_t tz_find_headers(const uint8_t* src, int64_t src_len,
       if (found >= cap) return found;
     }
   }
+  return found;
+}
+
+// The card scan's candidates confirmed (kernels/header_scan.py): of the n
+// bit positions pos[0..n), in order, those confirm_header accepts are
+// written to out_pos; returns their number.  Up to 4 threads share long
+// lists, each confirming its own run of positions.
+int64_t tz_confirm_headers(const uint8_t* src, int64_t src_len,
+                           const int64_t* pos, int64_t n, int64_t* out_pos) {
+  std::vector<uint8_t> ok((size_t)n);
+  auto run = [&](int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; i++) ok[i] = confirm_header(src, src_len, pos[i]);
+  };
+  int nt = (int)std::thread::hardware_concurrency();
+  if (nt > 4) nt = 4;
+  if (nt < 2 || n < 64) {
+    run(0, n);
+  } else {
+    std::vector<std::thread> threads;
+    const int64_t span = (n + nt - 1) / nt;
+    for (int t = 0; t < nt; t++) {
+      const int64_t lo = std::min(n, t * span), hi = std::min(n, lo + span);
+      threads.emplace_back(run, lo, hi);
+    }
+    for (auto& th : threads) th.join();
+  }
+  int64_t found = 0;
+  for (int64_t i = 0; i < n; i++)
+    if (ok[i]) out_pos[found++] = pos[i];
   return found;
 }
 

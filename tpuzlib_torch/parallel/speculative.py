@@ -148,6 +148,34 @@ def find_all_block_starts(buf: np.ndarray, from_bit: int = 0, allow_final: bool 
         cap *= 8
 
 
+def confirm_block_starts(buf: np.ndarray, pos: np.ndarray, allow_final: bool = True) -> list:
+    """find_all_block_starts(buf, from_bit, allow_final) from `pos`, the
+    sorted start bits in [from_bit, nbits - 81] that pass its scan's field
+    and Kraft tests and its header parse (the card scan's candidates,
+    kernels/header_scan.py): those its confirmation accepts.  That is the
+    native scan's bounded decode (tz_confirm_headers); with the native
+    library off, _scan_block_starts' python probe and confirm of each.
+    That scan also tests the last 80 start bits, but confirms none there:
+    a header's fields, its code lengths (258 or more, a complete code)
+    and the 8 symbols the confirmation decodes take more bits."""
+    lib = bindings.get_lib()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    if lib is None:
+        avail_bits = len(buf) * 8
+        w64 = tk.byte_windows64(buf)
+        out = []
+        for p in pos.tolist():
+            pr = _probe_header(buf, p, avail_bits, allow_final=allow_final)
+            if pr is not None and _confirm(w64, pr[1], avail_bits, pr[0]):
+                out.append(p)
+        return out
+    out = np.empty(len(pos), np.int64)
+    n = lib.tz_confirm_headers(bindings.ptr(buf), len(buf), bindings.ptr(pos), len(pos),
+                               bindings.ptr(out))
+    return out[:n].tolist()
+
+
 def _scan_block_starts(buf: np.ndarray, from_bit: int, allow_final: bool) -> list:
     """find_all_block_starts' numpy scan (tpuzlib's)."""
     avail_bits = len(buf) * 8
