@@ -16,7 +16,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -25,13 +24,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from zbench import harness  # noqa: E402
 from zbench.reference import control  # noqa: E402
-
-
-def stand_in(name: str, entry: str):
-    """The program factory for the stand-in `name`."""
-    if name == "control":
-        return control.control(entry)
-    return control.FAULTS[name](importlib.import_module("zbench.entries." + entry).program)
 
 
 def main(argv=None) -> int:
@@ -43,7 +35,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cell = harness.load_cell(harness.ROOT, args.workload)
     device = harness.require_cuda(cell.chips)
-    program = stand_in(args.stand_in, cell.entry)
+    program = harness.stand_in(cell, args.stand_in)
     verdicts = []
     for seed in args.seeds:
         line = harness.run_cell(cell, seed, args.seconds, False, device, time.perf_counter(), program)

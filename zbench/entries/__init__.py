@@ -1,5 +1,5 @@
-"""Entry drivers, one module an entry point of the port, named by a traffic
-file's "entry".  Each gives:
+"""Entry drivers, each a module named by a traffic file's "entry".  Each
+gives:
 
   program(api, config, device)  the timed call, from the port's module `api`
   Driver(config, traffic, seed, device)
@@ -11,6 +11,19 @@ file's "entry".  Each gives:
   check(config, traffic, driver)
                                 after the window: ({number: (value, limit)},
                                 {quantity: value}) from the plain reference
+
+and may give:
+
+  TIMES                         the entry point its calls time, one of
+                                readers.ENTRIES, which the metric files
+                                key on; by default the module's own name
+  control(api, config, device)  its plain reference with one guarantee
+                                broken, in place of reference/control.py's
+                                control of the entry point it times
+
+A cell whose streams or answers need a driver of their own (another
+framing, a decode over many members) adds one under a new name that
+TIMES an existing entry point, and reports that entry point's metrics.
 """
 
 from __future__ import annotations

@@ -29,6 +29,9 @@ import tempfile
 import time
 import traceback
 
+from . import readers
+from .reference import control
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpuzlib")
 WINDOW_SPAN = "zbench.window"
@@ -72,7 +75,7 @@ class Cell:
     chips: int
     config: dict
     traffic: dict
-    entry: str
+    entry: str  # the traffic's "entry": its driver, entries/<entry>.py
     end_to_end: list
     per_layer: list
 
@@ -96,6 +99,44 @@ def load_cell(root: str, name: str) -> Cell:
     return Cell(root, name, w["chips"], config, traffic, traffic["entry"], e2e, layer)
 
 
+class UnknownEntry(ValueError):
+    """An entry driver times an entry point that no reader keys on."""
+
+
+def load_driver(cell: Cell):
+    """The entry driver entries/<entry>.py of the cell's checkout, as the
+    module zbench.entries.<entry> (its relative imports resolve there)."""
+    importlib.import_module("zbench.entries")
+    name = "zbench.entries." + cell.entry
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(cell.root, "zbench", "entries", cell.entry + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed_entry(cell: Cell, driver) -> str:
+    """The entry point whose calls the driver times, which the readers key
+    on (Run.entry): the driver's TIMES, else its own name."""
+    entry = getattr(driver, "TIMES", cell.entry)
+    if entry not in readers.ENTRIES:
+        raise UnknownEntry("entries/%s.py times %r, which no reader keys on (readers.ENTRIES: %s)"
+                           % (cell.entry, entry, ", ".join(readers.ENTRIES)))
+    return entry
+
+
+def stand_in(cell: Cell, name: str):
+    """The program factory for the stand-in `name`: "control" is the
+    driver's own control(api, config, device) where it gives one, else
+    reference/control.py's for the entry point it times; a fault of
+    control.FAULTS wraps the driver's program."""
+    driver = load_driver(cell)
+    if name == "control":
+        return getattr(driver, "control", None) or control.control(timed_entry(cell, driver))
+    return control.FAULTS[name](driver.program)
+
+
 @dataclasses.dataclass
 class Call:
     t0: float
@@ -106,7 +147,8 @@ class Call:
 
 @dataclasses.dataclass
 class Run:
-    """What the metric files read (readers.py)."""
+    """What the metric files read (readers.py).  `entry` is the entry
+    point the calls timed (harness.timed_entry)."""
 
     entry: str
     device_kind: str
@@ -216,17 +258,19 @@ def leaked_modules() -> list:
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start: float,
              program=None) -> dict:
     """One run of `cell`: returns the result line as a dict.  `program`
-    (the control and the fault tests) stands in for the entry's call to
-    the port."""
+    (the control and the fault tests, stand_in) stands in for the
+    driver's call to the port.  Raises UnknownEntry before set-up where
+    the driver times an entry point that no reader keys on."""
     import torch
 
     import tpuzlib_torch
     from tpuzlib_torch.utils import trace as port_trace
 
-    entry = importlib.import_module("zbench.entries." + cell.entry)
+    mod = load_driver(cell)
+    times = timed_entry(cell, mod)
     port_trace.enable(trace)
-    fn = (program or entry.program)(tpuzlib_torch, cell.config, device)
-    driver = entry.Driver(cell.config, cell.traffic, seed, device)
+    fn = (program or mod.program)(tpuzlib_torch, cell.config, device)
+    driver = mod.Driver(cell.config, cell.traffic, seed, device)
     driver.warm(fn)  # every shape the traffic uses
     if device == "cuda":
         torch.cuda.synchronize()
@@ -244,10 +288,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_
         failed += sliced["failed"]
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
 
-    readings, sizes = entry.check(cell.config, cell.traffic, driver)
+    readings, sizes = mod.check(cell.config, cell.traffic, driver)
     readings = {**readings, "failed_calls": (failed, 0), "empty_window": (int(not calls), 0)}
     kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
-    run = Run(cell.entry, kind, start - t_start, end - start, calls, stages,
+    run = Run(times, kind, start - t_start, end - start, calls, stages,
               counters, sizes, sliced)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):

@@ -1,0 +1,10 @@
+"""enqueue_ms_per_MiB.deflate.ckpt: enqueue_ms_per_MiB.deflate in the
+one deflate cell whose rate is read per layer (deflate_MBps.ckpt): host
+ms of the port's deflate.encode_batch stage (the host enqueueing the
+encoder's batches) per MiB of input."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.stage_ms_per_MiB(run, "deflate", "deflate.encode_batch", "in")

@@ -1,0 +1,10 @@
+"""pack_ms_per_MiB.deflate.ckpt: pack_ms_per_MiB.deflate in the one
+deflate cell whose rate is read per layer (deflate_MBps.ckpt): host ms
+of the port's deflate.encode.pack stage (pack_words and the final ok,
+enqueued) per MiB of input."""
+
+from zbench import readers
+
+
+def read(run):
+    return readers.stage_ms_per_MiB(run, "deflate", "deflate.encode.pack", "in")

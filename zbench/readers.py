@@ -3,8 +3,8 @@ from a finished run, or None where the run has nothing for it to read
 (another entry point, no trace), and the harness then leaves the metric
 out of the line.
 
-A run (harness.Run) carries the cell's entry point, the calls of the
-measured window (start, end, bytes in, bytes out on the host clock),
+A run (harness.Run) carries the entry point its calls timed, the calls
+of the measured window (start, end, bytes in, bytes out on the host clock),
 the window's length, the port's stage telemetry and counters over the
 window, and, in a traced run, the split of the traced slice.
 """
@@ -16,6 +16,8 @@ import numpy as np
 from . import peaks
 
 MiB = 1 << 20
+# the entry points that the readers and the metric files key on (Run.entry)
+ENTRIES = ("deflate", "inflate", "crc32")
 
 
 def _calls(run, entry: str):

@@ -1,6 +1,7 @@
 """The harness on the CPU at tiny sizes: the corpus, the frozen trace
-split, the reference, the import check, the exit without a card, and the
-check refusing the control and every planted fault."""
+split, the reference, the import check, the exit without a card, and, in
+every cell of BENCHMARK.json, a sound run and the check refusing the
+control (the driver's own where it gives one) and every planted fault."""
 
 import hashlib
 import json
@@ -23,8 +24,9 @@ from zbench.reference import control, zlib_ref  # noqa: E402
 
 torch.set_num_threads(1)
 
-CELLS = ("ckpt-zlib6.deflate-1c", "pylogs-gzip9.inflate-1c", "ckpt-zlib6.crc32-dev",
-         "pylogs-gzip9.deflate-1c")
+with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+    CELLS = tuple(w["name"] for w in json.load(f)["workloads"])
+QUICK = "ckpt-zlib6.crc32-dev"  # the cell the run.py tests start
 TINY = {"piece_bytes": 1 << 16, "record_bytes": 1 << 14, "trace_seconds": 0.2}
 
 
@@ -134,10 +136,8 @@ def test_control_and_faults_are_not_correct(name, stand_in):
     a cell can have (an answer altered where it is produced, half the
     input left out) make `correct` false."""
     cell = tiny_cell(name)
-    entry = __import__("zbench.entries." + cell.entry, fromlist=["program"])
-    program = (control.control(cell.entry) if stand_in == "control"
-               else control.FAULTS[stand_in](entry.program))
-    line = harness.run_cell(cell, 3000000012, 0.3, False, "cpu", 0.0, program)
+    line = harness.run_cell(cell, 3000000012, 0.3, False, "cpu", 0.0,
+                            harness.stand_in(cell, stand_in))
     assert not line["correct"], line["compared"]
 
 
@@ -169,7 +169,7 @@ print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 
 def _run(cwd, *extra):
     return subprocess.run([sys.executable, os.path.join(cwd, "zbench", "run.py"), "--workload",
-                           CELLS[2], "--seed", "3000000013", "--seconds", "1", "--trace", "0",
+                           QUICK, "--seed", "3000000013", "--seconds", "1", "--trace", "0",
                            *extra], capture_output=True, text=True, timeout=600, cwd=cwd)
 
 

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and a cell, a
-configuration and a per-layer metric added as new files and entries alone."""
+configuration, a per-layer metric and an entry driver added as new files
+and entries alone."""
 
 import json
 import os
@@ -162,3 +163,132 @@ def test_a_cell_config_and_metric_added_as_files(tmp_path, manifest):
     assert line["correct"] and line["metrics"]["calls_per_client.deflate"]["value"] > 0
     after = {p: p.read_bytes() for p in before}
     assert after == before
+
+
+# An entry driver of a BGZF-like framing: gzip members of at most 65,280
+# input bytes, each with a BC subfield that holds the member's size less
+# one, and an empty member at the end.  It times inflate(), member by
+# member, and gives its own check and control.
+MEMBERS_DRIVER = """
+import struct
+import zlib
+
+import numpy as np
+
+from .. import corpus
+from ..reference import zlib_ref
+
+TIMES = "inflate"
+BLOCK = 0xFF00
+
+
+def member(data, level):
+    c = zlib.compressobj(level, zlib.DEFLATED, -15)
+    body = c.compress(data) + c.flush()
+    head = struct.pack("<4BI2BH2sHH", 31, 139, 8, 4, 0, 0, 255, 6, b"BC", 2, len(body) + 25)
+    return head + body + struct.pack("<II", zlib.crc32(data), len(data))
+
+
+def members(stream):
+    at = 0
+    while at < len(stream):
+        size = int(stream[at + 16]) | int(stream[at + 17]) << 8
+        yield stream[at: at + size + 1]
+        at += size + 1
+
+
+def program(api, config, device):
+    def call(stream):
+        return np.concatenate([api.inflate(m, device=device) for m in members(stream)])
+
+    return call
+
+
+class Driver:
+    def __init__(self, config, traffic, seed, device):
+        n = traffic["piece_bytes"]
+        self.pieces = [corpus.corpus("text", n, [seed, k]) for k in range(traffic["pool"])]
+        self.streams = [np.frombuffer(b"".join(
+            [member(p[i: i + BLOCK].tobytes(), config["level"]) for i in range(0, n, BLOCK)]
+            + [member(b"", config["level"])]), np.uint8) for p in self.pieces]
+        self.calls = 0
+        self.outputs = []
+
+    def warm(self, fn):
+        for stream in self.streams:
+            fn(stream)
+
+    def call(self, fn):
+        k = self.calls % len(self.streams)
+        out = fn(self.streams[k])
+        self.outputs.append((k, out))
+        self.calls += 1
+        return len(self.streams[k]), len(out)
+
+
+def check(config, traffic, d):
+    bad = sum(not zlib_ref.equal(out, d.pieces[k]) for k, out in d.outputs)
+    return {"bad_outputs": (bad, 0)}, {"outputs_checked": len(d.outputs)}
+
+
+def control(api, config, device):
+    # zlib's decode stops after the first member: every member but one lost
+    def call(stream):
+        return np.frombuffer(zlib.decompressobj(31).decompress(stream.tobytes()), np.uint8)
+
+    return call
+"""
+
+
+def test_a_cell_with_its_own_entry_driver_added_as_files(tmp_path, manifest):
+    """A cell whose driver is new (its own streams, check and control,
+    timing inflate()) is new files and manifest entries alone: its lines
+    carry the inflate cell's metrics, it is correct, its control and both
+    faults are refused, and no file of zbench/ is edited.  A driver that
+    times an entry point no reader keys on stops the run before set-up."""
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(ROOT, "zbench"), root / "zbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (root / "zbench").rglob("*") if p.is_file()}
+    (root / "zbench/entries/bgzf_like.py").write_text(MEMBERS_DRIVER)
+    (root / "zbench/entries/gunzip_like.py").write_text(
+        MEMBERS_DRIVER.replace('TIMES = "inflate"', 'TIMES = "gunzip"').replace(
+            "        n = traffic", "        raise AssertionError('set-up ran')\n        n = traffic"))
+    (root / "zbench/configs/bgzf-like6.json").write_text(json.dumps(
+        {"name": "bgzf-like6", "container": "gzip", "level": 6, "window_bits": 15,
+         "mem_level": 8}))
+    for traffic, driver in (("members-1c", "bgzf_like"), ("gunzip-1c", "gunzip_like")):
+        (root / "zbench/traffic" / (traffic + ".json")).write_text(json.dumps(
+            {"entry": driver, "piece_bytes": 150000, "pool": 2, "trace_seconds": 0.2}))
+    m = json.loads(json.dumps(manifest))
+    m["configs"].append({"name": "bgzf-like6", "source": "SAM/BAM format specification, 4.1 BGZF",
+                         "file": "zbench/configs/bgzf-like6.json", "reduced": [],
+                         "why": "block gzip"})
+    cell, stray = "bgzf-like6.members-1c", "bgzf-like6.gunzip-1c"
+    for name, traffic in ((cell, "members-1c"), (stray, "gunzip-1c")):
+        m["workloads"].append({"name": name, "config": "bgzf-like6", "traffic": traffic,
+                               "chips": 1, "why": "a throwaway cell"})
+    for e in m["end_to_end"] + m["per_layer"]:
+        if "inflate_MBps" in (e["name"], e.get("moves")):
+            e["workloads"] += [cell, stray]
+    (root / "BENCHMARK.json").write_text(json.dumps(m))
+
+    found = harness.load_cell(str(root), cell)
+    ref = harness.load_cell(str(root), "pylogs-gzip9.inflate-1c")
+    ref.traffic.update(piece_bytes=150000, trace_seconds=0.2)
+    assert {x["name"] for x in found.per_layer} == {x["name"] for x in ref.per_layer}
+    for trace in (False, True):
+        line = harness.run_cell(found, 3000000021, 0.3, trace, "cpu", 0.0)
+        assert line["correct"] and line["compared"]["bad_outputs"]["value"] == 0, line["compared"]
+        # the device route's metrics read nothing without a card, in either cell
+        want = set(harness.run_cell(ref, 3000000021, 0.3, trace, "cpu", 0.0)["metrics"])
+        assert set(line["metrics"]) == want
+        assert want == {"inflate_MBps", "setup_s"} if not trace else "call_p90_ms.inflate" in want
+    assert harness.stand_in(found, "control").__module__ == "zbench.entries.bgzf_like"
+    for name in ("control", "alter", "half"):
+        line = harness.run_cell(found, 3000000022, 0.3, False, "cpu", 0.0,
+                                harness.stand_in(found, name))
+        assert not line["correct"], (name, line["compared"])
+    with pytest.raises(harness.UnknownEntry, match="gunzip"):
+        harness.run_cell(harness.load_cell(str(root), stray), 5, 0.3, False, "cpu", 0.0)
+    assert {p: p.read_bytes() for p in before} == before
