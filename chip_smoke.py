@@ -223,7 +223,19 @@ tpuzlib_torch/kernels/csrc, then:
      adler32_host of the 8 MiB, each equal to zlib's.  O2's and O3's
      launches, each counted from 0 just before its call, are given on
      the kernels line as launches_o, apart from the main path's
-     launches, which alone the check of the launches reads.
+     launches, which alone the check of the launches reads;
+  P  decodes a 32 MiB BGZF slice of BAM records (zbench/entries/bgzf.py's
+     generator; 515 members and the EOF member) with inflate_members() on
+     the card: equal to zlib's member-by-member decode, every member from
+     the device route, one inflate_decode launch; then the segmented
+     CRC-32 kernel (crc32_segments, the members' check) against its plain
+     version on the decoded slice's 516 member bounds, its ms and device ms
+     (behind a sleep kernel; both with the call's 4 KiB upload of its
+     bounds), the kernel alone by torch.profiler's device events
+     (kernel_ms), and its bound (the bytes read once and 4 bytes a member
+     written); the call's host seconds by stage (the
+     telemetry on for one call).  `python3 chip_smoke.py P` runs the
+     build and this phase alone.
 
 Each phase prints one JSON line; then the per-kernel table
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.  A kernel's
@@ -2205,6 +2217,93 @@ def phase_o(corpus, smi: str) -> dict:
     return dict(launches)
 
 
+def phase_p() -> tuple:
+    """inflate_members() of a 32 MiB BGZF slice on the card, and the
+    segmented CRC-32 kernel against its plain version on its members.
+    Returns the kernel's row and the launches of the one timed call."""
+    import tpuzlib_torch
+    from tpuzlib_torch import testing
+    from tpuzlib_torch.api.inflate_api import member_index
+    from tpuzlib_torch.kernels import _build
+    from tpuzlib_torch.kernels import crc32_segments as cs
+    from tpuzlib_torch.utils import trace
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from zbench.entries import bgzf
+    from zbench.reference import bgzf_ref
+
+    config = {"level": 6, "window_bits": 15, "mem_level": 8, "member_input_bytes": 65280}
+    data = bgzf.records(32 << 20, [3000000041, 0])
+    wire = np.frombuffer(b"".join(bgzf_ref.member(p, config) for p in bgzf_ref.pieces(data, config))
+                         + bgzf_ref.EOF_MEMBER, np.uint8)
+    members = member_index(wire)
+    tpuzlib_torch.inflate_members(wire)  # warm
+    _build.reset_launches()
+    before = trace.get_counters()
+    trace.enable(True)
+    trace.reset()
+    t0 = time.perf_counter()
+    out = tpuzlib_torch.inflate_members(wire)
+    s = time.perf_counter() - t0
+    trace.enable(False)
+    moved = testing.counters_since(before)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    equal = bytes(out) == bgzf_ref.read(wire)
+    emit({"phase": "P", "members": len(members), "compressed_bytes": len(wire),
+          "out_bytes": len(out), "equal": equal, "s": s, "MBps": len(out) / s / 1e6,
+          "members_card": moved.get("inflate.members_card", 0),
+          "launches": launches,
+          "stage_s": {k: v["seconds"] for k, v in trace.get_telemetry().items()}})
+    if not equal or moved.get("inflate.members_card") != len(members):
+        raise SystemExit("phase P: inflate_members differs or left members to the host")
+    if launches.get("inflate_decode") != 1 or launches.get("crc32_segments") != 1:
+        raise SystemExit("phase P: launches %s, not one decode and one check" % launches)
+    dev = torch.from_numpy(out).to(DEVICE)
+    bounds = np.concatenate([[0], np.cumsum([m.isize for m in members])])
+    rows = check_kernels({
+        # a byte folded an operation
+        "crc32_segments": (lambda: cs.crc32_segments(dev, bounds),
+                           lambda: cs.crc32_segments_plain(dev, bounds),
+                           "tpuzlib_torch/kernels/csrc/crc32_segments.cu", "none (the port's own)",
+                           lambda got: len(out) + 4 * (len(bounds) - 1), len(out), 2),
+    }, phase="P")
+    rows["crc32_segments"]["device_ms"] = device_ms(lambda: cs.crc32_segments(dev, bounds))
+
+    def kernel_ms(fn):
+        """crc32_segments_kernel's mean device ms over fn's launches, from
+        the profiler's device events."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernel = [e for e in prof.key_averages() if "crc32_segments_kernel" in e.key]
+        total = (getattr(kernel[0], "device_time_total", None)
+                 or getattr(kernel[0], "cuda_time_total", 0)) if kernel else 0
+        return total / kernel[0].count / 1e3 if total else None
+
+    # the kernel alone on data the calls above left in L2 (they also copy
+    # their bounds to the card)
+    rows["crc32_segments"]["kernel_ms"] = warm_ms = kernel_ms(
+        lambda: [cs.crc32_segments(dev, bounds) for _ in range(20)])
+    # the check's CUDA events (crc32.segments_device_ns) against the
+    # kernel's device time in the same inflate_members() call: equal where
+    # the events bracket the kernel alone
+    before = trace.get_counters()
+    trace.enable(True)
+    in_call_ms = kernel_ms(lambda: tpuzlib_torch.inflate_members(wire))
+    trace.enable(False)
+    in_call_events_ms = testing.counters_since(before).get("crc32.segments_device_ns", 0) / 1e6
+    events_ms = moved.get("crc32.segments_device_ns", 0) / 1e6
+    emit({"phase": "P crc32_segments", "device_ms": rows["crc32_segments"]["device_ms"],
+          "kernel_ms": warm_ms, "events_ms": events_ms, "in_call_kernel_ms": in_call_ms,
+          "in_call_events_ms": in_call_events_ms,
+          "bound_ms": rows["crc32_segments"]["bound_ms"],
+          "kernel_pct_of_bound": 100 * rows["crc32_segments"]["bound_ms"] / warm_ms
+          if warm_ms else None,
+          "in_call_pct_of_bound": 100 * rows["crc32_segments"]["bound_ms"] / in_call_ms
+          if in_call_ms else None})
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2221,6 +2320,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     emit({"build_s": time.perf_counter() - t0})
+    if sys.argv[1:] == ["P"]:
+        phase_p()
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     corpus = testing.mixed(32 << 20, seed=1)
     # 256 MiB for the checksums: the corpus eight times (its 32 MiB period
@@ -2288,6 +2392,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_o = phase_o(corpus, smi)
     emit({"phase": "O", "s": time.perf_counter() - t0})
+    rows_p, launches_p = phase_p()
+    rows.update(rows_p)
+    launches["crc32_segments"] = launches_p.get("crc32_segments", 0)
 
     kernels = [{**rows[k], "launches": launches[k], "launches_o": launches_o.get(k, 0)}
                for k in rows]

@@ -77,8 +77,8 @@ def test_no_source_imports_jax_or_tpuzlib():
 
 def test_public_surface():
     assert sorted(tpuzlib_torch.__all__) == sorted(
-        ["deflate", "Deflater", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater",
-         "InflaterOptions", "InflateResult", "DeviceDeclined", "adler32", "crc32", "mergeBuffers",
+        ["deflate", "Deflater", "DeflaterOptions", "DeviceDeflater", "inflate", "inflate_members",
+         "Inflater", "InflaterOptions", "InflateResult", "DeviceDeclined", "adler32", "crc32", "mergeBuffers",
          "u8_view"])
     assert issubclass(tpuzlib_torch.DeviceDeclined, RuntimeError)
     assert (tpuzlib_torch.Inflater, tpuzlib_torch.InflaterOptions, tpuzlib_torch.InflateResult) == (
@@ -245,7 +245,8 @@ def test_wrappers_refuse_other_devices():
         with pytest.raises(ValueError):
             call()
     assert set(_build.LAUNCHES) == {"near_screen", "far_screen", "segment_parse", "pack_words",
-                                    "crc32_forms", "crc32_spans", "crc32_scalar", "adler32",
+                                    "crc32_forms", "crc32_spans", "crc32_scalar",
+                                    "crc32_segments", "adler32",
                                     "adler32_scalar", "inflate_lut", "inflate_decode",
                                     "header_filter", "header_parse", "crc_rowsum", "crc_unpack_u8", "crc_unpack_i32", "crc_unpack_bf16", "gf2_bits_mm",
                                     "crc_forms_mm_bf16", "crc_forms_mm_i8", "take_along",

@@ -14,6 +14,10 @@ Public API:
     Deflater                   streaming compression on the host engine
     inflate                    one-shot raw / zlib / gzip decompression: the
                                device route, the host engine where it declines
+    inflate_members            one-shot decompression of concatenated gzip
+                               members (BGZF), all of them: one batched
+                               device decode, the host engine where it
+                               declines
     Inflater, InflaterOptions, streaming decompression on the host engine,
       InflateResult            its options and its verdict
     DeviceDeclined             the error of a stream the device decode declines
@@ -25,11 +29,12 @@ Public API:
 
 from .api.checksums import adler32, crc32
 from .api.deflate_api import Deflater, DeflaterOptions, deflate
-from .api.inflate_api import InflateResult, Inflater, InflaterOptions, inflate
+from .api.inflate_api import InflateResult, Inflater, InflaterOptions, inflate, inflate_members
 from .common import mergeBuffers, u8_view
 from .kernels.deflate_device3 import DeviceDeflater
 from .kernels.inflate_device2 import DeviceDeclined
 
-__all__ = ["deflate", "Deflater", "DeflaterOptions", "DeviceDeflater", "inflate", "Inflater",
+__all__ = ["deflate", "Deflater", "DeflaterOptions", "DeviceDeflater", "inflate",
+           "inflate_members", "Inflater",
            "InflaterOptions", "InflateResult", "DeviceDeclined", "adler32", "crc32",
            "mergeBuffers", "u8_view"]

@@ -49,6 +49,26 @@ that ends in the host route (any of the four ways above) is recorded as
 `inflate.declined`, its host seconds and input bytes (no span of its
 own: the attempt's stages show in a trace).
 
+inflate_members() is the port's own: the one-shot decode of a
+concatenation of gzip members (BGZF: BAM, VCF.gz, tabix files), the
+whole of it, where inflate() returns the first member as zlib and
+tpuzlib do.  member_index reads each member's extent from its BGZF `BC`
+subfield (BSIZE, the member's size less one) or from a caller's index
+(parallel/members.compress_members'); it runs as the stage
+inflate.members.index and raises the verdict on a member cut short, a
+BSIZE past the end, and bytes after the last member that are not a
+whole member.  The route rule is inflate()'s: the device route on a
+CUDA `device` for an input of at least DEVICE_MIN_BYTES whose members'
+sizes are all known (kernels/inflate_members.py: one batched decode of
+all members, then every member's CRC-32 in one launch and its ISIZE);
+every other input takes the host route, the host engine a member at a
+time.  A member the device route cannot prove, or whose CRC-32 or
+ISIZE fails on the card, decodes again on the host engine alone, whose
+verdict stands; the other members keep the card's bytes.  The whole
+call is the stage inflate.members; the counters inflate.members_card
+and inflate.members_host count the members each route gave, and
+inflate.device the bytes the device route gave.
+
 Deliberate differences from tpuzlib: its catch-all fallbacks are kept
 away from the card: that of the device route is not ported, and that of
 the speculative route covers its host decode, not its checksums on
@@ -73,6 +93,7 @@ from ..codec.tokenize import DataError
 from ..common import mergeBuffers, u8_view
 from ..containers.inflate_container import ContainerInflater, NeedDictionary
 from ..kernels.inflate_device2 import DeviceDeclined, decode_stream
+from ..kernels.inflate_members import TRAILER, Member, check_members, decode_members
 from ..parallel.speculative import (check_dictionary, check_trailer, container_frame,
                                     inflate_parallel)
 from ..utils import trace
@@ -321,6 +342,20 @@ def _on_host(fn, *args, **kwargs):
         raise _HostFault from e
 
 
+def _verdict(inflater: Inflater) -> None:
+    """Raise the host route's ValueError for a finished Inflater whose
+    stream fails."""
+    result = inflater.finish()
+    if not result.success:
+        if not result.complete:
+            raise ValueError("Unexpected EOF during decompression")
+        if result.checksum == "mismatch":
+            raise ValueError("Data integrity check failed")
+        if result.fileSize == "mismatch":
+            raise ValueError("Data size check failed")
+        raise ValueError("Decompression error")
+
+
 def _inflate_host(input_: np.ndarray, dictionary, device) -> np.ndarray:
     """tpuzlib's host route: the speculative segment-parallel decode of a
     large stream on a many-core host, else one Inflater over the whole
@@ -349,15 +384,7 @@ def _inflate_host(input_: np.ndarray, dictionary, device) -> np.ndarray:
         isize = struct.unpack("<I", input_[-4:].tobytes())[0]
         inflater._container.engine.size_hint = isize + 64
     buffers = inflater.append(input_)
-    result = inflater.finish()
-    if not result.success:
-        if not result.complete:
-            raise ValueError("Unexpected EOF during decompression")
-        if result.checksum == "mismatch":
-            raise ValueError("Data integrity check failed")
-        if result.fileSize == "mismatch":
-            raise ValueError("Data size check failed")
-        raise ValueError("Decompression error")
+    _verdict(inflater)
     return mergeBuffers(buffers)
 
 
@@ -378,3 +405,153 @@ def inflate(data, dictionary=None, *, device="cuda") -> np.ndarray:
             if out is not None:
                 return out
         return _inflate_host(input_, dictionary, device)
+
+
+# ---------------------------------------------------------------------------
+# concatenated gzip members (BGZF)
+# ---------------------------------------------------------------------------
+
+
+def _u16(view: np.ndarray, at: int) -> int:
+    return int(view[at]) | int(view[at + 1]) << 8
+
+
+def _member_header(view: np.ndarray, at: int):
+    """The gzip member header at byte `at`: (where its deflate data
+    starts, its BGZF BSIZE or None).  Raises the host route's ValueError
+    for a header that is cut short or is not a gzip member's (the
+    container's own parse and checks)."""
+    if len(view) - at >= 2 and (view[at] != 0x1F or view[at + 1] != 0x8B):
+        raise ValueError("inflate error: not a gzip member at offset %d" % at)
+    try:
+        size = ContainerInflater(raw=False)._try_parse_gzip_header(view[at:])
+    except DataError as e:
+        raise ValueError("inflate error: %s" % e)
+    if size is None:
+        raise ValueError("truncated gzip member at offset %d" % at)
+    bsize = None
+    if view[at + 3] & 0x04:  # FEXTRA's subfields: SI1 SI2 SLEN data
+        sub, end = at + 12, at + 12 + _u16(view, at + 10)
+        while sub + 4 <= end:
+            slen = _u16(view, sub + 2)
+            if view[sub] == 66 and view[sub + 1] == 67 and slen == 2 and sub + 6 <= end:
+                bsize = _u16(view, sub + 4)  # BC: the member's size less one
+            sub += 4 + slen
+    return at + size, bsize
+
+
+def member_index(view: np.ndarray, index=None) -> list | None:
+    """The members of `view` (Member: start, deflate data, end, the
+    trailer's CRC-32 and ISIZE), from `index` (each member's first byte,
+    the first 0, as compress_members returns it) or else from every
+    member's BSIZE; None where a member's header has no BSIZE and no index
+    is given (the sizes are then unknown).  Raises ValueError for a
+    member cut short, a BSIZE past the end, an index that does not fit
+    the input, and bytes after the last member that are not a whole
+    member."""
+    n = len(view)
+    spans = []
+    if index is not None:
+        offs = np.asarray(index, dtype=np.int64).reshape(-1)
+        if (not len(offs) or offs[0] != 0 or (np.diff(offs) <= 0).any() or offs[-1] >= n):
+            raise ValueError("the member index does not fit the input's %d bytes" % n)
+        for start, end in zip(offs.tolist(), offs[1:].tolist() + [n]):
+            spans.append((start, _member_header(view[:end], start)[0], end))
+    else:
+        at = 0
+        while at < n:
+            cdata, bsize = _member_header(view, at)
+            if bsize is None:
+                return None
+            end = at + bsize + 1
+            if end > n:
+                raise ValueError("truncated gzip member at offset %d" % at)
+            spans.append((at, cdata, end))
+            at = end
+    for start, cdata, end in spans:
+        if cdata + TRAILER > end:
+            raise ValueError("truncated gzip member at offset %d" % start)
+    ends = np.array([e for _, _, e in spans], np.int64)
+    trailers = view[ends[:, None] - TRAILER + np.arange(TRAILER)].copy().view("<u4") \
+        if len(spans) else np.zeros((0, 2), np.uint32)
+    return [Member(s, c, e, int(t[0]), int(t[1]))
+            for (s, c, e), t in zip(spans, trailers.tolist())]
+
+
+def _host_member(view: np.ndarray, start: int, m: Member | None = None):
+    """The member at byte `start` alone on the host engine, with its
+    verdict (inflate()'s ValueErrors); where its index entry `m` is given,
+    also one for bytes between its stream's end and m's end.  Returns its
+    bytes and where it ends."""
+    inflater = Inflater(InflaterOptions(raw=False))
+    if m is not None:
+        inflater._container.engine.size_hint = m.isize + 64
+    buffers = inflater.append(view[start : None if m is None else m.end])
+    _verdict(inflater)
+    c = inflater._container
+    extra = len(c.header_buf) - c.trailer_len
+    if m is not None and extra:
+        raise ValueError("the gzip member at offset %d ends %d bytes before its size says"
+                         % (start, extra))
+    return mergeBuffers(buffers), len(view) - extra if m is None else m.end
+
+
+def _host_members_in_turn(view: np.ndarray) -> list:
+    """Members whose sizes are unknown, on the host engine one after
+    another, each from where the one before ended."""
+    outs, at = [], 0
+    while at < len(view):
+        _member_header(view, at)
+        out, at = _host_member(view, at)
+        outs.append(out)
+    return outs
+
+
+def members_route_applies(view: np.ndarray, members, device) -> bool:
+    """Whether inflate_members() takes the device route: a CUDA `device`,
+    at least DEVICE_MIN_BYTES, and every member's size known."""
+    return (members is not None and len(view) >= DEVICE_MIN_BYTES
+            and torch.device(device).type == "cuda")
+
+
+def inflate_members(data, index=None, *, device="cuda") -> np.ndarray:
+    """One-shot decompress a concatenation of gzip members, all of them:
+    BGZF (each member's size in its `BC` subfield, as BAM, VCF.gz and
+    tabix files carry) or members whose first bytes `index` gives
+    (compress_members' index).  Every member's CRC-32 and ISIZE is
+    checked; the EOF member decodes to nothing.  Decodes on a CUDA
+    `device` in one batched decode where the route rule applies
+    (members_route_applies), else, and for each member the card does not
+    prove, on the host engine.  Returns the bytes as one uint8 array;
+    raises a ValueError for bad data."""
+    tune_malloc()
+    view = u8_view(data)
+    with trace.timed_stage("inflate.members", view):
+        with trace.timed_stage("inflate.members.index", view):
+            members = member_index(view, index)
+        return _inflate_members(view, members, device,
+                                members_route_applies(view, members, device))
+
+
+def _inflate_members(view: np.ndarray, members, device, device_route: bool) -> np.ndarray:
+    """inflate_members' decode of the indexed `members` (None: sizes
+    unknown), by the device route on `device` where device_route (which
+    testing.members_device_route sets at any size, on the CPU too)."""
+    if members is None:
+        outs = _host_members_in_turn(view)
+        trace.count("inflate.members_host", len(outs))
+        return mergeBuffers(outs)
+    ok, slices = [False] * len(members), [None] * len(members)
+    if device_route:
+        out, slices = decode_members(view, members, device=device)
+        ok = check_members(out, slices, members, device)
+        card = sum(ok)
+        trace.count("inflate.members_card", card)
+        trace.count("inflate.device", sum(len(s) for s, k in zip(slices, ok) if k))
+        if card == len(members):
+            return out
+        if any(s is not None and not k for s, k in zip(slices, ok)):
+            _log_mismatch_fallback()
+    trace.count("inflate.members_host", len(members) - sum(ok))
+    return mergeBuffers([slices[j] if ok[j] else _host_member(view, m.start, m)[0]
+                         for j, m in enumerate(members)])

@@ -49,6 +49,7 @@ _ARGTYPES = {
     "tz_pack_words": [_P] * 12 + [_I] * 3 + [_P],
     "tz_crc32_forms": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
     "tz_crc32_scalar": [_P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _U, _P],
+    "tz_crc32_segments": [_P, _L, _P, _I, _P, _P, _P, _P],
     "tz_adler32_blocks": [_P, _L, _L, _P, _L, _P],
     "tz_adler32_scalar": [_P, _L, _L, _L, _L, _P, _P, _U, _P, _P],
     "tz_inflate_lut": [_P, _P, _P, _I, _I, _I, _P, _P],
@@ -85,7 +86,8 @@ _SIGNATURES = {**{name: (_I, args) for name, args in _ARGTYPES.items()},
 # vec_cond_while counts each launch under its route's name as well;
 # the header scan's one call launches and counts its two kernels
 LAUNCHES = {"near_screen": 0, "far_screen": 0, "segment_parse": 0, "pack_words": 0,
-            "crc32_forms": 0, "crc32_spans": 0, "crc32_scalar": 0, "adler32": 0,
+            "crc32_forms": 0, "crc32_spans": 0, "crc32_scalar": 0, "crc32_segments": 0,
+            "adler32": 0,
             "adler32_scalar": 0, "inflate_lut": 0, "inflate_decode": 0, "header_filter": 0,
             "header_parse": 0, "crc_rowsum": 0, "crc_unpack_u8": 0, "crc_unpack_i32": 0,
             "crc_unpack_bf16": 0, "gf2_bits_mm": 0, "crc_forms_mm_bf16": 0,

@@ -299,6 +299,13 @@ def _cursor_plan(buf: np.ndarray, stride_bits: int, max_cursors: int,
         return None
     if trace.telemetry_enabled():
         trace.count("inflate.plan_blocks", len(plan))
+    return lay_cursors(plan, stride_bits, max_cursors)
+
+
+def lay_cursors(plan: list, stride_bits: int, max_cursors: int):
+    """_cursor_plan's cursors over a block plan already made (the blocks
+    of many streams too: each block's first cursor is anchored at its own
+    data start), or None past max_cursors cursors."""
     starts, stops, block_of = [], [], []
     first, last, bstart, stored = [], [], [], []
     for b, p in enumerate(plan):
@@ -387,6 +394,14 @@ def plan_cursors(buf: np.ndarray, stride_bits: int | None = None,
     if cp is None:
         raise DeviceDeclined("the block headers do not plan, or need more than %d cursors"
                              % max_cursors)
+    return layout(cp, stride_bits, kpad_multiple, words)
+
+
+def layout(cp: CursorPlan, stride_bits: int, kpad_multiple: int = 1,
+           words: torch.Tensor | None = None) -> Layout:
+    """The device pass's Layout of a cursor plan: Kpad cursors in whole
+    128-cursor groups (a multiple of kpad_multiple), speculative starts one
+    OVERLAP early, each cursor's tape rows from the stride."""
     K = cp.K
     # whole 128-cursor groups, a power of two of them
     groups = -(-cp.Kpad // 128)
@@ -620,7 +635,7 @@ def flagged_rows(tok_pack: torch.Tensor, Kpad: int) -> dict:
 
 
 def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1024,
-                   max_bridges=64, max_row_batches=64):
+                   max_bridges=64, max_row_batches=64, failed: set | None = None):
     """Host repair where the speculative splice fails (ok == 0).
 
     Speculation breaks in two data-dependent ways: a cursor's garbage
@@ -635,7 +650,10 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
     Returns (keep_lo, keep_hi, bridge_ins, block_end_bits); raises
     DeviceDeclined on real data errors, truncation, unparseable structure,
     a bridge inside a stored block, or past max_bridges bridges or
-    max_row_batches lazy tape-row pulls."""
+    max_row_batches lazy tape-row pulls.  Given a set `failed` (the
+    blocks of many independent streams), a block that would raise is
+    added to it instead, keeps no token and ends at None, and the other
+    blocks are repaired."""
     Kpad, CAP, K, plan = lay.Kpad, lay.cap, lay.K, lay.plan
     cnt_np = _meta_vec(meta_np, Kpad, META_CNT)
     st_np = _meta_vec(meta_np, Kpad, META_ST)
@@ -692,8 +710,11 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
         return int(rows[i]) if i < len(rows) else -1
 
     blk_np = lay.block[:K]
-    for b, p in enumerate(plan):
-        idxs = np.flatnonzero((blk_np == b) & lay.active[:K])
+
+    def repair_block(b, p, idxs):
+        """The repair of block b: its cursors' keep bounds and bridges,
+        and its end bit."""
+        nonlocal nbridge
         if len(idxs) == 0:
             raise DeviceDeclined("block %d has no cursor" % b)
         current = int(idxs[0])
@@ -793,6 +814,22 @@ def _repair_splice(buf, lay: Layout, meta_np, tok_bp, flagged, *, bridge_chunk=1
             k2, ii = sync
             keep_lo[k2] = ii  # cursors between current and k2 stay dead
             current = k2
+        return b_end
+
+    for b, p in enumerate(plan):
+        idxs = np.flatnonzero((blk_np == b) & lay.active[:K])
+        try:
+            b_end = repair_block(b, p, idxs)
+        except DeviceDeclined:
+            if failed is None:
+                raise
+            # the block's tokens are dropped; its stream decodes elsewhere
+            failed.add(b)
+            keep_lo[idxs] = CAP
+            keep_hi[idxs] = 0
+            for k in idxs:
+                bridge_ins.pop(int(k), None)
+            b_end = None
         block_end_bits.append(b_end)
     trace.count("inflate.repair_bridge", nbridge)
     return keep_lo, keep_hi, bridge_ins, block_end_bits

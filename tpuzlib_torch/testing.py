@@ -168,6 +168,20 @@ def inflate_device_route(data, device="cpu"):
     return _inflate_device(u8_view(data), device)
 
 
+def members_device_route(data, index=None, device="cpu"):
+    """inflate_members()'s device route on `data` at any size (the batched
+    decode on `device`, its plain versions on the CPU, then the host
+    engine for each member it does not prove): the bytes inflate_members()
+    gives on a card, with its verdicts; where the members' sizes are
+    unknown, the host route."""
+    from .api.inflate_api import _inflate_members, member_index
+    from .common import u8_view
+
+    view = u8_view(data)
+    members = member_index(view, index)
+    return _inflate_members(view, members, device, members is not None)
+
+
 @contextlib.contextmanager
 def no_native():
     """The native library switched off inside the block (every call site

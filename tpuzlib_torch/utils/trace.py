@@ -20,9 +20,12 @@ and return shapes:
   (``get_counters()['inflate.device_fallback']``).  A counter that a
   device program computes (count_on_device) stays in an int64 tensor on
   that device and is read, and folded in, by get_counters() only: the
-  program adds it without reading anything back.  The copy counters
-  (count_copy: copy.h2d_bytes, copy.d2h_bytes) count only while the
-  telemetry is on.
+  program adds it without reading anything back.  A kernel's device
+  time (count_device_ns) is a pair of CUDA events kept until
+  get_counters() reads their elapsed time into its counter, in ns, so
+  the call that recorded them never waits for the card.  The copy
+  counters (count_copy: copy.h2d_bytes, copy.d2h_bytes) count only while
+  the telemetry is on.
 - profile(): a torch.profiler capture of the host and the card, written
   as a Chrome trace into `logdir`; it turns the telemetry on while it
   runs.
@@ -172,6 +175,8 @@ _COPY_COUNTERS = {"h2d": "copy.h2d_bytes", "d2h": "copy.d2h_bytes"}
 _CPU = torch.device("cpu")
 # (name, device) -> int64 0-d tensor on that device (count_on_device)
 _device_counters: dict = {}
+# (name, start event, end event) not yet read (count_device_ns)
+_device_times: list = []
 
 
 def count(name: str, n: int = 1) -> None:
@@ -190,6 +195,14 @@ def count_on_device(name: str, n: torch.Tensor) -> None:
         if acc is None:
             acc = _device_counters[key] = torch.zeros((), dtype=torch.int64, device=n.device)
     acc.add_(n.reshape(()))
+
+
+def count_device_ns(name: str, start, end) -> None:
+    """Add the device time between the recorded CUDA events `start` and
+    `end` (enable_timing=True) to counter `name`, in ns, when
+    get_counters() next runs: it waits for `end` then, not here."""
+    with _lock:
+        _device_times.append((name, start, end))
 
 
 def count_copy(direction: str, device, *xs) -> None:
@@ -211,6 +224,10 @@ def count_copy(direction: str, device, *xs) -> None:
 
 def get_counters() -> dict:
     with _lock:
+        for name, start, end in _device_times:
+            end.synchronize()
+            _counters[name] += int(round(start.elapsed_time(end) * 1e6))
+        _device_times.clear()
         out = dict(_counters)
         for (name, _), acc in _device_counters.items():
             out[name] = out.get(name, 0) + int(acc)
@@ -221,6 +238,7 @@ def reset_counters() -> None:
     with _lock:
         _counters.clear()
         _device_counters.clear()
+        _device_times.clear()
 
 
 @contextlib.contextmanager
